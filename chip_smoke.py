@@ -11,7 +11,9 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      (into the git-ignored ``build/``), with their register counts.
   2. main path — an IVF + ADSampling engine over a clustered collection at
      the shape of the GIST1M dataset (n = 1,000,000, D = 960), capacity
-     1024, k = 10.  For each scan dtype (f32, bf16, int8, int4): 16 single
+     1024, k = 10; the data is drawn from ``--seed``, the rotation and
+     k-means from ``--seed + 1``, so the two share no random draws.  For
+     each scan dtype (f32, bf16, int8, int4): 16 single
      queries (``fused-scan``, one K1 launch each) and one batch of 64
      (``fused-batch``, K2), with the launch counters zeroed just before and
      read just after, the executors checked, returned distances checked
@@ -19,16 +21,28 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      against a ground truth computed on the card by direct f32
      differences (>= 0.95 for fused-scan, >= 0.99 for fused-batch at
      f32/bf16/int8; recorded at int4, see RECALL_FLOORS).
-  3. kernels vs plain — K1 and K2 at every dtype on the engine's own
-     mirror, real queries and threshold (K1 also at thr = +inf and at the
-     1 % quantile of the lanes' full distances, so that lanes die at every
-     d-tile), against their plain PyTorch
+  3. cascade — the same engine through the multi-resolution cascade, for
+     each ladder of LADDERS: 16 single queries (``cascade-scan``: K1 on the
+     first stage, K3 on the second) and one batch of 64 (``cascade-batch``:
+     K2 once per d-tile per stage), counters zeroed just before each and
+     read just after, recall@10 >= 0.99 and returned distances exact for
+     both, and equal ids on the queries both answer.  Survivors and bytes
+     per stage come from the port's own counters.
+  4. kernels vs plain — K1, K2 and K3 at every dtype on the engine's own
+     mirror, real queries and threshold (K1 and K3 also at thr = +inf and
+     at the 1 % quantile of the lanes' full distances, so that lanes die
+     at every d-tile; K3's ids are a real previous stage's survivors);
+     K1 at ladder A's projection stage (d_tile = rank, eps0 = 0); K2 per
+     d-tile in each ``cascade-batch`` stage, on the arguments that stage
+     passed on the counted path (also at +inf and the 1 % quantile) —
+     against their plain PyTorch
      versions on the same card tensors, with CUDA-event medians of the
      kernel, the plain version and (K2) a library matmul, and the least
      time the card could take (bound).
      Before it, a ``torch.profiler`` breakdown of the main path's device
-     time by kernel at f32 and int8 (where the time goes).
-  4. the kernels line: one JSON object per kernel and dtype.
+     time by kernel at f32 and int8, and of cascade ladder A (where the
+     time goes).
+  5. the kernels line: one JSON object per kernel and dtype.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -69,6 +83,13 @@ K1_SOURCE = "src/repro_torch/kernels/csrc/pdx_scan.cu"
 K1_REPLACES = "src/repro/kernels/pdx_scan.py:236"
 K2_SOURCE = "src/repro_torch/kernels/csrc/batched_matmul.cu"
 K2_REPLACES = "src/repro/kernels/batched_matmul.py:124"
+K3_SOURCE = K1_SOURCE
+K3_REPLACES = "src/repro/kernels/pdx_scan.py:366"
+
+# cascade ladders: A is the reference's own benchmark ladder
+# (benchmarks/bench_cascade.py), B a full-dimension one
+LADDERS = {"A": ("proj32:int8", "int4", "f32"), "B": ("bf16", "int8", "f32")}
+CASCADE_RECALL_FLOOR = 0.99
 
 
 def emit(obj: dict) -> None:
@@ -150,16 +171,16 @@ def dist_error(torch, X, Q, ids, dists) -> float:
     return float(((got - true).abs() / true.clamp(min=1e-6)).max())
 
 
-def where_time_goes(torch, eng, Q, spec, dtype: str) -> dict:
-    """Device time by kernel name under ``torch.profiler`` for the main
-    path's two calls (16 single queries, one batch of 64), beside their
-    host wall time: the device busy share and the top kernels."""
+def where_time_goes(torch, eng, Q, spec, prefix: str, **tag) -> dict:
+    """Device time by kernel name under ``torch.profiler`` for the path's
+    two calls (16 single queries, one batch of 64), beside their host wall
+    time: the device busy share and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    out = {"phase": "where_time_goes", "scan_dtype": dtype}
+    out = {"phase": "where_time_goes", **tag}
     for label, run in (
-        ("fused_scan_16_queries", lambda: [eng.search(Q[i], spec) for i in range(N_SINGLE)]),
-        ("fused_batch_64", lambda: eng.search(Q, spec)),
+        (f"{prefix}_scan_16_queries", lambda: [eng.search(Q[i], spec) for i in range(N_SINGLE)]),
+        (f"{prefix}_batch_64", lambda: eng.search(Q, spec)),
     ):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -182,30 +203,318 @@ def where_time_goes(torch, eng, Q, spec, dtype: str) -> dict:
     return out
 
 
-def k1_parity(torch, ref, m, ids, qt, thr, eps0, live):
-    """K1 through its op against the plain version on the same card
-    tensors: alive masks may differ only on lanes whose keep test came
-    within 1e-4 relative of the bound; dists allclose where both keep a
-    lane.  -> (ok, max abs err, mismatches, their largest margin, the plain
-    walk's trace, the kernel's alive mask)."""
-    from repro_torch.kernels.ops import pdx_prune_scan_multi_op
+def scan_parity(torch, ref, m, ids, qt, thr, eps0, prefetch: bool = False,
+                d_tile: int = 64):
+    """K1 (or K3 with ``prefetch``) through its op against the plain
+    version on the same card tensors: alive masks may differ only on lanes
+    whose keep test came within 1e-4 relative of the bound, no lane with
+    ids < 0 is alive, dists allclose where both keep a lane, and (K3)
+    ``streamed`` equal on every partition whose masks agree.  -> (summary,
+    the plain walk's trace, the kernel's alive mask)."""
+    from repro_torch.kernels.ops import (
+        pdx_prune_scan_multi_op, pdx_prune_scan_multi_prefetch_op,
+    )
 
     sc = m.scale if m.quantized else None
     off = m.offset if m.quantized else None
-    kd, ka = pdx_prune_scan_multi_op(m.data, ids, qt, thr, sc, off, eps0=eps0,
-                                     packed=m.packed, dim=m.dim)
-    pd_, pa, walk = ref.pdx_prune_scan_multi_ref(
-        m.data, ids, qt, thr, d_tile=64, eps0=eps0, scale=sc, offset=off,
-        packed=m.packed, dim=m.dim, trace=True)
-    pa = pa != 0
+    op = pdx_prune_scan_multi_prefetch_op if prefetch else pdx_prune_scan_multi_op
+    plain = ref.pdx_prune_scan_multi_dskip_ref if prefetch else ref.pdx_prune_scan_multi_ref
+    kern = op(m.data, ids, qt, thr, sc, off, eps0=eps0, d_tile=d_tile,
+              packed=m.packed, dim=m.dim)
+    *want, walk = plain(m.data, ids, qt, thr, d_tile=d_tile, eps0=eps0, scale=sc,
+                        offset=off, packed=m.packed, dim=m.dim, trace=True)
+    kd, ka, pd_, pa = kern[0], kern[1], want[0], want[1] != 0
+    live = ids >= 0
     both = ka & pa & live
     mism = (ka != pa) & live
     n_mism = int(mism.sum())
-    margin_max = float(walk.margin[mism].max()) if n_mism else 0.0
-    err = float((kd - pd_).abs()[both].max()) if both.any() else 0.0
-    ok = bool(torch.allclose(kd[both], pd_[both], rtol=1e-4, atol=1e-3)) and (
-        margin_max < 1e-4)
-    return ok, err, n_mism, margin_max, walk, ka
+    out = {"max_abs_err": float((kd - pd_).abs()[both].max()) if both.any() else 0.0,
+           "alive_mismatches": n_mism,
+           "mismatch_margin_max": float(walk.margin[mism].max()) if n_mism else 0.0}
+    ok = (bool(torch.allclose(kd[both], pd_[both], rtol=1e-4, atol=1e-3))
+          and out["mismatch_margin_max"] < 1e-4 and not bool(ka[~live].any()))
+    if prefetch:
+        agree = ~mism.any(dim=1)
+        out["streamed_mismatches"] = int((kern[2] != want[2])[agree].sum())
+        ok = ok and out["streamed_mismatches"] == 0
+    return {"parity": ok, **out}, walk, ka
+
+
+def scan_kernel_row(torch, ref, m, ids, qt, thr, eps0, *, prefetch: bool,
+                    launches: int, d_tile: int = 64, tag: str = "",
+                    **row_extra) -> dict:
+    """K1 (or K3) on mirror ``m`` at ``d_tile``: held to its plain version
+    at the path's threshold ``thr`` and, since a path's threshold may kill
+    most lanes in the first d-tiles, also at +inf and at the 1 % quantile
+    of the live lanes' full distances, where lanes die at every d-tile;
+    CUDA-event medians of the kernel (on the operands its wrapper prepares)
+    and of the plain version; the bound.  ``tag`` names the row (the mirror
+    dtype by default).  Emits the phase line, returns the row."""
+    from repro_torch.kernels.ops import _prep_multi
+    from repro_torch.kernels.pdx_scan import (
+        pdx_prune_scan_multi_cuda, pdx_prune_scan_multi_prefetch_cuda,
+    )
+    from repro_torch.obs.meters import tile_widths
+
+    sc = m.scale if m.quantized else None
+    off = m.offset if m.quantized else None
+    plain_fn = ref.pdx_prune_scan_multi_dskip_ref if prefetch else ref.pdx_prune_scan_multi_ref
+
+    def plain(t=thr):
+        return plain_fn(m.data, ids, qt, t, d_tile=d_tile, eps0=eps0, scale=sc,
+                        offset=off, packed=m.packed, dim=m.dim)
+
+    name = "K3 pdx_prune_scan_multi_prefetch" if prefetch else "K1 pdx_prune_scan_multi"
+    name = f"{name} [{tag or m.dtype}]"
+    summary, walk, ka = scan_parity(torch, ref, m, ids, qt, thr, eps0, prefetch, d_tile)
+    live = ids >= 0
+    full = plain(float("inf"))[0][live]
+    extra = {}
+    for label, t in (("inf", float("inf")),
+                     ("q1", torch.kthvalue(full, max(1, full.numel() // 100)).values)):
+        sx, walkx, _ = scan_parity(torch, ref, m, ids, qt, t, eps0, prefetch, d_tile)
+        extra[f"thr_{label}"] = {"threshold": float(t), **sx,
+                                 "lanes_per_tile": walkx.lanes.cpu().tolist()}
+        assert sx["parity"], f"{name} disagrees with its plain version at thr {label}"
+    del full
+    P, _, C = m.data.shape
+    lanes = walk.lanes.cpu().numpy()
+    parts = walk.parts.cpu().numpy()
+    w = tile_widths(m.dim, d_tile)
+    # the tiles of the partitions still alive entering each d-tile, at the
+    # mirror's width; ids in, dists and alive (and K3's streamed) out;
+    # q/scale/offset; the operations of the lanes alive entering each tile
+    nbytes = (float((parts * w).sum()) * C * m.bytes_per_value
+              + P * C * (4 + 4 + 1) + (P * 4 if prefetch else 0) + 3 * m.dim * 4)
+    flops = float((lanes * w).sum()) * (5 if m.quantized else 3)
+    b, by = bound_ms(nbytes, flops)
+    args, kwargs = _prep_multi(m.data, ids, qt, thr, sc, off, eps0, d_tile, m.packed,
+                               m.dim)
+    kern = pdx_prune_scan_multi_prefetch_cuda if prefetch else pdx_prune_scan_multi_cuda
+    ms = cuda_ms(torch, lambda: kern(*args, **kwargs))
+    plain_ms = cuda_ms(torch, plain)
+    row = {"name": name, "route": "cuda",
+           "source": K3_SOURCE if prefetch else K1_SOURCE,
+           "replaces": K3_REPLACES if prefetch else K1_REPLACES,
+           "launches": launches, "max_abs_err": summary["max_abs_err"],
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+           "library_ms": None, "parity": summary["parity"], **row_extra}
+    emit({"phase": "kernel_vs_plain", **summary, **row, "threshold": float(thr),
+          "d_tile": d_tile, "eps0": eps0, "lanes_entering": int(live.sum()),
+          "partitions_entering": int(live.any(dim=1).sum()),
+          "lanes_alive_after": int(ka.sum()), "tiles_streamed": float(parts.sum()),
+          "bound_bytes": nbytes, "bound_flops": flops, **extra})
+    assert summary["parity"], f"{name} disagrees with its plain version"
+    return row
+
+
+def stage_kernel_row(torch, ref, call: dict, ladder: str, stage: str) -> dict:
+    """K2 per d-tile through ``batched_cascade_stage_op`` on the arguments a
+    ``cascade-batch`` stage passed it on the path (compacted union columns
+    at their real width S, the batch's entry alive and thresholds), held to
+    the plain stage (``ref.batched_cascade_stage_ref``, the plain K2 per
+    tile) at the path's thresholds, at +inf and at each query's 1 %
+    quantile of its entering lanes' full distances.  Tolerance: K2's own
+    per tile, ``|kernel - plain| <= 1e-5 * (||q||^2 + ||x^||^2) + 1e-3`` per
+    d-tile summed over the tiles; alive masks may differ only on pairs
+    whose keep test came within 1e-4 relative, or within that tolerance
+    (times D / d_tile), of the bound.  Emits the phase line, returns the
+    row."""
+    from repro_torch.kernels.ops import _unpack_int4_levels, batched_cascade_stage_op
+    from repro_torch.obs.meters import tile_widths
+
+    T, alive, Qs, thr, sc, off = call["args"]
+    kw = call["kwargs"]
+    eps0, d_tile, packed, D = kw["eps0"], kw["d_tile"], kw["packed"], kw["dim"]
+    B, S = alive.shape
+    w = tile_widths(D, d_tile)
+    levels = _unpack_int4_levels(T, D) if packed else T
+    xn = torch.zeros(S, device=T.device)
+    for lo in range(0, D, d_tile):
+        hi = min(lo + d_tile, D)
+        t = ref.dequantize_ref(levels[lo:hi], sc[lo:hi] if sc is not None else None,
+                               off[lo:hi] if off is not None else None)
+        xn += torch.sum(t * t, dim=0)
+    del levels, t
+    tol = 1e-5 * (torch.sum(Qs * Qs, dim=1)[:, None] + xn[None, :]) + 1e-3 * len(w)
+    # the least bound over the tiles is the last tile's (eps0 >= 0), and an
+    # acc error e moves acc * ratio by at most e * D / (first tile's width)
+    slack_scale = float(D / w[0]) / ref._inflation(eps0, D)
+    name = f"K2 batched_distance_quant in cascade stage [{ladder} {stage}]"
+
+    def kernel(t):
+        return batched_cascade_stage_op(T, alive, Qs, t, sc, off, **kw)
+
+    def plain(t, trace=False):
+        return ref.batched_cascade_stage_ref(T, alive, Qs, t, sc, off, trace=trace, **kw)
+
+    def parity(t):
+        kd, ka = kernel(t)
+        pd_, pa, walk = plain(t, trace=True)
+        pa = pa != 0
+        mism = (ka != pa) & alive
+        slack = torch.clamp(tol * slack_scale / t[:, None], min=1e-4)
+        n_mism = int(mism.sum())
+        both = ka & pa
+        diff = (kd - pd_).abs()
+        out = {"max_abs_err": float(diff[both].max()) if both.any() else 0.0,
+               "alive_mismatches": n_mism,
+               "mismatch_margin_max": float(walk.margin[mism].max()) if n_mism else 0.0,
+               "mismatches_beyond_slack": int((mism & (walk.margin >= slack)).sum())}
+        ok = (bool((diff <= tol)[both].all()) and out["mismatches_beyond_slack"] == 0
+              and not bool(ka[~alive].any()))
+        return {"parity": ok, **out}, walk
+
+    summary, walk = parity(thr)
+    full = torch.where(alive, plain(torch.full_like(thr, float("inf")))[0], float("inf"))
+    n_in = alive.sum(dim=1)
+    kth = torch.clamp(n_in // 100, min=1) - 1
+    q1 = torch.sort(full, dim=1).values.gather(1, kth[:, None])[:, 0]
+    del full
+    extra = {}
+    for label, t in (("inf", torch.full_like(thr, float("inf"))), ("q1", q1)):
+        sx, walkx = parity(t)
+        extra[f"thr_{label}"] = {**sx, "pairs_per_tile": walkx.lanes.cpu().tolist()}
+        assert sx["parity"], f"{name} disagrees with its plain version at thr {label}"
+    lanes = walk.lanes.cpu().numpy()
+    parts = walk.parts.cpu().numpy()
+    quantized = sc is not None
+    bpv = 0.5 if packed else T.element_size()
+    # the columns any query keeps entering each d-tile at the mirror's
+    # width; entry alive, queries, thresholds, dequant vectors in; dists and
+    # alive out.  Operations: the cross term of the pairs alive entering
+    # each tile, its epilogue, accumulate and keep test (2w + 7 a pair), and
+    # each entering column's norm and dequant
+    nbytes = (float((parts * w).sum()) * bpv + B * S * (1 + 4 + 1) + Qs.numel() * 4
+              + B * 4 + (2 * D * 4 if quantized else 0))
+    flops = (float((lanes * (2.0 * w + 7)).sum())
+             + float(parts[0]) * D * (4.0 if quantized else 2.0))
+    b, by = bound_ms(nbytes, flops)
+    ms = cuda_ms(torch, lambda: kernel(thr))
+    plain_ms = cuda_ms(torch, lambda: plain(thr))
+    row = {"name": name, "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+           "launches": call["k2_launches"], "max_abs_err": summary["max_abs_err"],
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+           "library_ms": None, "parity": summary["parity"]}
+    emit({"phase": "kernel_vs_plain", **summary, **row,
+          "library_call": None, "batch": B, "columns": S,
+          "columns_entering": int(parts[0]), "pairs_entering": int(alive.sum()),
+          "pairs_per_tile": lanes.tolist(), "columns_per_tile": parts.tolist(),
+          "d_tile": d_tile, "eps0": eps0, "bound_bytes": nbytes, "bound_flops": flops,
+          **extra})
+    assert summary["parity"], f"{name} disagrees with its plain version"
+    return row
+
+
+class StageRecorder:
+    """Stands in for ``ops.batched_cascade_stage_op`` while a
+    ``cascade-batch`` run is counted: calls the op, keeps each stage's
+    arguments and the K2 launches the call made."""
+
+    def __init__(self, ops, k2):
+        self.ops, self.k2, self.calls = ops, k2, []
+        self.op = ops.batched_cascade_stage_op
+
+    def __call__(self, *args, **kwargs):
+        n0 = self.k2.launches
+        out = self.op(*args, **kwargs)
+        self.calls.append({"args": args, "kwargs": kwargs,
+                           "k2_launches": self.k2.launches - n0})
+        return out
+
+    def __enter__(self):
+        self.ops.batched_cascade_stage_op = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.batched_cascade_stage_op = self.op
+        return False
+
+
+def cascade_ladder(torch, eng, Q, Xd, Qd, gt, name: str, ladder: tuple,
+                   counters: dict) -> tuple[dict, list]:
+    """Drive one cascade ladder through both executors with the launch
+    counters zeroed just before each run and read just after; assert the
+    executors, launch counts, recall, returned distances and equal ids of
+    the two executors; report survivors, bytes and re-rank width per stage
+    from the port's own counters.  -> (the phase line, the arguments and
+    K2 launches of each ``cascade-batch`` stage)."""
+    import contextlib
+
+    from repro_torch.core.engine import SearchSpec
+    from repro_torch.core.spec import parse_cascade_stage
+    from repro_torch.kernels import ops
+    from repro_torch.obs import metrics
+
+    spec = SearchSpec(k=K, cascade=ladder)
+    eng.search(Q[0], spec)  # warm the allocator and the libraries, uncounted
+    eng.search(Q, spec)
+    torch.cuda.synchronize()
+    stages = [parse_cascade_stage(s) for s in ladder][:-1]
+    D = eng.store.dim
+    # K2 runs once per d-tile of each stage: one tile on a projection
+    # (d_tile = rank), ceil(D / 64) on a full-dimension stage
+    k2_tiles = sum(1 if kind == "proj" else -(-D // 64) for kind, _, _ in stages)
+    out = {"phase": "cascade", "ladder": name, "stages": list(ladder)}
+    reg = metrics.get_registry()
+    results = {}
+    metrics.set_enabled(True)
+    try:
+        for executor, n_q, want in (
+            ("cascade-scan", N_SINGLE, {"k1": N_SINGLE, "k3": N_SINGLE, "k2": 0}),
+            ("cascade-batch", N_BATCH, {"k1": 0, "k3": 0, "k2": k2_tiles}),
+        ):
+            batch = executor == "cascade-batch"
+            with (StageRecorder(ops, counters["k2"]) if batch
+                  else contextlib.nullcontext()) as rec:
+                reg.reset()
+                for c in counters.values():
+                    c.launches = 0
+                t0 = time.perf_counter()
+                if batch:
+                    res = [eng.search(Q, spec)]
+                else:
+                    res = [eng.search(Q[i], spec) for i in range(N_SINGLE)]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got = {k: c.launches for k, c in counters.items()}
+            if batch:
+                stage_calls = rec.calls
+                assert len(stage_calls) == len(stages), stage_calls
+            for r in res:
+                assert r.plan.executor == executor, r.plan
+            assert got == want, f"ladder {name} {executor}: launches {got}, want {want}"
+            ids = np.stack([r.ids for r in res]).reshape(n_q, K)
+            dists = np.stack([r.dists for r in res]).reshape(n_q, K)
+            rec = recall(ids, gt[:n_q])
+            err = dist_error(torch, Xd, Qd[:n_q], ids, dists)
+            tag = executor.replace("-", "_")
+            rerank = reg.get("repro_device_bytes_total", executor=executor,
+                             component="rerank", dtype="f32")
+            out[tag] = {
+                "recall_at_10": rec, "dist_rel_err": err,
+                ("ms_per_query" if n_q == N_SINGLE else "ms_per_batch_of_64"):
+                    wall * 1e3 / (N_SINGLE if n_q == N_SINGLE else 1),
+                "launches": got,
+                "survivors_per_query": [
+                    reg.get("repro_cascade_stage_survivors", stage=str(si),
+                            stage_name=ladder[si]) / n_q for si in range(len(stages))],
+                "stage_bytes_per_query": [
+                    reg.get("repro_cascade_stage_bytes", stage=str(si),
+                            stage_name=ladder[si]) / n_q for si in range(len(stages))],
+                "rk_eff_mean": rerank / (D * 4 * n_q),
+            }
+            results[executor] = ids
+            assert err <= 1e-3, f"ladder {name} {executor}: returned distances off by {err}"
+            assert rec >= CASCADE_RECALL_FLOOR, f"ladder {name} {executor}: recall {rec}"
+    finally:
+        metrics.set_enabled(False)
+        reg.reset()
+    same = np.array_equal(results["cascade-batch"][:N_SINGLE], results["cascade-scan"])
+    out["batch_ids_equal_scan_ids"] = same
+    assert same, f"ladder {name}: cascade-batch ids differ from cascade-scan's"
+    out["cascade_batch"]["k2_launches_per_stage"] = [c["k2_launches"] for c in stage_calls]
+    return out, stage_calls
 
 
 def recall(found, true) -> float:
@@ -232,17 +541,19 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.engine import SearchSpec, VectorSearchEngine
-    from repro_torch.core.layout import device_mirror
+    from repro_torch.core.layout import device_mirror, projection_mirror
+    from repro_torch.core.plan import _inflate, _quant_err_norm
     from repro_torch.core.topk import topk_from_batch, topk_threshold
     from repro_torch.core.distance import pdx_distance
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.batched_matmul import batched_distance_quant_cuda
     from repro_torch.kernels.ops import (
-        _prep_multi, _unpack_int4_levels, batched_distance_quant_op,
+        _unpack_int4_levels, batched_distance_quant_op, pdx_prune_scan_multi_op,
     )
-    from repro_torch.kernels.pdx_scan import pdx_prune_scan_multi_cuda
-    from repro_torch.obs.meters import tile_widths
+    from repro_torch.kernels.pdx_scan import (
+        pdx_prune_scan_multi_cuda, pdx_prune_scan_multi_prefetch_cuda,
+    )
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -263,8 +574,11 @@ def main() -> int:
                         seed=args.seed)
     t_data = time.perf_counter() - t0
     t1 = time.perf_counter()
+    # the rotation and k-means draw from their own seed: seeded like the
+    # data, their first standard_normal draws would be the cluster centres'
+    engine_seed = args.seed + 1
     eng = VectorSearchEngine.build(X, index="ivf", pruner="adsampling",
-                                   capacity=1024, seed=args.seed, device=dev)
+                                   capacity=1024, seed=engine_seed, device=dev)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t1
     Xd = torch.from_numpy(X).to(dev)
@@ -276,7 +590,8 @@ def main() -> int:
         device_mirror(eng.store, dt)
     torch.cuda.synchronize()
     t_mirrors = time.perf_counter() - t2
-    emit({"phase": "build", "n": args.n, "dim": args.dim, "seed": args.seed,
+    emit({"phase": "build", "n": args.n, "dim": args.dim,
+          "data_seed": args.seed, "engine_seed": engine_seed,
           "nlist": eng.ivf.nlist, "partitions": eng.store.num_partitions,
           "capacity": eng.store.capacity, "data_s": t_data, "engine_s": t_build,
           "mirrors_s": t_mirrors,
@@ -335,9 +650,41 @@ def main() -> int:
           "k2_launches": batched_distance_quant_cuda.launches,
           "seconds": time.perf_counter() - t0})
 
+    # --------------------------------------------------------- 3. cascade
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    pm = projection_mirror(eng.store, 32, "int8")  # ladder A's first stage
+    torch.cuda.synchronize()
+    t_proj = time.perf_counter() - t0
+    counters = {"k1": pdx_prune_scan_multi_cuda,
+                "k3": pdx_prune_scan_multi_prefetch_cuda,
+                "k2": batched_distance_quant_cuda}
+    # launches on the cascade path: K1 by first stage (a dtype, or ladder
+    # A's projection), K3 by second-stage dtype, K2 by stage
+    k1_cascade = {}
+    k3_path_launches = {dt: 0 for dt in DTYPES}
+    stage_calls = {}
+    for name, ladder in LADDERS.items():
+        row, calls = cascade_ladder(torch, eng, Q, Xd, Qd, gt, name, ladder, counters)
+        if name == "A":
+            row["projection_mirror_build_s"] = t_proj
+        emit(row)
+        launched = row["cascade_scan"]["launches"]
+        k1_cascade[ladder[0]] = k1_cascade.get(ladder[0], 0) + launched["k1"]
+        k3_path_launches[ladder[1]] += launched["k3"]
+        for stage, call in zip(ladder, calls):
+            stage_calls[(name, stage)] = call
+    emit({"phase": "cascade_done", "k1_launches": k1_cascade,
+          "k3_launches": k3_path_launches,
+          "k2_launches_per_stage": {f"{a} {s}": c["k2_launches"]
+                                    for (a, s), c in stage_calls.items()},
+          "seconds": time.perf_counter() - t0})
+
     del Xd
     for dt in ("f32", "int8"):
-        emit(where_time_goes(torch, eng, Q, specs[dt], dt))
+        emit(where_time_goes(torch, eng, Q, specs[dt], "fused", scan_dtype=dt))
+    emit(where_time_goes(torch, eng, Q, SearchSpec(k=K, cascade=LADDERS["A"]),
+                         "cascade", cascade=list(LADDERS["A"])))
 
     # ------------------------------------------- 3. kernels vs plain
     store, pruner = eng.store, eng.pruner
@@ -350,7 +697,6 @@ def main() -> int:
     thr = topk_threshold(start)
     ids_scan = store.ids.clone()
     ids_scan[p0] = -1
-    live = ids_scan >= 0
     Qt = pruner.transform_batch(Qd)
     live_cols = (store.ids >= 0).reshape(-1)
     n_live = int(store.counts.sum())
@@ -360,57 +706,11 @@ def main() -> int:
         sc = m.scale if m.quantized else None
         off = m.offset if m.quantized else None
 
-        # K1 ------------------------------------------------------------
-        def k1_plain():
-            return ref.pdx_prune_scan_multi_ref(
-                m.data, ids_scan, qt, thr, d_tile=64, eps0=eps0, scale=sc,
-                offset=off, packed=m.packed, dim=m.dim)
-
-        ok1, err1, n_mism, margin_max, walk, ka = k1_parity(
-            torch, ref, m, ids_scan, qt, thr, eps0, live)
-        lanes = walk.lanes.cpu().numpy()
-        parts = walk.parts.cpu().numpy()
-        w = tile_widths(m.dim)
-        # the main path's threshold kills most lanes in the first d-tiles
-        # (at int4 all of them in the first); hold K1 also at thr = +inf and
-        # at the 1 % quantile of the lanes' full distances, where lanes die
-        # at every d-tile
-        full, _ = ref.pdx_prune_scan_multi_ref(
-            m.data, ids_scan, qt, float("inf"), d_tile=64, eps0=eps0, scale=sc,
-            offset=off, packed=m.packed, dim=m.dim)
-        full = full[live]
-        extra = {}
-        for tag, t in (("inf", float("inf")),
-                       ("q1", torch.kthvalue(full, max(1, full.numel() // 100)).values)):
-            okx, errx, nmx, mmx, walkx, _ = k1_parity(
-                torch, ref, m, ids_scan, qt, t, eps0, live)
-            extra[f"thr_{tag}"] = {
-                "threshold": float(t), "parity": okx, "max_abs_err": errx,
-                "alive_mismatches": nmx, "mismatch_margin_max": mmx,
-                "lanes_per_tile": walkx.lanes.cpu().tolist()}
-            assert okx, f"K1 {dt} disagrees with its plain version at thr {tag}"
-        del full
-        k1_bytes = (float((parts * w).sum()) * C * m.bytes_per_value
-                    + P * C * (4 + 4 + 1) + 3 * D * 4)
-        k1_flops = float((lanes * w).sum()) * (5 if m.quantized else 3)
-        b1, by1 = bound_ms(k1_bytes, k1_flops)
-        # time the kernel itself on the operands its wrapper prepares
-        args, kwargs = _prep_multi(m.data, ids_scan, qt, thr, sc, off, eps0, 64,
-                                   m.packed, m.dim)
-        ms1 = cuda_ms(torch, lambda: pdx_prune_scan_multi_cuda(*args, **kwargs))
-        plain1 = cuda_ms(torch, k1_plain)
-        row1 = {"name": f"K1 pdx_prune_scan_multi [{dt}]", "route": "cuda",
-                "source": K1_SOURCE, "replaces": K1_REPLACES,
-                "launches": per_dtype[dt]["k1"], "max_abs_err": err1,
-                "ms": ms1, "plain_ms": plain1, "bound_ms": b1, "bound_by": by1,
-                "library_ms": None, "parity": ok1}
-        emit({"phase": "kernel_vs_plain", **row1, "alive_mismatches": n_mism,
-              "mismatch_margin_max": margin_max,
-              "lanes_alive_after": int(ka.sum()),
-              "tiles_streamed": float(parts.sum()), "bound_bytes": k1_bytes,
-              "bound_flops": k1_flops, **extra})
-        assert ok1, f"K1 {dt} disagrees with its plain version"
-        kernels.append(row1)
+        by_executor = {"fused-scan": per_dtype[dt]["k1"],
+                       "cascade-scan": k1_cascade.get(dt, 0)}
+        kernels.append(scan_kernel_row(torch, ref, m, ids_scan, qt, thr, eps0,
+                                       prefetch=False, launches=sum(by_executor.values()),
+                                       launches_by_executor=by_executor))
 
         # K2 ------------------------------------------------------------
         kout = batched_distance_quant_op(m.data, Qt, sc, off, "l2",
@@ -458,6 +758,46 @@ def main() -> int:
         assert ok2, f"K2 {dt} disagrees with its plain version"
         kernels.append(row2)
         del T32, pout, kout, tiles, src
+
+    # K3 ----------------------------------------------------------------
+    # its ids are the survivors of a real previous stage: ladder A's
+    # projection stage (K1 at d_tile = rank, eps0 = 0) for the first query
+    # that has any, so entry-dead partitions are present
+    for i in range(N_SINGLE):
+        qt3 = pruner.transform_query(Qd[i])
+        p3 = int(eng.ivf.route(qt3, 1, "l2")[0][0])
+        thr3 = topk_threshold(topk_from_batch(
+            pdx_distance(store.data[p3], qt3), store.ids[p3], K))
+        ids3 = store.ids.clone()
+        ids3[p3] = -1
+        qp3, thr_p = qt3 @ pm.components, _inflate(thr3, _quant_err_norm(pm))
+        _, alive0 = pdx_prune_scan_multi_op(
+            pm.data, ids3, qp3, thr_p, pm.scale, pm.offset, eps0=0.0,
+            d_tile=pm.rank, dim=pm.dim)
+        if bool(alive0.any()):
+            break
+    # K1 at ladder A's first stage: the int8 projection mirror, one test at
+    # d = rank with eps 0 and the inflated threshold
+    kernels.append(scan_kernel_row(
+        torch, ref, pm, ids3, qp3, thr_p, 0.0, prefetch=False, d_tile=pm.rank,
+        tag=LADDERS["A"][0], launches=k1_cascade[LADDERS["A"][0]],
+        launches_by_executor={"cascade-scan": k1_cascade[LADDERS["A"][0]]}))
+    ids_k3 = torch.where(alive0, ids3, -1)
+    live3 = ids_k3 >= 0
+    assert bool(live3.any()), "no query keeps a lane through the projection stage"
+    # a row's launches: K3 on the cascade path at that dtype (the path runs
+    # it at int4 and int8 only; the f32 and bf16 rows are held off the path)
+    for dt in DTYPES:
+        m = device_mirror(store, dt)
+        thr_m = _inflate(thr3, _quant_err_norm(m))  # the cascade's own threshold
+        kernels.append(scan_kernel_row(
+            torch, ref, m, ids_k3, qt3, thr_m, eps0, prefetch=True,
+            launches=k3_path_launches[dt], on_path=k3_path_launches[dt] > 0))
+
+    # K2 per d-tile in cascade-batch, on each stage's compacted columns
+    for (name, stage), call in stage_calls.items():
+        kernels.append(stage_kernel_row(torch, ref, call, name, stage))
+    del stage_calls
 
     # ----------------------------------------------------- 4. the record
     emit({"kernels": kernels})

@@ -10,13 +10,14 @@ out; the store lives on one device.
 
 ``build(..., device=None)`` places the store on ``"cuda"``; where no card
 exists it raises and asks for ``device="cpu"``, never falling back
-quietly.  On CUDA the planner picks the fused executors, which run the
-hand-written kernels; on the CPU the same executors run their plain
-PyTorch versions when a spec asks for them.
+quietly.  On CUDA the planner picks the fused executors (or, for a spec
+with a ``cascade``, the cascade executors), which run the hand-written
+kernels; on the CPU the same executors run their plain PyTorch versions
+when a spec asks for them.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
 item): ``insert``/``delete``/``compact`` (the mutable store), meshes, the
-IVF centroid tree, cascades and tiered serving.
+IVF centroid tree and tiered serving.
 """
 from __future__ import annotations
 

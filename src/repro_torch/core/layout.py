@@ -25,6 +25,10 @@ bound, so bytes per value are the lever):
         nibble and ``2d + 1`` in its high nibble, biased by +8;
         ``data.shape[1]`` is ceil(D/2), so consumers take D from
         ``mirror.dim``.
+
+Projection mirrors (``projection_mirror``) hold the tiles projected onto
+the collection's top PCA components, at any of those dtypes: the first
+stage of a multi-resolution cascade.
 """
 from __future__ import annotations
 
@@ -36,14 +40,17 @@ import torch
 
 from ..obs import metrics as _metrics
 from .device import resolve_device
+from .pruners import pca_components
 
 __all__ = [
     "PDXPartition",
     "PDXStore",
     "DeviceMirror",
+    "ProjectionMirror",
     "SCAN_DTYPES",
     "PAD_VALUE",
     "device_mirror",
+    "projection_mirror",
     "unpack_int4",
     "build_flat_store",
     "build_bucketed_store",
@@ -194,6 +201,95 @@ def device_mirror(store, dtype: str = "f32") -> DeviceMirror:
     return mirror
 
 
+@dataclasses.dataclass(frozen=True)
+class ProjectionMirror(DeviceMirror):
+    """A skinny learned-projection copy of the tiles (LeanVec-style).
+
+    ``data`` is (P, rank, C) in the mirror dtype — packed (P, ceil(rank/2),
+    C) uint8 for int4 — holding the tiles projected onto the top-``rank``
+    PCA components of the collection.  The components are orthonormal, so
+    the projected squared L2 distance lower-bounds the full one for every
+    query, and a plain ``proj_dist <= thr`` keep test is exact-safe under
+    any pruner.  Same consumer contract as ``DeviceMirror``; ``dim`` is the
+    logical projected dimensionality (= rank), ``scale``/``offset`` are
+    (rank,)."""
+
+    components: Optional[torch.Tensor] = None  # (D, rank) f32: q_proj = q @ C
+
+    @property
+    def rank(self) -> int:
+        return self.dim
+
+
+# PCA of the projection mirror is fitted on the first rows in id order.
+_PCA_SAMPLE_ROWS = 65536
+
+
+def _nary_head(store, n: int) -> np.ndarray:
+    """The first ``n`` rows of ``pdx_to_nary(store)``, gathered on the
+    store's device without materializing the rest (the same values, so a
+    PCA fitted on them equals one fitted on the reference's sample)."""
+    ids = store.ids.cpu().numpy().reshape(-1)
+    live = np.flatnonzero(ids >= 0)
+    pos = live[np.argsort(ids[live], kind="stable")[:n]]
+    C = store.capacity
+    p = torch.from_numpy(pos // C).to(store.device)
+    c = torch.from_numpy(pos % C).to(store.device)
+    return np.ascontiguousarray(store.data[p, :, c].cpu().numpy())
+
+
+def projection_mirror(store, rank: int, dtype: str = "f32") -> ProjectionMirror:
+    """The store's rank-``rank`` PCA projection mirror, cached per
+    ``(rank, dtype, tiles_version)`` on the store; the PCA components are
+    shared across rank and dtype variants of one version (fitting dominates
+    the build).  Quantized dtypes use the ``device_mirror`` affine recipe
+    centred on the projected collection means."""
+    if dtype not in SCAN_DTYPES:
+        raise ValueError(f"scan dtype must be one of {SCAN_DTYPES}, got {dtype!r}")
+    D = store.dim
+    if not 1 <= rank <= D:
+        raise ValueError(f"projection rank must be in [1, {D}], got {rank}")
+    version = getattr(store, "tiles_version", 0)
+    cache = store._proj_cache
+    key = (rank, dtype, version)
+    mirror = cache.get(key)
+    _metrics.counter(
+        "repro_cache_events_total", cache="proj_mirror",
+        event="hit" if mirror is not None else "miss",
+    )
+    if mirror is None:
+        _metrics.counter("repro_mirror_builds_total", dtype=f"proj:{dtype}")
+        comps = cache.get(("comps", version))
+        if comps is None:
+            sample = _nary_head(store, _PCA_SAMPLE_ROWS)
+            if len(sample) < 2:  # degenerate: identity "projection"
+                comps = np.eye(D, dtype=np.float32)
+            else:
+                comps, _ = pca_components(sample)
+            cache[("comps", version)] = comps
+        Cj = torch.from_numpy(np.ascontiguousarray(comps[:, :rank])).to(store.device)
+        proj = torch.einsum("dr,pdc->prc", Cj, store.data)
+        means = Cj.T @ store.dim_means
+        ones = torch.ones((rank,), dtype=torch.float32, device=store.device)
+        zeros = torch.zeros((rank,), dtype=torch.float32, device=store.device)
+        if dtype == "f32":
+            mdata, scale, offset = proj, ones, zeros
+        elif dtype == "bf16":
+            mdata, scale, offset = proj.to(torch.bfloat16), ones, zeros
+        elif dtype == "int8":
+            mdata, scale, offset = _quantize_int8(proj, store.ids, means)
+        else:
+            mdata, scale, offset = _quantize_int4(proj, store.ids, means)
+        mirror = ProjectionMirror(
+            dtype=dtype, data=mdata, scale=scale, offset=offset,
+            components=Cj, tiles_version=version, dim=rank,
+        )
+        for stale in [kk for kk in cache if kk[-1] != version]:
+            del cache[stale]
+        cache[key] = mirror
+    return mirror
+
+
 @dataclasses.dataclass
 class PDXPartition:
     """One PDX partition: ``data[d, i]`` = dimension ``d`` of vector ``i``."""
@@ -229,6 +325,9 @@ class PDXStore:
     dim_means: torch.Tensor
     dim_vars: torch.Tensor
     _mirror_cache: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False
+    )
+    _proj_cache: dict = dataclasses.field(
         default_factory=dict, repr=False, compare=False
     )
 

@@ -15,25 +15,34 @@ metric/pruner config — and differ only in execution strategy:
                 bucket's first partition when an index exists).
   fused-batch   one launch of the batched distance kernel (K2) over every
                 mirror tile — the batched counterpart of fused-scan.
+  cascade-scan  the multi-resolution cascade (``spec.cascade``), one query
+                at a time: a projection or full-dimension first stage (K1),
+                later stages over the survivors only (K3), then an exact
+                f32 re-rank of every survivor.
+  cascade-batch the same cascade once per batch: each stage gathers the
+                union of the batch's survivors and runs its d-tile ladder
+                through K2; ids and distances equal cascade-scan's bitwise.
 
-Both fused executors re-rank the top ``rerank_mult * k`` candidates
+The fused executors re-rank the top ``rerank_mult * k`` candidates
 against the f32 master tiles whenever ``scan_dtype != "f32"``, so returned
 distances stay exact.  Their kernels run on CUDA tensors; on CPU tensors
 the same ops run the kernels' plain PyTorch versions (``kernels.ops``
 dispatches by device).
 
-Planner rules, in order: a forced ``spec.executor`` wins; otherwise a
-fused-eligible spec (``kernel="cuda"``, a store on CUDA with
-``kernel="auto"``, or any reduced-precision ``scan_dtype``) picks a fused
-executor — single L2 queries the scan, batches (and other metrics) the
-batched kernel; otherwise batches take the matmul scan and single queries
-the adaptive path.  ``kernel="cuda"`` on a CPU store raises, and so does
-``kernel="torch"`` when a fused executor would run on a CUDA store: the
-knob steers planning, the tensors' device picks the body.
+Planner rules, in order: a forced ``spec.executor`` wins; otherwise a spec
+with a ``cascade`` picks cascade-batch for batches and cascade-scan for
+single queries; otherwise a fused-eligible spec (``kernel="cuda"``, a
+store on CUDA with ``kernel="auto"``, or any reduced-precision
+``scan_dtype``) picks a fused executor — single L2 queries the scan,
+batches (and other metrics) the batched kernel; otherwise batches take the
+matmul scan and single queries the adaptive path.  ``kernel="cuda"`` on a
+CPU store raises, and so does ``kernel="torch"`` when a fused or cascade
+executor would run on a CUDA store: the knob steers planning, the tensors'
+device picks the body.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: ``jit-masked`` (``prefer_static``), the cascade executors,
-tiered serving (``hbm_slots``) and the mesh-sharded executors.
+ROADMAP item: ``jit-masked`` (``prefer_static``), tiered serving
+(``hbm_slots``) and the mesh-sharded executors.
 """
 from __future__ import annotations
 
@@ -46,10 +55,10 @@ import torch
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from .distance import pdx_distance
-from .layout import PDXStore, device_mirror
+from .layout import PDXStore, device_mirror, projection_mirror
 from .pdxearch import SearchStats, pdxearch, search_batch_matmul
 from .pruners import Pruner
-from .spec import SearchSpec
+from .spec import SearchSpec, parse_cascade_stage
 from .topk import (
     TopK,
     rerank_positions,
@@ -73,8 +82,6 @@ __all__ = [
 #: item (modules queue) that will bring each one.
 UNPORTED_EXECUTORS = {
     "jit-masked": "'pdxearch_jit and the jit-masked executor'",
-    "cascade-scan": "'Cascade'",
-    "cascade-batch": "'Cascade'",
     "tiered-scan": "'Tiered cache'",
     "routed_tiered": "'Multi-device search'",
     "block-sharded": "'Multi-device search'",
@@ -109,6 +116,10 @@ class ExecutionPlan:
 _EXECUTORS: dict[str, Callable] = {}
 
 _FUSED = ("fused-scan", "fused-batch")
+_CASCADE = ("cascade-scan", "cascade-batch")
+# executors that run the hand-written kernels on a CUDA store and scan the
+# reduced-precision device mirrors
+_KERNEL_EXECUTORS = _FUSED + _CASCADE
 
 
 def register_executor(name: str):
@@ -161,19 +172,25 @@ def plan_search(
     body = "cuda" if _on_cuda(store) else "torch"
 
     def plan(executor: str, reason: str) -> ExecutionPlan:
-        if executor in _FUSED and spec.kernel == "torch" and _on_cuda(store):
+        if (executor in _KERNEL_EXECUTORS and spec.kernel == "torch"
+                and _on_cuda(store)):
             raise ValueError(
                 f"kernel='torch' with executor {executor!r} on a CUDA store: "
-                "the fused executors run the CUDA kernels on the card "
-                "(use kernel='auto' or 'cuda', or scan_dtype='f32' without "
-                "forcing a fused executor)"
+                "the fused and cascade executors run the CUDA kernels on the "
+                "card (use kernel='auto' or 'cuda', or neither a cascade nor "
+                "a reduced scan_dtype nor a forced fused executor)"
             )
-        if spec.kernel == "cuda" and executor not in _FUSED:
+        if spec.kernel == "cuda" and executor not in _KERNEL_EXECUTORS:
             reason += " (kernel='cuda' noted: this executor runs plain torch)"
-        if spec.scan_dtype != "f32" and executor not in _FUSED:
+        if spec.scan_dtype != "f32" and executor not in _KERNEL_EXECUTORS:
             reason += (
                 f" (scan_dtype={spec.scan_dtype!r} ignored: this executor "
                 "scans the f32 masters)"
+            )
+        if spec.cascade is not None and executor not in _CASCADE:
+            reason += (
+                " (cascade ignored: only the cascade executors run stage "
+                "pipelines)"
             )
         return ExecutionPlan(
             executor=executor, reason=reason, n_queries=n_queries,
@@ -209,7 +226,19 @@ def _host_plan(spec, n_queries, ivf, store, plan, body: str) -> ExecutionPlan:
     if spec.hbm_slots is not None and ivf is not None:
         raise _not_ported("tiered serving (hbm_slots)", "'Tiered cache'")
     if spec.cascade is not None:
-        raise _not_ported("the cascade executors", "'Cascade'")
+        where = "IVF-routed START, " if ivf is not None else ""
+        stages = "→".join(spec.cascade)
+        if n_queries > 1:
+            return plan(
+                "cascade-batch",
+                f"multi-resolution cascade {stages} batched through the "
+                f"batched distance kernel ({where}kernel={body}, B={n_queries})",
+            )
+        return plan(
+            "cascade-scan",
+            f"multi-resolution cascade {stages} ({where}kernel={body}, "
+            f"B={n_queries})",
+        )
     if _wants_fused(spec, store):
         if n_queries == 1 and spec.metric == "l2":
             where = "IVF-routed START, " if ivf is not None else ""
@@ -430,15 +459,7 @@ def _exec_fused_scan(store, pruner, Q, spec, *, ivf, stats):
     inf = torch.full((), float("inf"), dtype=torch.float32, device=store.device)
     out = []
     for q in Q:
-        qt = pruner.transform_query(q.to(torch.float32))
-        p0 = 0
-        if ivf is not None:
-            order, _ = ivf.route(qt, 1, "l2", dtype=spec.route_dtype)
-            if len(order):
-                p0 = int(order[0])
-        start = topk_from_batch(
-            pdx_distance(store.data[p0], qt, "l2"), store.ids[p0], spec.k
-        )
+        qt, p0, start = _start(store, pruner, q, spec, ivf)
         thr = topk_threshold(start) if prune else inf
         out.append(_fused_scan_one(
             mirror, store.data, store.ids, p0, qt, thr, sc, off, eps0, rk,
@@ -500,7 +521,6 @@ def _fused_scan_one(
 ) -> TopK:
     from ..kernels.ops import pdx_prune_scan_multi_op
 
-    P, _, C = mirror.data.shape
     # the START partition was scanned exactly already: kill its lanes so the
     # fused scan skips it and its ids never enter the pool twice
     ids_scan = ids.clone()
@@ -509,9 +529,18 @@ def _fused_scan_one(
         mirror.data, ids_scan, qt, thr, scale, offset, eps0=eps0,
         packed=mirror.packed, dim=mirror.dim,
     )
+    return _finish(master, ids_scan, qt, dists, alive, rk, k, start, exact)
+
+
+def _finish(master, ids_scan, qt, dists, alive, rk: int, k: int, start: TopK,
+            exact: bool = False) -> TopK:
+    """Top-``rk`` surviving flat positions by their scan distance, re-scored
+    against the f32 masters unless the scan was ``exact``, merged with the
+    exact START candidates."""
     flat_d = torch.where(alive, dists, float("inf")).reshape(-1)
     cand = topk_from_batch(
-        flat_d, torch.arange(P * C, dtype=torch.int32, device=flat_d.device), rk
+        flat_d, torch.arange(flat_d.shape[0], dtype=torch.int32,
+                             device=flat_d.device), rk
     )
     # dead lanes carry +inf: only real survivors are selected unless fewer
     # than rk survive, and PAD positions resolve to id -1 below either way
@@ -524,3 +553,311 @@ def _fused_scan_one(
         )
         res = TopK(dists=res.dists[0], ids=res.ids[0])
     return topk_merge(res, start.dists, start.ids)
+
+
+# ------------------------------------------------------- cascade executors
+def _quant_err_norm(mirror) -> float:
+    """L2 norm bound of a quantized mirror's reconstruction error vector.
+
+    Per-dimension rounding error is at most ``scale_d / 2`` (the observed-
+    range affine never clips), so ``||x_hat - x|| <= 0.5 * ||scale||`` for
+    every live vector, and by the triangle inequality a vector within
+    ``thr`` of the query lies within ``(sqrt(thr) + err)^2`` in dequantized
+    space: the exact-safe threshold inflation of the quantized stages.  A
+    NumPy norm as a Python float, as the reference computes it."""
+    if not mirror.quantized:
+        return 0.0
+    return 0.5 * float(np.linalg.norm(mirror.scale.cpu().numpy()))
+
+
+def _cascade_mirrors(spec: SearchSpec, store) -> tuple[list, list]:
+    """The scan stages of ``spec.cascade`` (all but the exact f32 re-rank)
+    and their mirrors."""
+    stages = [parse_cascade_stage(s) for s in spec.cascade][:-1]
+    mirrors = [
+        projection_mirror(store, rank, dt) if kind == "proj"
+        else device_mirror(store, dt)
+        for kind, dt, rank in stages
+    ]
+    return stages, mirrors
+
+
+def _inflate(thr: torch.Tensor, qerr: float) -> torch.Tensor:
+    """``(sqrt(thr) + qerr)**2`` in f32, squared as a product (the
+    reference's integer power)."""
+    t = torch.sqrt(thr) + float(np.float32(qerr))
+    return t * t
+
+
+def _stage_args(kind: str, rank: int, mirror, qs, thr_q, prune: bool,
+                eps0: float):
+    """(stage queries, threshold, eps0, d_tile) of one stage.  A projection
+    stage tests once, at d = rank, with eps 0: the orthonormal projection's
+    L2 lower-bounds the full L2 exactly, and scaled intermediate tests are
+    unsafe on PCA coordinates.  Full-dimension stages run the ADSampling
+    test when the engine prunes with ADSampling, and scan unpruned
+    otherwise."""
+    if kind == "proj":
+        return qs @ mirror.components, thr_q, 0.0, rank
+    return qs, (thr_q if prune else torch.full_like(thr_q, float("inf"))), eps0, 64
+
+
+def _start(store, pruner, q, spec, ivf):
+    """Transformed query, START partition and its exact top-k: the IVF-
+    routed nearest bucket's first partition, partition 0 without an index."""
+    qt = pruner.transform_query(q.to(torch.float32))
+    p0 = 0
+    if ivf is not None:
+        order, _ = ivf.route(qt, 1, "l2", dtype=spec.route_dtype)
+        if len(order):
+            p0 = int(order[0])
+    start = topk_from_batch(
+        pdx_distance(store.data[p0], qt, "l2"), store.ids[p0], spec.k
+    )
+    return qt, p0, start
+
+
+def _widen_rk(rk: int, n_alive: int, cap: int) -> int:
+    """The survivors of the exact-safe last keep test are exactly the lanes
+    that may still enter the top-k, so the re-rank covers them all: ``rk``
+    widens to a power of two at or above the survivor count."""
+    if n_alive > rk:
+        return min(1 << (n_alive - 1).bit_length(), cap)
+    return rk
+
+
+def _cascade_setup(spec, store, pruner, name: str):
+    if spec.metric != "l2":
+        raise ValueError(f"{name} is L2-only (spec validation enforces this)")
+    if spec.cascade is None:
+        raise ValueError(f"{name} executor needs spec.cascade")
+    stages, mirrors = _cascade_mirrors(spec, store)
+    prune = pruner.name == "adsampling" and pruner.aux is not None
+    eps0 = float(pruner.aux["eps0"]) if prune else 2.1
+    return stages, mirrors, prune, eps0, [_quant_err_norm(m) for m in mirrors]
+
+
+def _stage_meters(spec, si: int, executor: str, mirror, n_surv: float,
+                  stage_bytes: float, partition_model: Optional[float]) -> None:
+    _metrics.counter("repro_cascade_stage_survivors", n_surv,
+                     stage=str(si), stage_name=spec.cascade[si])
+    _metrics.counter("repro_cascade_stage_bytes", stage_bytes,
+                     stage=str(si), stage_name=spec.cascade[si])
+    if partition_model is not None:
+        # what partition-granular skip would have streamed (an entering
+        # partition fetches its full stage mirror); the realized counter
+        # undercuts it by exactly the mid-scan d-tile savings
+        _metrics.counter("repro_cascade_stage_bytes_partition_model",
+                         partition_model, stage=str(si),
+                         stage_name=spec.cascade[si])
+    _metrics.counter("repro_device_bytes_total", stage_bytes,
+                     executor=executor, component="scan", dtype=mirror.dtype)
+
+
+def _finish_meters(executor: str, D: int, C: int, rk_eff: int) -> None:
+    _metrics.counter("repro_device_bytes_total", float(D * C * 4),
+                     executor=executor, component="start", dtype="f32")
+    _metrics.counter("repro_device_bytes_total", float(rk_eff * D * 4),
+                     executor=executor, component="rerank", dtype="f32")
+
+
+def _cascade_stage(mdata, ids_scan, alive_prev, qs, thr, scale, offset,
+                   eps0: float, d_tile: int, packed: bool, dim: int, first: bool):
+    """One cascade scan stage over the (P, D_i, C) stage mirror ->
+    ``(dists, alive, streamed)``.  The first stage streams every partition
+    through K1 (streamed = all tiles); later stages carry the previous
+    stage's survivors in by forcing dead lanes' ids to -1 and run K3, where
+    an entry-dead partition fetches nothing and a partition stops fetching
+    at the d-tile where its last lane dies."""
+    from ..kernels.ops import (
+        pdx_prune_scan_multi_op,
+        pdx_prune_scan_multi_prefetch_op,
+    )
+
+    if first:
+        logical = dim if packed else mdata.shape[1]
+        nd = -(-logical // min(d_tile, logical))
+        dists, alive = pdx_prune_scan_multi_op(
+            mdata, ids_scan, qs, thr, scale, offset, eps0=eps0,
+            d_tile=d_tile, packed=packed, dim=dim,
+        )
+        return dists, alive, torch.full((mdata.shape[0],), float(nd),
+                                        device=mdata.device)
+    ids_i = torch.where(alive_prev, ids_scan, -1)
+    return pdx_prune_scan_multi_prefetch_op(
+        mdata, ids_i, qs, thr, scale, offset, eps0=eps0, d_tile=d_tile,
+        packed=packed, dim=dim,
+    )
+
+
+@register_executor("cascade-scan")
+def _exec_cascade_scan(store, pruner, Q, spec, *, ivf, stats):
+    """Multi-resolution cascade, one query at a time: each scan stage of
+    ``spec.cascade`` scans its mirror over the previous stage's survivors
+    with the exact-safe inflated threshold, and the exact f32 re-rank
+    covers every final survivor.  The threshold comes from an exact f32
+    START scan (see ``_start``), whose partition is masked out of every
+    stage and merged exactly."""
+    stages, mirrors, prune, eps0, qerrs = _cascade_setup(
+        spec, store, pruner, "cascade-scan")
+    P, C, D = store.num_partitions, store.capacity, store.dim
+    rk = min(spec.rerank_mult * spec.k, P * C)
+    counts = store.counts.cpu().numpy()
+    meter = stats is not None or _metrics.enabled()
+    out = []
+    for q in Q:
+        qt, p0, start = _start(store, pruner, q, spec, ivf)
+        thr = topk_threshold(start)
+        ids_scan = store.ids.clone()
+        ids_scan[p0] = -1
+        dists = alive = None
+        lanes_in = float(counts.sum() - counts[p0])
+        computed = float(counts[p0]) * D  # START (re-rank added below)
+        for si, ((kind, _, rank), mirror) in enumerate(zip(stages, mirrors)):
+            qs, thr_i, eps_i, d_tile = _stage_args(
+                kind, rank, mirror, qt, _inflate(thr, qerrs[si]), prune, eps0)
+            dists, alive, streamed = _cascade_stage(
+                mirror.data, ids_scan, alive, qs, thr_i,
+                mirror.scale if mirror.quantized else None,
+                mirror.offset if mirror.quantized else None,
+                eps_i, d_tile, mirror.packed, mirror.dim, si == 0,
+            )
+            if meter:
+                n_surv = float(alive.sum())
+                # realized traffic at d-tile granularity
+                streamed = streamed.cpu().numpy().astype(np.float64)
+                dims_f = np.minimum(streamed * d_tile, float(mirror.dim))
+                stage_bytes = float(dims_f.sum()) * C * mirror.bytes_per_value
+                if stats is not None:
+                    computed += lanes_in * mirror.dim
+                if _metrics.enabled():
+                    _stage_meters(
+                        spec, si, "cascade-scan", mirror, n_surv, stage_bytes,
+                        float((streamed > 0).sum()) * mirror.dim * C
+                        * mirror.bytes_per_value,
+                    )
+                lanes_in = n_surv
+        rk_eff = _widen_rk(rk, int(alive.sum()), P * C)
+        computed += float(rk_eff) * D
+        with _trace.span("rerank", rk=rk_eff):
+            out.append(_trace.fence(_finish(
+                store.data, ids_scan, qt, dists, alive, rk_eff, spec.k, start)))
+        if stats is not None:
+            total = float(counts.sum()) * D
+            stats.values_total += total
+            stats.values_computed += computed
+            stats.values_avoided += max(total - computed, 0.0)
+            stats.partitions_visited += P
+        if _metrics.enabled():
+            _finish_meters("cascade-scan", D, C, rk_eff)
+    return _numpy(TopK(dists=torch.stack([r.dists for r in out]),
+                       ids=torch.stack([r.ids for r in out])))
+
+
+def _cascade_batch_stage(mdata, idx: np.ndarray, alive, Qs, thr, scale, offset,
+                         eps0: float, d_tile: int, packed: bool, dim: int):
+    """One batched cascade stage: gather the union-survivor columns of the
+    (P, D_i, C) stage mirror into a compacted (D_i, S) tile, run the d-tile
+    ladder over the whole batch, scatter dists/alive back to flat (B, P*C)
+    slot order (slot = p*C + c).  ``idx`` is the pow2-padded union list;
+    pad entries carry P*C and land in a throwaway column.  The columns are
+    gathered by ``(p, c) = divmod(slot, C)`` through a permuted view, so the
+    mirror itself is never copied."""
+    from ..kernels.ops import batched_cascade_stage_op
+
+    P, _, C = mdata.shape
+    PC = P * C
+    B = alive.shape[0]
+    idx_t = torch.from_numpy(idx).to(mdata.device).long()
+    safe = torch.clamp(idx_t, max=PC - 1)
+    Tc = mdata.permute(1, 0, 2)[:, safe // C, safe % C]      # (D_i, S)
+    alive_ext = torch.cat(
+        [alive, torch.zeros((B, 1), dtype=alive.dtype, device=alive.device)], dim=1)
+    d_c, a_c = batched_cascade_stage_op(
+        Tc, alive_ext[:, idx_t], Qs, thr, scale, offset, eps0=eps0,
+        d_tile=d_tile, packed=packed, dim=dim,
+    )
+    d_full = torch.zeros((B, PC + 1), dtype=torch.float32, device=mdata.device)
+    a_full = torch.zeros((B, PC + 1), dtype=torch.bool, device=mdata.device)
+    d_full[:, idx_t] = d_c
+    a_full[:, idx_t] = a_c
+    return d_full[:, :PC], a_full[:, :PC]
+
+
+@register_executor("cascade-batch")
+def _exec_cascade_batch(store, pruner, Q, spec, *, ivf, stats):
+    """The cascade once per batch: each scan stage runs over the whole
+    query batch, carrying a shared (B, P*C) survivor bitmap between
+    stages.  Per stage the union of the batch's survivors is compacted to a
+    pow2-bucketed column set, gathered once, and scanned d-tile by d-tile
+    through the batched distance kernel with per-query thresholds, so a
+    stage's bytes are paid per batch, not per query.  START and the exact
+    re-rank stay per query with cascade-scan's arithmetic; the final top-k
+    depends only on the survivor bitmap and the exact re-rank, which covers
+    every survivor, so ids and distances equal cascade-scan's bitwise."""
+    stages, mirrors, prune, eps0, qerrs = _cascade_setup(
+        spec, store, pruner, "cascade-batch")
+    P, C, D = store.num_partitions, store.capacity, store.dim
+    PC = P * C
+    B = Q.shape[0]
+    rk = min(spec.rerank_mult * spec.k, PC)
+    counts = store.counts.cpu().numpy()
+    meter = stats is not None or _metrics.enabled()
+    qts, p0s, starts = zip(*(_start(store, pruner, q, spec, ivf) for q in Q))
+    Qt = torch.stack(qts)                                    # (B, D)
+    thr = torch.stack([topk_threshold(s) for s in starts])   # (B,)
+    p0_arr = np.asarray(p0s, np.int64)
+    slot_part = torch.arange(PC, device=store.device) // C
+    alive = (store.ids.reshape(-1)[None, :] >= 0) & (
+        slot_part[None, :] != torch.from_numpy(p0_arr).to(store.device)[:, None]
+    )                                                        # (B, P*C)
+    lanes_in = (counts.sum() - counts[p0_arr]).astype(np.float64)
+    computed = counts[p0_arr].astype(np.float64) * D
+    dists = None
+    for si, ((kind, _, rank), mirror) in enumerate(zip(stages, mirrors)):
+        Qs, thr_i, eps_i, d_tile = _stage_args(
+            kind, rank, mirror, Qt, _inflate(thr, qerrs[si]), prune, eps0)
+        # host-synced union count -> pow2-bucketed compacted width
+        union = torch.any(alive, dim=0).cpu().numpy()
+        nz = np.flatnonzero(union)
+        S = pow2_bucket(max(nz.size, 1), PC)
+        idx = np.full((S,), PC, np.int32)
+        idx[: nz.size] = nz
+        dists, alive = _cascade_batch_stage(
+            mirror.data, idx, alive, Qs, thr_i,
+            mirror.scale if mirror.quantized else None,
+            mirror.offset if mirror.quantized else None,
+            eps_i, d_tile, mirror.packed, mirror.dim,
+        )
+        if meter:
+            surv_b = torch.sum(alive, dim=1).cpu().numpy().astype(np.float64)
+            # the compacted union columns are gathered once for the batch
+            stage_bytes = float(S) * mirror.dim * mirror.bytes_per_value
+            if stats is not None:
+                computed += lanes_in * mirror.dim
+            if _metrics.enabled():
+                _stage_meters(spec, si, "cascade-batch", mirror,
+                              float(surv_b.sum()), stage_bytes, None)
+            lanes_in = surv_b
+    n_alive_b = torch.sum(alive, dim=1).cpu().numpy()
+    rk_effs = [_widen_rk(rk, int(n), PC) for n in n_alive_b]
+    out = []
+    with _trace.span("rerank", rk=max(rk_effs)):
+        for b in range(B):
+            ids_scan = store.ids.clone()
+            ids_scan[p0s[b]] = -1
+            out.append(_finish(store.data, ids_scan, qts[b], dists[b], alive[b],
+                               rk_effs[b], spec.k, starts[b]))
+        _trace.fence(out)
+    for b, rk_eff in enumerate(rk_effs):
+        computed[b] += float(rk_eff) * D
+        if _metrics.enabled():
+            _finish_meters("cascade-batch", D, C, rk_eff)
+    if stats is not None:
+        total = float(counts.sum()) * D
+        stats.values_total += total * B
+        stats.values_computed += float(computed.sum())
+        stats.values_avoided += max(total * B - float(computed.sum()), 0.0)
+        stats.partitions_visited += P * B
+    return _numpy(TopK(dists=torch.stack([r.dists for r in out]),
+                       ids=torch.stack([r.ids for r in out])))

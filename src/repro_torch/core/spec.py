@@ -105,9 +105,12 @@ class SearchSpec:
                     k`` approximate candidates are re-scored in f32 when
                     ``scan_dtype != "f32"``).
       cascade     — multi-resolution scan pipeline, e.g.
-                    ``("proj32:int4", "int8", "f32")``; validated as the
-                    reference validates it, but its executors are not
-                    ported yet (the planner raises NotImplementedError).
+                    ``("proj32:int4", "int8", "f32")``: each stage scans
+                    its mirror over the previous stage's survivors with an
+                    exact-safe keep test, and the final "f32" re-ranks every
+                    survivor exactly (``cascade-scan`` for one query,
+                    ``cascade-batch`` for a batch; ``scan_dtype`` is then
+                    not read).
       route_dtype — precision of the IVF centroid routing scan ("f32"
                     default; "int8"/"int4" scan a quantized centroid
                     mirror).  Near-tie bucket *order* may differ from f32

@@ -28,6 +28,29 @@
 //   * after each d-tile the block votes (__syncthreads_or) and stops when
 //     no lane is alive, which skips the remaining loads as well as the
 //     arithmetic (the TPU kernel could only skip the arithmetic).
+//
+// K3: the same scan for the later stages of a multi-resolution cascade,
+// the template instance kPrefetch = true of the same kernel.
+//
+// Replaces the TPU kernel src/repro/kernels/pdx_scan.py:
+// pdx_prune_scan_multi_prefetch_pallas (body _prune_scan_dskip_kernel).
+// Plain version: repro_torch/kernels/ref.py:pdx_prune_scan_multi_dskip_ref.
+// Same inputs, dists and alive as K1 (ids < 0 now also marks the lanes the
+// previous stage killed), plus streamed (P,) f32: the d-tiles each
+// partition fetched.  The TPU kernel needed a scalar-prefetched
+// (partition, d-tile) schedule, alive partitions first, and a manual DMA
+// to skip fetches.  Here blocks skip on their own:
+//   * the block votes before its first load too, so a partition that
+//     enters dead reads its ids and nothing else, and reports dist 0,
+//     alive false, streamed 0;
+//   * streamed counts the tiles a block loaded; where V > 1024 spreads a
+//     partition over several blocks (grid.y), the partition's count is the
+//     largest of its blocks' (atomicMax on the float's bits, valid for
+//     counts >= 0 on a zeroed output), since the partition stops fetching
+//     when its last lane dies.
+// Bound on an H100: bytes of the tiles the live partitions stream.  A
+// surviving partition is scanned by one block, 4 rows in flight; splitting
+// it over blocks is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -120,65 +143,76 @@ __device__ __forceinline__ void tile_sum_packed(const uint8_t* base, int r0, int
   }
 }
 
-template <typename T, bool kPacked>
+// kPrefetch = false is K1, true is K3 (entry vote and `streamed`, which K1
+// leaves null).
+template <typename T, bool kPacked, bool kPrefetch>
 __global__ void __launch_bounds__(kThreads)
 prune_scan_multi_kernel(const T* __restrict__ x, const int* __restrict__ ids,
                         const float* __restrict__ q, const float* __restrict__ thr_ptr,
                         const float* __restrict__ scale, const float* __restrict__ offset,
                         float* __restrict__ dists, bool* __restrict__ alive_out,
-                        int Drows, int V, int dim, int d_tile, float eps0, bool quant) {
+                        float* __restrict__ streamed, int Drows, int V, int dim, int d_tile,
+                        float eps0, bool quant) {
   extern __shared__ float smem[];
-  const int Dlog = kPacked ? 2 * Drows : Drows;
-  float* sq = smem;
-  float* ss = smem + Dlog;
-  float* so = smem + 2 * Dlog;
-  for (int i = threadIdx.x; i < Dlog; i += blockDim.x) {
-    sq[i] = q[i];
-    ss[i] = scale[i];
-    so[i] = offset[i];
-  }
-  __syncthreads();
-
   const int p = blockIdx.x;
   const int v0 = (blockIdx.y * blockDim.x + threadIdx.x) * kLanes;
-  const bool vec = (V % kLanes) == 0;
-  const T* base = x + (int64_t)p * Drows * V;
-  const float thr = *thr_ptr;
-
   float acc[kLanes];
   bool live[kLanes];
+  int any = 0;
 #pragma unroll
   for (int j = 0; j < kLanes; ++j) {
     acc[j] = 0.f;
     live[j] = (v0 + j < V) && ids[(int64_t)p * V + v0 + j] >= 0;
+    any |= live[j];
   }
+  // K3 votes before the first load: a block with no live lane reads nothing
+  // more.  The vote is block-uniform, so the barriers below stay legal.
+  const bool run = kPrefetch ? __syncthreads_or(any) != 0 : true;
 
-  const int rows_per_tile = kPacked ? d_tile / 2 : d_tile;
-  const int n_tiles = (dim + d_tile - 1) / d_tile;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int r0 = t * rows_per_tile;
-    const int r1 = min(r0 + rows_per_tile, Drows);
-    float c[kLanes] = {0.f, 0.f, 0.f, 0.f};
-    if constexpr (kPacked) {
-      tile_sum_packed(reinterpret_cast<const uint8_t*>(base), r0, r1, V, v0, vec, sq, ss, so, c);
-    } else {
-      tile_sum(base, r0, r1, V, v0, vec, sq, ss, so, quant, c);
+  int loaded = 0;  // d-tiles this block fetched
+  if (run) {
+    const int Dlog = kPacked ? 2 * Drows : Drows;
+    float* sq = smem;
+    float* ss = smem + Dlog;
+    float* so = smem + 2 * Dlog;
+    for (int i = threadIdx.x; i < Dlog; i += blockDim.x) {
+      sq[i] = q[i];
+      ss[i] = scale[i];
+      so[i] = offset[i];
     }
-    const int d_seen = min((t + 1) * d_tile, dim);
-    const float fd = (float)d_seen;
-    const float ratio = (float)dim / fd;
-    const float s = 1.f + eps0 / sqrtf(fd);
-    const float bound = thr * (s * s);
-    int any = 0;
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) {
-      if (live[j]) {
-        acc[j] += c[j];
-        live[j] = acc[j] * ratio <= bound;
+    __syncthreads();
+
+    const bool vec = (V % kLanes) == 0;
+    const T* base = x + (int64_t)p * Drows * V;
+    const float thr = *thr_ptr;
+    const int rows_per_tile = kPacked ? d_tile / 2 : d_tile;
+    const int n_tiles = (dim + d_tile - 1) / d_tile;
+    for (int t = 0; t < n_tiles; ++t) {
+      const int r0 = t * rows_per_tile;
+      const int r1 = min(r0 + rows_per_tile, Drows);
+      float c[kLanes] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (kPacked) {
+        tile_sum_packed(reinterpret_cast<const uint8_t*>(base), r0, r1, V, v0, vec, sq, ss, so, c);
+      } else {
+        tile_sum(base, r0, r1, V, v0, vec, sq, ss, so, quant, c);
       }
-      any |= live[j];
+      loaded = t + 1;
+      const int d_seen = min((t + 1) * d_tile, dim);
+      const float fd = (float)d_seen;
+      const float ratio = (float)dim / fd;
+      const float s = 1.f + eps0 / sqrtf(fd);
+      const float bound = thr * (s * s);
+      any = 0;
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) {
+        if (live[j]) {
+          acc[j] += c[j];
+          live[j] = acc[j] * ratio <= bound;
+        }
+        any |= live[j];
+      }
+      if (!__syncthreads_or(any)) break;  // no lane of this block alive
     }
-    if (!__syncthreads_or(any)) break;  // no lane of this block alive
   }
 
 #pragma unroll
@@ -188,16 +222,21 @@ prune_scan_multi_kernel(const T* __restrict__ x, const int* __restrict__ ids,
       alive_out[(int64_t)p * V + v0 + j] = live[j];
     }
   }
+  if constexpr (kPrefetch) {
+    if (threadIdx.x == 0 && loaded > 0) {
+      atomicMax(reinterpret_cast<int*>(streamed + p), __float_as_int((float)loaded));
+    }
+  }
 }
 
-template <typename T, bool kPacked>
+template <typename T, bool kPacked, bool kPrefetch>
 cudaError_t launch(const void* x, const int* ids, const float* q, const float* thr,
-                   const float* scale, const float* offset, float* dists, bool* alive, int P,
-                   int Drows, int V, int dim, int d_tile, float eps0, bool quant,
-                   cudaStream_t stream) {
+                   const float* scale, const float* offset, float* dists, bool* alive,
+                   float* streamed, int P, int Drows, int V, int dim, int d_tile, float eps0,
+                   bool quant, cudaStream_t stream) {
   const int Dlog = kPacked ? 2 * Drows : Drows;
   const size_t smem = 3 * (size_t)Dlog * sizeof(float);
-  auto kernel = prune_scan_multi_kernel<T, kPacked>;
+  auto kernel = prune_scan_multi_kernel<T, kPacked, kPrefetch>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -206,35 +245,57 @@ cudaError_t launch(const void* x, const int* ids, const float* q, const float* t
   const int lanes_per_block = kThreads * kLanes;
   dim3 grid(P, (V + lanes_per_block - 1) / lanes_per_block);
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), ids, q, thr, scale, offset,
-                                           dists, alive, Drows, V, dim, d_tile, eps0, quant);
+                                           dists, alive, streamed, Drows, V, dim, d_tile, eps0,
+                                           quant);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// dtype: 0 f32, 1 bf16, 2 int8, 3 packed int4.  Returns a cudaError_t.
-extern "C" int pdx_prune_scan_multi(const void* x, int dtype, const int* ids, const float* q,
-                                    const float* thr, const float* scale, const float* offset,
-                                    float* dists, bool* alive, int P, int Drows, int V, int dim,
-                                    int d_tile, float eps0, int quantized, void* stream) {
+template <bool kPrefetch>
+int dispatch(const void* x, int dtype, const int* ids, const float* q, const float* thr,
+             const float* scale, const float* offset, float* dists, bool* alive, float* streamed,
+             int P, int Drows, int V, int dim, int d_tile, float eps0, int quantized,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool quant = quantized != 0;
   switch (dtype) {
     case 0:
-      return launch<float, false>(x, ids, q, thr, scale, offset, dists, alive, P, Drows, V, dim,
-                                  d_tile, eps0, quant, s);
+      return launch<float, false, kPrefetch>(x, ids, q, thr, scale, offset, dists, alive,
+                                             streamed, P, Drows, V, dim, d_tile, eps0, quant, s);
     case 1:
-      return launch<__nv_bfloat16, false>(x, ids, q, thr, scale, offset, dists, alive, P, Drows,
-                                          V, dim, d_tile, eps0, quant, s);
+      return launch<__nv_bfloat16, false, kPrefetch>(x, ids, q, thr, scale, offset, dists, alive,
+                                                     streamed, P, Drows, V, dim, d_tile, eps0,
+                                                     quant, s);
     case 2:
-      return launch<int8_t, false>(x, ids, q, thr, scale, offset, dists, alive, P, Drows, V, dim,
-                                   d_tile, eps0, quant, s);
+      return launch<int8_t, false, kPrefetch>(x, ids, q, thr, scale, offset, dists, alive,
+                                              streamed, P, Drows, V, dim, d_tile, eps0, quant, s);
     case 3:
-      return launch<uint8_t, true>(x, ids, q, thr, scale, offset, dists, alive, P, Drows, V, dim,
-                                   d_tile, eps0, true, s);
+      return launch<uint8_t, true, kPrefetch>(x, ids, q, thr, scale, offset, dists, alive,
+                                              streamed, P, Drows, V, dim, d_tile, eps0, true, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+
+// K1.  dtype: 0 f32, 1 bf16, 2 int8, 3 packed int4.  Returns a cudaError_t.
+extern "C" int pdx_prune_scan_multi(const void* x, int dtype, const int* ids, const float* q,
+                                    const float* thr, const float* scale, const float* offset,
+                                    float* dists, bool* alive, int P, int Drows, int V, int dim,
+                                    int d_tile, float eps0, int quantized, void* stream) {
+  return dispatch<false>(x, dtype, ids, q, thr, scale, offset, dists, alive, nullptr, P, Drows,
+                         V, dim, d_tile, eps0, quantized, stream);
+}
+
+// K3: as K1, plus `streamed` (P,) f32, which the caller zeroes.
+extern "C" int pdx_prune_scan_multi_prefetch(const void* x, int dtype, const int* ids,
+                                             const float* q, const float* thr,
+                                             const float* scale, const float* offset,
+                                             float* dists, bool* alive, float* streamed, int P,
+                                             int Drows, int V, int dim, int d_tile, float eps0,
+                                             int quantized, void* stream) {
+  return dispatch<true>(x, dtype, ids, q, thr, scale, offset, dists, alive, streamed, P, Drows,
+                        V, dim, d_tile, eps0, quantized, stream);
 }
 
 extern "C" const char* pdx_scan_error_string(int code) {

@@ -13,9 +13,14 @@ import torch
 
 from . import ref
 from .batched_matmul import batched_distance_quant_cuda
-from .pdx_scan import pdx_prune_scan_multi_cuda
+from .pdx_scan import pdx_prune_scan_multi_cuda, pdx_prune_scan_multi_prefetch_cuda
 
-__all__ = ["pdx_prune_scan_multi_op", "batched_distance_quant_op"]
+__all__ = [
+    "pdx_prune_scan_multi_op",
+    "pdx_prune_scan_multi_prefetch_op",
+    "batched_distance_quant_op",
+    "batched_cascade_stage_op",
+]
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -66,6 +71,39 @@ def pdx_prune_scan_multi_op(
     args, kwargs = _prep_multi(T, ids, q, thr, scale, offset, eps0, d_tile,
                                packed, dim)
     return pdx_prune_scan_multi_cuda(*args, **kwargs)
+
+
+def pdx_prune_scan_multi_prefetch_op(
+    T: torch.Tensor,
+    ids: torch.Tensor,
+    q: torch.Tensor,
+    thr,
+    scale: Optional[torch.Tensor] = None,
+    offset: Optional[torch.Tensor] = None,
+    eps0: float = 2.1,
+    d_tile: int = 64,
+    packed: bool = False,
+    dim: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Prefetch-skip scan of the later cascade stages -> ((P, V) dists f32,
+    (P, V) alive bool, (P,) streamed f32).
+
+    ``pdx_prune_scan_multi_op``'s contract, where ``ids < 0`` also marks
+    the lanes a previous stage killed; ``streamed`` counts the d-tiles each
+    partition fetched (a partition that enters dead fetches none and
+    reports dist 0, alive false).  The reference builds a (partition,
+    d-tile) schedule for this on the TPU; on the card every block skips on
+    its own, so the op only pads."""
+    D = dim if packed else T.shape[1]
+    if _device_kind(T) == "cpu":
+        dists, alive, streamed = ref.pdx_prune_scan_multi_dskip_ref(
+            T, ids, q, thr, d_tile=min(d_tile, D), eps0=eps0,
+            scale=scale, offset=offset, packed=packed, dim=dim,
+        )
+        return dists, alive != 0.0, streamed
+    args, kwargs = _prep_multi(T, ids, q, thr, scale, offset, eps0, d_tile,
+                               packed, dim)
+    return pdx_prune_scan_multi_prefetch_cuda(*args, **kwargs)
 
 
 def _prep_multi(T, ids, q, thr, scale, offset, eps0: float, d_tile: int,
@@ -127,3 +165,33 @@ def batched_distance_quant_op(
     return batched_distance_quant_cuda(
         stack.contiguous(), Q32, qn, sc, off, metric=metric, quantized=quantized,
     )
+
+
+def batched_cascade_stage_op(
+    T: torch.Tensor,
+    alive: torch.Tensor,
+    Q: torch.Tensor,
+    thr: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
+    offset: Optional[torch.Tensor] = None,
+    eps0: float = 2.1,
+    d_tile: int = 64,
+    packed: bool = False,
+    dim: Optional[int] = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched cascade stage: (Dp, S) compacted survivor columns + (B, D)
+    stage queries, (B, S) entry alive, (B,) thresholds -> ((B, S) dists f32,
+    (B, S) alive bool).
+
+    The d-tile walk of ``ref.batched_cascade_stage_ref``, where each d-tile
+    runs ``batched_distance_quant_op`` (K2 on the card) over the whole
+    batch.  ``packed`` int4 columns unpack to int8 levels once up front."""
+    if packed:
+        T = _unpack_int4_levels(T, dim)
+
+    def k2_tile(t, q, s, o):
+        return batched_distance_quant_op(t, q, s, o, "l2")
+
+    acc, a = ref.batched_cascade_stage_ref(T, alive, Q, thr, scale, offset, eps0=eps0,
+                                           d_tile=d_tile, distance=k2_tile)
+    return acc, a != 0.0

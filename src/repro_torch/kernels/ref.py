@@ -18,6 +18,8 @@ __all__ = [
     "batched_distance_ref",
     "batched_distance_quant_ref",
     "pdx_prune_scan_multi_ref",
+    "pdx_prune_scan_multi_dskip_ref",
+    "batched_cascade_stage_ref",
     "ScanTrace",
 ]
 
@@ -118,21 +120,119 @@ def pdx_prune_scan_multi_ref(
     all in f32.  ``packed`` takes an int4 mirror, (P, ceil(dim/2), V)
     uint8 with logical ``dim``.  ``trace=True`` adds a third result, the
     walk's ``ScanTrace``."""
+    acc, alive, _, walk = _multi_walk(T, ids, q, thr, d_tile, eps0, scale,
+                                      offset, packed, dim, trace)
+    return (acc, alive, walk) if trace else (acc, alive)
+
+
+def pdx_prune_scan_multi_dskip_ref(
+    T: torch.Tensor,
+    ids: torch.Tensor,
+    q: torch.Tensor,
+    thr: torch.Tensor,
+    *,
+    d_tile: int,
+    eps0: float,
+    scale: Optional[torch.Tensor] = None,
+    offset: Optional[torch.Tensor] = None,
+    packed: bool = False,
+    dim: Optional[int] = None,
+    trace: bool = False,
+):
+    """Plain version of the prefetch-skip scan of the later cascade stages:
+    the dists and alive mask of ``pdx_prune_scan_multi_ref``, plus
+    ``streamed`` (P,) f32, the d-tiles each partition fetches — a tile is
+    fetched iff any lane of the partition is alive when it is reached, so an
+    entry-dead partition fetches none.  ``trace=True`` adds the walk's
+    ``ScanTrace`` as a fourth result."""
+    acc, alive, streamed, walk = _multi_walk(T, ids, q, thr, d_tile, eps0, scale,
+                                             offset, packed, dim, trace)
+    return (acc, alive, streamed, walk) if trace else (acc, alive, streamed)
+
+
+def batched_cascade_stage_ref(
+    T: torch.Tensor,
+    alive: torch.Tensor,
+    Q: torch.Tensor,
+    thr: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
+    offset: Optional[torch.Tensor] = None,
+    *,
+    eps0: float,
+    d_tile: int,
+    packed: bool = False,
+    dim: Optional[int] = None,
+    trace: bool = False,
+    distance=None,
+):
+    """Plain version of the batched cascade stage: (D, S) compacted
+    survivor columns at mirror dtype, (B, S) entry alive, (B, D) stage
+    queries, (B,) thresholds -> (dists (B, S) f32, alive (B, S) f32 mask).
+
+    Each d-tile adds ``distance(T tile, Q tile, scale tile, offset tile)``,
+    a (B, S) L2 (``batched_distance_quant_ref`` unless given; the op passes
+    K2), to the slots still alive; dead slots keep their partial sums and
+    never revive, and after each tile the ADSampling test fires as in the
+    per-query scan, ``acc * (D / d_seen) <= thr * (1 + eps0 /
+    sqrt(d_seen))**2``, with the scalars rounded as f32 operations.
+    ``trace=True`` adds a ``ScanTrace`` over (query, slot) pairs: ``lanes``
+    counts the pairs and ``parts`` the slots any query keeps, alive
+    entering each d-tile."""
+    if packed:
+        T = _unpack_int4_levels(T, 0).narrow(0, 0, dim)
+    if distance is None:
+        def distance(t, q, s, o):
+            return batched_distance_quant_ref(t, q, s, o, "l2")
+    D = T.shape[0]
+    quantized = scale is not None
+    a = torch.as_tensor(alive, device=T.device).to(torch.float32)
+    acc = torch.zeros((Q.shape[0], T.shape[1]), dtype=torch.float32, device=T.device)
+    thr_col = torch.as_tensor(thr, dtype=torch.float32, device=T.device).reshape(-1, 1)
+    margin = torch.full_like(acc, float("inf")) if trace else None
+    lanes, parts = [], []
+    d_seen = 0
+    while d_seen < D:
+        hi = min(d_seen + d_tile, D)
+        if trace:
+            lanes.append(torch.sum(a))
+            parts.append(torch.sum(torch.any(a > 0, dim=0)))
+        contrib = distance(
+            T[d_seen:hi], Q[:, d_seen:hi],
+            scale[d_seen:hi] if quantized else None,
+            offset[d_seen:hi] if quantized else None,
+        )
+        acc = acc + contrib * a
+        d_seen = hi
+        lhs = acc * _ratio(D, d_seen)
+        bound = thr_col * _inflation(eps0, d_seen)
+        if trace:
+            margin = torch.where(a > 0, torch.minimum(margin, (lhs / bound - 1).abs()),
+                                 margin)
+        a = a * (lhs <= bound).to(torch.float32)
+    if trace:
+        return acc, a, ScanTrace(margin, torch.stack(lanes), torch.stack(parts))
+    return acc, a
+
+
+def _multi_walk(T, ids, q, thr, d_tile, eps0, scale, offset, packed, dim, trace):
+    """The d-tile walk both scans share -> (acc, alive, streamed, trace)."""
     T32 = dequantize_ref(T, scale, offset, dim_axis=1, packed=packed, dim=dim)
     P, D, V = T32.shape
     q32 = torch.as_tensor(q, dtype=torch.float32, device=T32.device)
     thr = torch.as_tensor(thr, dtype=torch.float32, device=T32.device)
     acc = torch.zeros((P, V), dtype=torch.float32, device=T32.device)
     alive = (torch.as_tensor(ids, device=T32.device) >= 0).to(torch.float32)
-    if trace:
-        margin = torch.full((P, V), float("inf"), device=T32.device)
-        lanes, parts = [], []
+    streamed = torch.zeros((P,), dtype=torch.float32, device=T32.device)
+    margin = torch.full((P, V), float("inf"), device=T32.device) if trace else None
+    lanes, parts = [], []
     d_seen = 0
     while d_seen < D:
         hi = min(d_seen + d_tile, D)
+        reached = torch.any(alive > 0, dim=1)
+        streamed = streamed + reached.to(torch.float32)
         if trace:
             lanes.append(torch.sum(alive))
-            parts.append(torch.sum(torch.any(alive > 0, dim=1)))
+            parts.append(torch.sum(reached))
         blk = T32[:, d_seen:hi, :] - q32[None, d_seen:hi, None]
         contrib = torch.sum(blk * blk, dim=1)
         acc = acc + contrib * alive
@@ -143,9 +243,8 @@ def pdx_prune_scan_multi_ref(
             margin = torch.where(alive > 0,
                                  torch.minimum(margin, (lhs / bound - 1).abs()), margin)
         alive = alive * (lhs <= bound).to(torch.float32)
-    if not trace:
-        return acc, alive
-    return acc, alive, ScanTrace(margin, torch.stack(lanes), torch.stack(parts))
+    walk = ScanTrace(margin, torch.stack(lanes), torch.stack(parts)) if trace else None
+    return acc, alive, streamed, walk
 
 
 # The test's scalars, rounded as the reference rounds them: every operand

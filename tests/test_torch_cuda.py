@@ -9,6 +9,10 @@ Tolerances (the kernels sum in another order and contract to FMA):
     both keep the lane alive.
   * K2: |kernel - plain| <= 1e-5 * (||q||^2 + ||x^||^2) + 1e-3, the
     rounding scale of the cancelling form.
+  * K3: K1's rule, and ``streamed`` equal on every partition whose alive
+    masks agree.
+  * The batched cascade stage (K2 per d-tile): K2's bound per tile summed
+    over the tiles, and K1's rule for the alive masks.
 """
 import numpy as np
 import pytest
@@ -19,8 +23,16 @@ from repro_torch.core.engine import SearchSpec, VectorSearchEngine
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.kernels import ref
 from repro_torch.kernels.batched_matmul import batched_distance_quant_cuda
-from repro_torch.kernels.ops import batched_distance_quant_op, pdx_prune_scan_multi_op
-from repro_torch.kernels.pdx_scan import pdx_prune_scan_multi_cuda
+from repro_torch.kernels.ops import (
+    batched_cascade_stage_op,
+    batched_distance_quant_op,
+    pdx_prune_scan_multi_op,
+    pdx_prune_scan_multi_prefetch_op,
+)
+from repro_torch.kernels.pdx_scan import (
+    pdx_prune_scan_multi_cuda,
+    pdx_prune_scan_multi_prefetch_cuda,
+)
 
 DTYPES = ("f32", "bf16", "int8", "int4")
 pytestmark = pytest.mark.cuda
@@ -84,6 +96,50 @@ def test_k1_matches_plain(dev, P, D, V, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("P,D,V", [(3, 97, 130), (4, 200, 2050), (3, 961, 1030)])
+def test_k3_matches_plain(dev, P, D, V, dtype):
+    """A later cascade stage: partition 1 enters dead, and where V > 1024
+    spreads a partition over several blocks, partition 2's first block
+    enters dead while its others stream, so its count is their largest."""
+    store, m = _mirror(P, D, V, dtype, D * V + 1, dev)
+    ids = store.ids.clone()
+    gen = torch.Generator(device="cpu").manual_seed(D)
+    ids[(torch.rand(ids.shape, generator=gen) < 0.4).to(dev)] = -1
+    ids[1] = -1
+    ids[2, :1024] = -1
+    q = torch.from_numpy(np.random.default_rng(2).standard_normal(D).astype(np.float32)).to(dev)
+    live = ids >= 0
+    real = store.ids >= 0
+    full = torch.sum((store.data[0] - q[:, None]) ** 2, 0)[live[0]]
+    sc, off = (m.scale, m.offset) if m.quantized else (None, None)
+    n_tiles = -(-D // 64)
+    for thr in (torch.sort(full).values[10], float("inf")):
+        n0 = pdx_prune_scan_multi_prefetch_cuda.launches
+        kd, ka, ks = pdx_prune_scan_multi_prefetch_op(m.data, ids, q, thr, sc, off,
+                                                      packed=m.packed, dim=m.dim)
+        assert pdx_prune_scan_multi_prefetch_cuda.launches == n0 + 1
+        pd_, pa, ps, walk = ref.pdx_prune_scan_multi_dskip_ref(
+            m.data, ids, q, thr, d_tile=64, eps0=2.1, scale=sc, offset=off,
+            packed=m.packed, dim=m.dim, trace=True)
+        pa = pa != 0
+        assert not ka[~live].any()
+        mism = (ka != pa) & live
+        if mism.any():
+            assert float(walk.margin[mism].max()) < 1e-4
+        both = ka & pa
+        torch.testing.assert_close(kd[both], pd_[both], rtol=1e-4, atol=1e-3)
+        agree = ~mism.any(dim=1)
+        assert torch.equal(ks[agree], ps[agree])
+        # entry-dead partition and lanes: nothing read, dist 0, alive false
+        assert float(ks[1]) == 0 and not ka[1].any()
+        assert bool((kd[real & ~live] == 0).all())
+        if thr == float("inf"):
+            assert bool(ka[live].all())
+            assert ks.tolist() == [float(n_tiles) if bool(live[p].any()) else 0.0
+                                   for p in range(P)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 @pytest.mark.parametrize("B,D,V", [(4, 32, 64), (3, 50, 130), (65, 49, 1030)])
 def test_k2_matches_plain(dev, B, D, V, metric, dtype):
@@ -98,6 +154,44 @@ def test_k2_matches_plain(dev, B, D, V, metric, dtype):
     live = (store.ids >= 0).reshape(-1)
     scale = (Q * Q).sum(1)[:, None] + (T32 * T32).sum(1).reshape(-1)[None, :]
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-3)[:, live].all())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,D,S", [(3, 97, 130), (64, 960, 2048)])
+def test_cascade_stage_matches_plain(dev, B, D, S, dtype):
+    """K2 once per d-tile through the batched cascade stage, against the
+    plain stage: K2's tolerance per tile summed over the tiles, and alive
+    masks equal but on pairs whose keep test came within 1e-4 of the
+    bound; slots no query keeps stay dead."""
+    _, m = _mirror(1, D, S, dtype, B * D + 5, dev)
+    gen = torch.Generator(device="cpu").manual_seed(S)
+    Q = torch.randn((B, D), generator=gen).to(dev)
+    alive = (torch.rand((B, S), generator=gen) < 0.6).to(dev)
+    alive[:, :8] = False
+    alive[:, -7:] = False  # PAD lanes
+    sc, off = (m.scale, m.offset) if m.quantized else (None, None)
+    T = m.data[0]
+    T32 = ref.dequantize_ref(T, sc, off, packed=m.packed, dim=m.dim)
+    full = ((T32[None] - Q[:, :, None]) ** 2).sum(1)
+    n_tiles = -(-D // 64)
+    tol = 1e-5 * ((Q * Q).sum(1)[:, None] + (T32 * T32).sum(0)[None, :]) + 1e-3 * n_tiles
+    for thr in (torch.quantile(full, 0.05, dim=1), torch.full((B,), float("inf"), device=dev)):
+        n0 = batched_distance_quant_cuda.launches
+        kd, ka = batched_cascade_stage_op(T, alive, Q, thr, sc, off, eps0=2.1,
+                                          packed=m.packed, dim=m.dim)
+        assert batched_distance_quant_cuda.launches == n0 + n_tiles
+        pd_, pa, walk = ref.batched_cascade_stage_ref(T, alive, Q, thr, sc, off, eps0=2.1,
+                                                      d_tile=64, packed=m.packed,
+                                                      dim=m.dim, trace=True)
+        pa = pa != 0
+        assert not ka[~alive].any()
+        mism = ka != pa
+        if mism.any():
+            assert float(walk.margin[mism].max()) < 1e-4
+        both = ka & pa
+        assert bool(((kd - pd_).abs() <= tol)[both].all())
+        if thr.isinf().all():
+            assert torch.equal(ka, alive)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -118,6 +212,33 @@ def test_engine_on_the_card_matches_the_cpu(dev, dtype):
             n0[0] + (executor == "fused-scan"), n0[1] + (executor == "fused-batch"))
         np.testing.assert_array_equal(a.ids, b.ids)
         np.testing.assert_allclose(a.dists, b.dists, rtol=1e-4, atol=1e-2)
+
+
+@pytest.mark.parametrize("cascade,k2_tiles", [
+    (("proj32:int8", "int4", "f32"), 1 + 2),  # one projection tile, 96 / 64 dims
+    (("bf16", "int8", "f32"), 2 + 2),
+])
+def test_cascade_on_the_card_matches_the_cpu(dev, cascade, k2_tiles):
+    """Both cascade executors on the card (K1 then K3 per query; K2 per
+    d-tile per batch) return the ids the CPU engine returns."""
+    X, Q = make_dataset(3000, 96, "clustered", n_queries=8, seed=3)
+    kw = dict(pruner="adsampling", capacity=256)
+    cpu = VectorSearchEngine.build(X, device="cpu", **kw)
+    gpu = VectorSearchEngine.build(X, device=dev, **kw)
+    spec = SearchSpec(k=5, cascade=cascade)
+    counters = (pdx_prune_scan_multi_cuda, pdx_prune_scan_multi_prefetch_cuda,
+                batched_distance_quant_cuda)
+    for q, executor, launches in ((Q, "cascade-batch", (0, 0, k2_tiles)),
+                                  (Q[0], "cascade-scan", (1, 1, 0))):
+        n0 = [c.launches for c in counters]
+        b = gpu.search(q, spec)
+        assert b.plan.executor == executor
+        assert tuple(c.launches - n for c, n in zip(counters, n0)) == launches
+        a = cpu.search(q, spec)
+        np.testing.assert_array_equal(a.ids, b.ids)
+        np.testing.assert_allclose(a.dists, b.dists, rtol=1e-4, atol=1e-2)
+    s = gpu.search(Q, spec.replace(executor="cascade-scan"))
+    np.testing.assert_array_equal(s.ids, gpu.search(Q, spec).ids)
 
 
 def test_ivf_build_on_the_card_is_reproducible(dev):

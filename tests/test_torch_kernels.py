@@ -11,6 +11,10 @@ D for the packed int4 mirror and PAD lanes.  Tolerances:
     the int mirrors, rtol 3e-2 / atol 5e-1 for bf16 operands (the Pallas
     interpret body and the plain body round the bf16 tile at different
     points of the cancelling form).
+  * K3 ``pdx_prune_scan_multi_prefetch_op`` (the cascade's later stages):
+    K1's tolerances, and ``streamed`` equal.
+  * ``batched_cascade_stage_op`` (K2 per d-tile): alive masks equal, dists
+    at K2's tolerances, on non-PAD lanes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,14 +22,18 @@ import pytest
 import torch
 
 from repro.kernels.ops import (
+    batched_cascade_stage_op as j_stage,
     batched_distance_quant_op as j_bmm,
     pdx_prune_scan_multi_op as j_scan,
+    pdx_prune_scan_multi_prefetch_op as j_prefetch,
 )
 from repro_torch.core import layout as tl
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ops import (
+    batched_cascade_stage_op as t_stage,
     batched_distance_quant_op as t_bmm,
     pdx_prune_scan_multi_op as t_scan,
+    pdx_prune_scan_multi_prefetch_op as t_prefetch,
 )
 
 DTYPES = ("f32", "bf16", "int8", "int4")
@@ -106,6 +114,100 @@ def test_batched_distance_quant_plain_matches_reference(B, D, V, metric, dtype):
     one = t_bmm(m.data[1], torch.from_numpy(Q), sc, off, metric,
                 packed=m.packed, dim=m.dim)
     np.testing.assert_array_equal(one.numpy(), got.numpy()[:, V:])
+
+
+def _stage_ids(store, seed):
+    """A later cascade stage's ids: a previous stage killed partition 1
+    whole (it enters dead) and about 40 % of the other lanes."""
+    ids = store.ids.clone()
+    ids[torch.from_numpy(np.random.default_rng(seed).random(ids.shape) < 0.4)] = -1
+    ids[1] = -1
+    return ids
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("P,D,V", [(4, 96, 130), (3, 49, 64)])
+@pytest.mark.parametrize("pruned", [True, False])
+def test_prefetch_scan_plain_matches_reference(P, D, V, dtype, pruned):
+    store, m = _mirror(P, D, V, dtype, seed=D * V)
+    ids = _stage_ids(store, D)
+    q = np.random.default_rng(P).standard_normal(D).astype(np.float32)
+    live0 = store.ids[0] >= 0
+    full = torch.sum((store.data[0] - torch.from_numpy(q)[:, None]) ** 2, 0)[live0]
+    thr = np.float32(np.partition(full.numpy(), 10)[10]) if pruned else np.float32(np.inf)
+    sc, off = (m.scale, m.offset) if m.quantized else (None, None)
+    got_d, got_a, got_s = t_prefetch(m.data, ids, torch.from_numpy(q), torch.tensor(thr),
+                                     sc, off, d_tile=16, packed=m.packed, dim=m.dim)
+    want_d, want_a, want_s = j_prefetch(
+        _jnp(m.data), _jnp(ids), jnp.asarray(q), jnp.float32(thr),
+        None if sc is None else _jnp(sc), None if off is None else _jnp(off),
+        d_tile=16, use_pallas=True, packed=m.packed, dim=m.dim,
+    )
+    assert got_a.dtype == torch.bool and got_s.shape == (P,)
+    np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    assert got_s[1] == 0 and not got_a[1].any()  # entry-dead: fetches nothing
+    real = store.ids.numpy() >= 0  # the lanes holding data (not PAD)
+    np.testing.assert_allclose(got_d.numpy()[real], np.asarray(want_d)[real],
+                               rtol=1e-4, atol=1e-4)
+    # the same dists and alive mask as K1's plain walk on the same ids
+    k1_d, k1_a = t_scan(m.data, ids, torch.from_numpy(q), torch.tensor(thr), sc, off,
+                        d_tile=16, packed=m.packed, dim=m.dim)
+    assert torch.equal(k1_a, got_a) and torch.equal(k1_d[real], got_d[real])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,D,V", [(4, 50, 130), (3, 49, 64)])
+def test_batched_cascade_stage_plain_matches_reference(B, D, V, dtype):
+    store, m = _mirror(1, D, V, dtype, seed=B + D)
+    rng = np.random.default_rng(V)
+    Q = rng.standard_normal((B, D)).astype(np.float32)
+    alive = rng.random((B, V)) < 0.7
+    alive[:, 5:9] = False                      # slots no query keeps
+    alive &= store.ids.numpy()[0] >= 0
+    T32 = tref.dequantize_ref(m.data, m.scale, m.offset, dim_axis=1,
+                              packed=m.packed, dim=m.dim)[0].numpy()
+    full = ((T32[None, :, :V - 7] - Q[:, :, None]) ** 2).sum(1)  # PAD lanes last
+    thr = np.partition(full, 20, axis=1)[:, 20].astype(np.float32)
+    sc, off = (m.scale, m.offset) if m.quantized else (None, None)
+    got_d, got_a = t_stage(m.data[0], torch.from_numpy(alive), torch.from_numpy(Q),
+                           torch.from_numpy(thr), sc, off, eps0=2.1, d_tile=16,
+                           packed=m.packed, dim=m.dim)
+    want_d, want_a = j_stage(
+        _jnp(m.data[0]), jnp.asarray(alive), jnp.asarray(Q), jnp.asarray(thr),
+        None if sc is None else _jnp(sc), None if off is None else _jnp(off),
+        eps0=2.1, d_tile=16, use_pallas=True, packed=m.packed, dim=m.dim,
+    )
+    real = store.ids.numpy()[0] >= 0
+    np.testing.assert_array_equal(got_a.numpy(), np.asarray(want_a))
+    assert not got_a.numpy()[:, 5:9].any() and got_a.numpy().any()
+    tol = dict(rtol=3e-2, atol=5e-1) if dtype == "bf16" else dict(rtol=1e-3, atol=1e-3)
+    np.testing.assert_allclose(got_d.numpy()[:, real], np.asarray(want_d)[:, real], **tol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_batched_cascade_stage_trace(dtype):
+    """The plain stage's trace: pairs and slots alive entering each d-tile,
+    and the keep test's margin, over the op's own result."""
+    store, m = _mirror(1, 49, 64, dtype, seed=3)
+    rng = np.random.default_rng(5)
+    Q = torch.from_numpy(rng.standard_normal((3, 49)).astype(np.float32))
+    alive = torch.from_numpy(rng.random((3, 64)) < 0.6) & (store.ids[0] >= 0)
+    alive[:, :4] = False
+    sc, off = (m.scale, m.offset) if m.quantized else (None, None)
+    thr = torch.full((3,), 40.0)
+    got_d, got_a = t_stage(m.data[0], alive, Q, thr, sc, off, eps0=2.1, d_tile=16,
+                           packed=m.packed, dim=m.dim)
+    d, a, walk = tref.batched_cascade_stage_ref(m.data[0], alive, Q, thr, sc, off, eps0=2.1,
+                                                d_tile=16, packed=m.packed, dim=m.dim,
+                                                trace=True)
+    assert torch.equal(got_d, d) and torch.equal(got_a, a != 0)
+    assert walk.lanes.shape == walk.parts.shape == (4,)  # 49 dims in 16-wide tiles
+    assert int(walk.lanes[0]) == int(alive.sum())
+    assert int(walk.parts[0]) == int(alive.any(dim=0).sum())
+    assert bool((walk.lanes[1:] <= walk.lanes[:-1]).all())
+    assert bool(torch.isinf(walk.margin[~alive]).all())
+    assert bool(torch.isfinite(walk.margin[alive]).all())
 
 
 def test_dequantize_ref_unpacks_odd_int4():

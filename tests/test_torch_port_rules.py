@@ -20,7 +20,10 @@ from repro_torch.core.engine import SearchSpec, VectorSearchEngine
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.index import ivf, kmeans
 from repro_torch.kernels.batched_matmul import batched_distance_quant_cuda
-from repro_torch.kernels.pdx_scan import pdx_prune_scan_multi_cuda
+from repro_torch.kernels.pdx_scan import (
+    pdx_prune_scan_multi_cuda,
+    pdx_prune_scan_multi_prefetch_cuda,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -114,11 +117,26 @@ def test_kernel_cuda_on_a_cpu_store_raises(cpu_engine):
         eng.search(Q, SearchSpec(kernel="cuda", executor="fused-batch"))
 
 
+@pytest.mark.parametrize("spec", [dict(cascade=("int8", "f32")), dict(scan_dtype="int8")])
+def test_kernel_torch_refuses_kernel_executors_on_a_cuda_store(cpu_engine, monkeypatch,
+                                                               spec):
+    """``kernel="torch"`` steers planning only: where a cascade or fused
+    executor would run on a CUDA store, the planner raises rather than run
+    the plain versions on the card."""
+    from repro_torch.core import plan
+
+    eng, Q = cpu_engine
+    monkeypatch.setattr(plan, "_on_cuda", lambda store: True)
+    for q in (Q[0], Q):
+        with pytest.raises(ValueError, match="kernel='torch'"):
+            eng.plan(q, SearchSpec(kernel="torch", **spec))
+
+
 @pytest.mark.parametrize("spec", [
     dict(executor="jit-masked"),
-    dict(executor="cascade-scan"),
+    dict(executor="tiered-scan"),
     dict(executor="routed_bucket"),
-    dict(cascade=("int4", "f32")),
+    dict(executor="block-sharded"),
     dict(hbm_slots=4),
 ])
 def test_unported_paths_name_their_roadmap_item(cpu_engine, spec):
@@ -141,18 +159,19 @@ def test_unported_engine_calls_name_their_roadmap_item(cpu_engine):
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_without_fallback():
-    before = (pdx_prune_scan_multi_cuda.launches, batched_distance_quant_cuda.launches)
+    wrappers = (pdx_prune_scan_multi_cuda, pdx_prune_scan_multi_prefetch_cuda,
+                batched_distance_quant_cuda)
+    before = [w.launches for w in wrappers]
     T = torch.zeros((1, 8, 16))
     f = torch.zeros(8)
-    with pytest.raises(ValueError, match="CUDA tensor"):
-        pdx_prune_scan_multi_cuda(T, torch.zeros((1, 16), dtype=torch.int32), f,
-                                  torch.zeros(1), f, f, dim=8, d_tile=4, eps0=2.1,
-                                  quantized=False)
+    for scan in wrappers[:2]:
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            scan(T, torch.zeros((1, 16), dtype=torch.int32), f, torch.zeros(1), f, f,
+                 dim=8, d_tile=4, eps0=2.1, quantized=False)
     with pytest.raises(ValueError, match="CUDA tensor"):
         batched_distance_quant_cuda(T, torch.zeros((2, 8)), torch.zeros(2), f, f,
                                     metric="l2", quantized=False)
-    assert (pdx_prune_scan_multi_cuda.launches,
-            batched_distance_quant_cuda.launches) == before
+    assert [w.launches for w in wrappers] == before
 
 
 def test_chip_smoke_fails_without_a_card_or_without_the_repo(tmp_path):
