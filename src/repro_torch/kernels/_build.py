@@ -1,13 +1,16 @@
 """Build the CUDA sources in ``csrc/`` at first use and load them.
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-into ``build/repro_torch/<hash of sources and flags>/lib<name>.so`` at the
+(with the shared ``csrc/*.cuh`` headers it includes) into
+``build/repro_torch/<hash of sources, headers and flags>/lib<name>.so`` at the
 repository root (``build/`` is git-ignored), with one ``nvcc`` per source,
 all started together.  Nothing is built at import: the first kernel launch
 (or ``build_all()``) builds, under a file lock so parallel processes on
 one machine do not race, and a finished library is reused by every later
 process.  Only the repository's own sources and the CUDA toolkit are used.
 A failed build raises; nothing falls back to the plain versions.
+``bind`` types a library function for ``ctypes`` and ``check_launch``
+raises on the ``cudaError_t`` it returns.
 """
 from __future__ import annotations
 
@@ -20,9 +23,9 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build_all", "library"]
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build_all", "library", "bind", "check_launch"]
 
-SOURCES = ("pdx_scan", "batched_matmul")
+SOURCES = ("pdx_scan", "batched_matmul", "nary_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -50,8 +53,8 @@ def _nvcc() -> str:
 def build_dir() -> Path:
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((_CSRC / f"{name}.cu").read_bytes())
+    for path in [_CSRC / f"{name}.cu" for name in SOURCES] + sorted(_CSRC.glob("*.cuh")):
+        h.update(path.read_bytes())
     return _REPO_ROOT / "build" / "repro_torch" / h.hexdigest()[:16]
 
 
@@ -101,3 +104,27 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LOADED[name] = lib
     return lib
+
+
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+
+def bind(name: str, fn_name: str, argtypes: str):
+    """``fn_name`` of library ``name`` returning an int, its arguments typed
+    on first use from ``argtypes``: one letter each, ``p`` a pointer (or
+    the stream), ``i`` an int, ``f`` a float."""
+    fn = getattr(library(name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = [_CTYPES[c] for c in argtypes]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(name: str, fn_name: str, rc: int) -> None:
+    """Raise unless ``rc``, a launch's ``cudaError_t``, is 0; the message is
+    the library's ``<name>_error_string``."""
+    if rc != 0:
+        err = library(name)[f"{name}_error_string"]
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        raise RuntimeError(f"{fn_name} launch failed: " + err(rc).decode())

@@ -26,6 +26,21 @@
 //     contiguous axis, so no relayout is needed.
 // Tensor cores (wgmma) with a precision-safe split and TMA pipelining are
 // the work of a later change.
+//
+// K7: the plain batch distance product over one f32 or bf16 PDX tile, the
+// template instance kNorms = true of the same kernel.
+//
+// Replaces the TPU kernel src/repro/kernels/batched_matmul.py:
+// batched_distance_pallas (body _bmm_kernel).  Plain version:
+// repro_torch/kernels/ref.py:batched_distance_ref.  T (D, V) f32 | bf16,
+// Q (B, D) f32 | bf16, qn (B,) = ||q||^2 and xn (V,) = ||x||^2 computed
+// outside the kernel (as the TPU kernel's wrapper computes them outside
+// pallas_call), out (B, V) f32: qn - 2 q.x + xn (l2) or -q.x (ip).  Both
+// operands upcast to f32 on load and the product runs in full f32, as K2's
+// does (no TF32: the l2 form cancels).  Bound on an H100: operations at a
+// batch of 64 (2 B D V flops against D V bytes), as for K2; the same SIMT
+// tiling, with the given norms added in the epilogue instead of the
+// column norms summed beside the product.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -42,12 +57,14 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(int8_t v) { return (float)v; }
 
-template <typename T, bool kQuant, bool kIP>
+// kNorms = false is K2 (column norms summed beside the product), true is K7
+// (norms given in xn, which K2 leaves null).
+template <typename T, typename QT, bool kQuant, bool kIP, bool kNorms>
 __global__ void __launch_bounds__(kThreads)
-bmm_quant_kernel(const T* __restrict__ x, const float* __restrict__ Q,
-                 const float* __restrict__ qn, const float* __restrict__ scale,
-                 const float* __restrict__ offset, float* __restrict__ out,
-                 int B, int D, int V, int64_t ld_out) {
+bmm_kernel(const T* __restrict__ x, const QT* __restrict__ Q, const float* __restrict__ qn,
+           const float* __restrict__ xn_given, const float* __restrict__ scale,
+           const float* __restrict__ offset, float* __restrict__ out, int B, int D, int V,
+           int64_t ld_out) {
   __shared__ __align__(16) float Qs[kBK][kBM + kPad];
   __shared__ __align__(16) float Xs[kBK][kBN + kPad];
 
@@ -68,7 +85,7 @@ bmm_quant_kernel(const T* __restrict__ x, const float* __restrict__ Q,
       const int e = tid + i * kThreads;
       const int m = e / kBK, k = e % kBK;
       const int gm = m0 + m, gk = k0 + k;
-      Qs[k][m] = (gm < B && gk < D) ? Q[(int64_t)gm * D + gk] : 0.f;
+      Qs[k][m] = (gm < B && gk < D) ? to_float(Q[(int64_t)gm * D + gk]) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < (kBK * kBN) / kThreads; ++i) {
@@ -94,7 +111,7 @@ bmm_quant_kernel(const T* __restrict__ x, const float* __restrict__ Q,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
       }
-      if (!kIP) {
+      if (!kIP && !kNorms) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) xn[j] += bv[j] * bv[j];
       }
@@ -111,8 +128,9 @@ bmm_quant_kernel(const T* __restrict__ x, const float* __restrict__ Q,
     for (int j = 0; j < 4; ++j) {
       const int gn = n0 + tx * 4 + j;
       if (gn >= V) continue;
+      const float xv = kIP ? 0.f : (kNorms ? xn_given[gn] : xn[j]);
       out[(int64_t)gm * ld_out + (int64_t)p * V + gn] =
-          kIP ? -acc[i][j] : (qv - 2.f * acc[i][j]) + xn[j];
+          kIP ? -acc[i][j] : (qv - 2.f * acc[i][j]) + xv;
     }
   }
 }
@@ -122,9 +140,26 @@ cudaError_t launch(const void* x, const float* Q, const float* qn, const float* 
                    const float* offset, float* out, int P, int B, int D, int V,
                    cudaStream_t stream) {
   dim3 grid((V + kBN - 1) / kBN, (B + kBM - 1) / kBM, P);
-  bmm_quant_kernel<T, kQuant, kIP><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), Q, qn, scale, offset, out, B, D, V, (int64_t)P * V);
+  bmm_kernel<T, float, kQuant, kIP, false><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), Q, qn, nullptr, scale, offset, out, B, D, V, (int64_t)P * V);
   return cudaGetLastError();
+}
+
+template <typename T, typename QT, bool kIP>
+cudaError_t launch_plain(const void* x, const void* Q, const float* qn, const float* xn,
+                         float* out, int B, int D, int V, cudaStream_t stream) {
+  dim3 grid((V + kBN - 1) / kBN, (B + kBM - 1) / kBM, 1);
+  bmm_kernel<T, QT, false, kIP, true><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const QT*>(Q), qn, xn, nullptr, nullptr, out, B,
+      D, V, (int64_t)V);
+  return cudaGetLastError();
+}
+
+template <typename T, typename QT>
+cudaError_t dispatch_plain(const void* x, const void* Q, const float* qn, const float* xn,
+                           float* out, int B, int D, int V, bool ip, cudaStream_t s) {
+  return ip ? launch_plain<T, QT, true>(x, Q, qn, xn, out, B, D, V, s)
+            : launch_plain<T, QT, false>(x, Q, qn, xn, out, B, D, V, s);
 }
 
 template <typename T>
@@ -155,6 +190,28 @@ extern "C" int batched_distance_quant(const void* x, int dtype, const float* Q, 
       return dispatch<__nv_bfloat16>(x, Q, qn, scale, offset, out, P, B, D, V, quant, is_ip, s);
     case 2:
       return dispatch<int8_t>(x, Q, qn, scale, offset, out, P, B, D, V, quant, is_ip, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K7.  t_dtype, q_dtype: 0 f32, 1 bf16.  qn, xn are ignored for ip.
+// Returns a cudaError_t.
+extern "C" int batched_distance(const void* x, int t_dtype, const void* Q, int q_dtype,
+                                const float* qn, const float* xn, float* out, int B, int D,
+                                int V, int ip, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool is_ip = ip != 0;
+  switch (t_dtype * 2 + q_dtype) {
+    case 0:
+      return dispatch_plain<float, float>(x, Q, qn, xn, out, B, D, V, is_ip, s);
+    case 1:
+      return dispatch_plain<float, __nv_bfloat16>(x, Q, qn, xn, out, B, D, V, is_ip, s);
+    case 2:
+      return dispatch_plain<__nv_bfloat16, float>(x, Q, qn, xn, out, B, D, V, is_ip, s);
+    case 3:
+      return dispatch_plain<__nv_bfloat16, __nv_bfloat16>(x, Q, qn, xn, out, B, D, V, is_ip,
+                                                           s);
     default:
       return (int)cudaErrorInvalidValue;
   }

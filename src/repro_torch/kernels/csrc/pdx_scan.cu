@@ -51,9 +51,45 @@
 // Bound on an H100: bytes of the tiles the live partitions stream.  A
 // surviving partition is scanned by one block, 4 rows in flight; splitting
 // it over blocks is later work.
+//
+// K4: the plain PDX distance scan, no pruning (the paper's PDX kernel).
+//
+// Replaces the TPU kernel src/repro/kernels/pdx_scan.py:pdx_distance_pallas
+// (body _pdx_dist_kernel).  Plain version:
+// repro_torch/kernels/ref.py:pdx_distance_ref.  T (D, V) f32 | bf16, q (D,)
+// f32 -> (V,) f32: sum_d (x - q)^2 (l2), sum_d |x - q| (l1) or
+// -sum_d x*q (ip), accumulated in f32.  Bound on an H100: bytes (one read
+// of T, 1-3 flops a value).  Each thread owns 4 consecutive lanes and walks
+// all D rows, so a warp reads 128 consecutive lanes of a row (one 16- or
+// 8-byte vector a thread): loads are coalesced along V, the tile's
+// contiguous axis, and no lane ever needs another's sum (no cross-thread
+// reduction, the point of the layout).  q sits in shared memory.
+//
+// K6: one partition's fused L2 scan with the ADSampling test per d-tile.
+//
+// Replaces the TPU kernel src/repro/kernels/pdx_scan.py:
+// pdx_prune_scan_pallas (body _prune_scan_kernel).  Plain version:
+// repro_torch/kernels/ref.py:pdx_prune_scan_ref.  T (D, V) f32 | bf16,
+// ids (V,) int32 or null (every lane real), q (D,) f32, thr one f32 on the
+// device -> dists (V,) f32, alive (V,) bool; K1's test, at
+// d_seen = min((t+1) * d_tile, D): the operands are not padded, so every
+// stored dimension is a logical one.
+// The TPU kernel walks the d-tiles of the whole (D, V) partition on one
+// core; here the V lanes are split over blocks of 1024, each running its own
+// d-tile loop.  That changes no output: a dead lane's accumulator is frozen,
+// so which lanes a block skips is invisible.  Bound on an H100: bytes of the
+// rows of the lanes still alive.  Pruned lanes are scattered over V, so a
+// block rarely dies whole (its vote still ends its loop, loads included);
+// what saves bytes is that a thread whose 4 lanes are all dead makes no
+// load, so a 32-byte sector of a row is read only while one of its 8 (f32)
+// lanes lives.  Per tile the sums run in K1's order (same helpers), so on
+// one partition K6 and K1 agree to the last bit or two (the compiler
+// contracts the two loops into FMAs differently).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "metric.cuh"
 
 namespace {
 
@@ -276,6 +312,126 @@ int dispatch(const void* x, int dtype, const int* ids, const float* q, const flo
   }
 }
 
+// ------------------------------------------------------------------ K4
+template <typename T, int kMetric>
+__global__ void __launch_bounds__(kThreads)
+pdx_distance_kernel(const T* __restrict__ x, const float* __restrict__ q,
+                    float* __restrict__ out, int D, int V) {
+  extern __shared__ float sq[];
+  for (int i = threadIdx.x; i < D; i += blockDim.x) sq[i] = q[i];
+  __syncthreads();
+  const int v0 = (blockIdx.x * blockDim.x + threadIdx.x) * kLanes;
+  if (v0 >= V) return;
+  const bool vec = (V % kLanes) == 0;
+  float acc[kLanes] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+  for (int r = 0; r < D; ++r) {
+    float xv[kLanes];
+    load4(x + (int64_t)r * V, v0, V, vec, xv);
+    const float qv = sq[r];
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) acc[j] += term<kMetric>(xv[j], qv);
+  }
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) {
+    if (v0 + j < V) out[v0 + j] = kMetric == kIP ? -acc[j] : acc[j];
+  }
+}
+
+template <typename T, int kMetric>
+cudaError_t launch_distance(const void* x, const float* q, float* out, int D, int V,
+                            cudaStream_t stream) {
+  const size_t smem = (size_t)D * sizeof(float);
+  auto kernel = pdx_distance_kernel<T, kMetric>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int lanes_per_block = kThreads * kLanes;
+  kernel<<<(V + lanes_per_block - 1) / lanes_per_block, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), q, out, D, V);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_distance(const void* x, const float* q, float* out, int D, int V,
+                              int metric, cudaStream_t s) {
+  switch (metric) {
+    case kL2: return launch_distance<T, kL2>(x, q, out, D, V, s);
+    case kIP: return launch_distance<T, kIP>(x, q, out, D, V, s);
+    case kL1: return launch_distance<T, kL1>(x, q, out, D, V, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ------------------------------------------------------------------ K6
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+prune_scan_kernel(const T* __restrict__ x, const int* __restrict__ ids,
+                  const float* __restrict__ q, const float* __restrict__ thr_ptr,
+                  float* __restrict__ dists, bool* __restrict__ alive_out, int D, int V,
+                  int d_tile, float eps0) {
+  extern __shared__ float sq[];
+  for (int i = threadIdx.x; i < D; i += blockDim.x) sq[i] = q[i];
+  __syncthreads();
+  const int v0 = (blockIdx.x * blockDim.x + threadIdx.x) * kLanes;
+  float acc[kLanes];
+  bool live[kLanes];
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) {
+    acc[j] = 0.f;
+    live[j] = (v0 + j < V) && (ids == nullptr || ids[v0 + j] >= 0);
+  }
+  const bool vec = (V % kLanes) == 0;
+  const float thr = *thr_ptr;
+  for (int r0 = 0; r0 < D; r0 += d_tile) {
+    const int d_seen = min(r0 + d_tile, D);
+    float c[kLanes] = {0.f, 0.f, 0.f, 0.f};
+    if (live[0] | live[1] | live[2] | live[3]) {  // a dead thread loads nothing
+      tile_sum(x, r0, d_seen, V, v0, vec, sq, sq, sq, false, c);
+    }
+    const float fd = (float)d_seen;
+    const float ratio = (float)D / fd;
+    const float s = 1.f + eps0 / sqrtf(fd);
+    const float bound = thr * (s * s);
+    int any = 0;
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) {
+      if (live[j]) {
+        acc[j] += c[j];
+        live[j] = acc[j] * ratio <= bound;
+      }
+      any |= live[j];
+    }
+    if (!__syncthreads_or(any)) break;  // no lane of this block alive
+  }
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) {
+    if (v0 + j < V) {
+      dists[v0 + j] = acc[j];
+      alive_out[v0 + j] = live[j];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_prune(const void* x, const int* ids, const float* q, const float* thr,
+                         float* dists, bool* alive, int D, int V, int d_tile, float eps0,
+                         cudaStream_t stream) {
+  const size_t smem = (size_t)D * sizeof(float);
+  auto kernel = prune_scan_kernel<T>;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int lanes_per_block = kThreads * kLanes;
+  kernel<<<(V + lanes_per_block - 1) / lanes_per_block, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), ids, q, thr, dists, alive, D, V, d_tile, eps0);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // K1.  dtype: 0 f32, 1 bf16, 2 int8, 3 packed int4.  Returns a cudaError_t.
@@ -296,6 +452,32 @@ extern "C" int pdx_prune_scan_multi_prefetch(const void* x, int dtype, const int
                                              int quantized, void* stream) {
   return dispatch<true>(x, dtype, ids, q, thr, scale, offset, dists, alive, streamed, P, Drows,
                         V, dim, d_tile, eps0, quantized, stream);
+}
+
+// K4.  dtype: 0 f32, 1 bf16; metric: 0 l2, 1 ip (negated), 2 l1.
+extern "C" int pdx_distance(const void* x, int dtype, const float* q, float* out, int D, int V,
+                            int metric, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return dispatch_distance<float>(x, q, out, D, V, metric, s);
+    case 1: return dispatch_distance<__nv_bfloat16>(x, q, out, D, V, metric, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K6.  dtype: 0 f32, 1 bf16; ids may be null (every lane real).
+extern "C" int pdx_prune_scan(const void* x, int dtype, const int* ids, const float* q,
+                              const float* thr, float* dists, bool* alive, int D, int V,
+                              int d_tile, float eps0, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return launch_prune<float>(x, ids, q, thr, dists, alive, D, V, d_tile, eps0, s);
+    case 1:
+      return launch_prune<__nv_bfloat16>(x, ids, q, thr, dists, alive, D, V, d_tile, eps0, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* pdx_scan_error_string(int code) {

@@ -3,7 +3,16 @@
 Counterpart of ``repro.kernels.ops``.  Each op dispatches by the device of
 its tensors, never by a ``try``: a CPU tensor runs the plain PyTorch
 version from ``kernels.ref``; a CUDA tensor launches the hand-written
-kernel (``kernels.pdx_scan``, ``kernels.batched_matmul``) or raises.
+kernel (``kernels.pdx_scan``, ``kernels.nary_scan``,
+``kernels.batched_matmul``) or raises.
+
+The reference zero-pads the operands of its plain scans
+(``pdx_distance_op``, ``nary_distance_op``, ``batched_distance_op``,
+``pdx_prune_scan_op``) to whole ``_pick`` tiles, since a Pallas block must
+be whole, and marks padded lanes dead with ``ids = -1``.  Their kernels
+here mask the ragged edge themselves, which gives the same values (a zero
+dimension adds 0 to every metric, a lane past V does not exist, the test
+still divides by the logical D), so these ops copy nothing.
 """
 from __future__ import annotations
 
@@ -12,10 +21,21 @@ from typing import Optional
 import torch
 
 from . import ref
-from .batched_matmul import batched_distance_quant_cuda
-from .pdx_scan import pdx_prune_scan_multi_cuda, pdx_prune_scan_multi_prefetch_cuda
+from .batched_matmul import batched_distance_cuda, batched_distance_quant_cuda
+from .nary_scan import nary_distance_cuda
+from .pdx_scan import (
+    METRIC_CODES,
+    pdx_distance_cuda,
+    pdx_prune_scan_cuda,
+    pdx_prune_scan_multi_cuda,
+    pdx_prune_scan_multi_prefetch_cuda,
+)
 
 __all__ = [
+    "pdx_distance_op",
+    "nary_distance_op",
+    "batched_distance_op",
+    "pdx_prune_scan_op",
     "pdx_prune_scan_multi_op",
     "pdx_prune_scan_multi_prefetch_op",
     "batched_distance_quant_op",
@@ -27,6 +47,84 @@ def _device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type
+
+
+def _check_metric(metric: str, allowed=tuple(METRIC_CODES)) -> None:
+    if metric not in allowed:
+        raise ValueError(f"metric must be one of {allowed}, got {metric!r}")
+
+
+def _f32_on(v, dev) -> torch.Tensor:
+    return v.to(device=dev, dtype=torch.float32).contiguous()
+
+
+def pdx_distance_op(T: torch.Tensor, q: torch.Tensor, metric: str = "l2") -> torch.Tensor:
+    """(D, V) f32/bf16 PDX tile, (D,) query -> (V,) f32 distances (l2, l1
+    or negated ip), accumulated in f32."""
+    _check_metric(metric)
+    if _device_kind(T) == "cpu":
+        return ref.pdx_distance_ref(T, q, metric)
+    return pdx_distance_cuda(T.contiguous(), _f32_on(q, T.device), metric)
+
+
+def nary_distance_op(X: torch.Tensor, q: torch.Tensor, metric: str = "l2") -> torch.Tensor:
+    """(N, D) f32/bf16 rows, (D,) query -> (N,) f32 distances (l2, l1 or
+    negated ip), accumulated in f32."""
+    _check_metric(metric)
+    if _device_kind(X) == "cpu":
+        return ref.nary_distance_ref(X, q, metric)
+    return nary_distance_cuda(X.contiguous(), _f32_on(q, X.device), metric)
+
+
+def batched_distance_op(T: torch.Tensor, Q: torch.Tensor, metric: str = "l2") -> torch.Tensor:
+    """(D, V) f32/bf16 tile, (B, D) queries -> (B, V) f32 distances, l2 or
+    negated ip.  The norms are plain reductions outside the kernel, as the
+    reference computes them outside its ``pallas_call``; each is one
+    reduction in f32 over the operand as stored, so no f32 copy of T is
+    made."""
+    _check_metric(metric, ("l2", "ip"))
+    if _device_kind(T) == "cpu":
+        return ref.batched_distance_ref(T, Q, metric)
+    T = T.contiguous()
+    Q = Q.to(T.device).contiguous()
+    qn = xn = None
+    if metric == "l2":
+        qn = squared_norms(Q, dim=1)
+        xn = squared_norms(T, dim=0)
+    return batched_distance_cuda(T, Q, qn, xn, metric=metric)
+
+
+def squared_norms(A: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum of squares of ``A`` along ``dim`` in f32, without a temporary
+    of ``A``'s size (the reduction upcasts bf16 as it reads)."""
+    return torch.linalg.vector_norm(A, dim=dim, dtype=torch.float32).square()
+
+
+def pdx_prune_scan_op(
+    T: torch.Tensor,
+    q: torch.Tensor,
+    thr,
+    ids: Optional[torch.Tensor] = None,
+    eps0: float = 2.1,
+    d_tile: int = 64,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused PDXearch + ADSampling scan of one (D, V) partition ->
+    (dists (V,) f32, alive (V,) bool).
+
+    ``ids`` is the partition's (V,) id row: lanes with ``ids < 0`` (PAD
+    columns) start dead and never surface; None means every lane is real.
+    The test divides by the logical D; a pruned lane reports its partial
+    distance."""
+    D = T.shape[0]
+    dt = min(d_tile, D)
+    if _device_kind(T) == "cpu":
+        dists, alive = ref.pdx_prune_scan_ref(T, q, thr, d_tile=dt, eps0=eps0, ids=ids)
+        return dists, alive != 0.0
+    dev = T.device
+    thr_t = torch.as_tensor(thr, dtype=torch.float32).to(dev).reshape(1)
+    ids_t = None if ids is None else ids.to(device=dev, dtype=torch.int32).contiguous()
+    return pdx_prune_scan_cuda(T.contiguous(), ids_t, _f32_on(q, dev), thr_t, d_tile=dt,
+                               eps0=eps0)
 
 
 def _unpack_int4_levels(T: torch.Tensor, dim: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""K1 and K3 — the whole-store fused scans, hand-written in CUDA for Hopper.
+"""K1, K3, K4 and K6 — the PDX scans, hand-written in CUDA for Hopper.
 
-Both bind ``csrc/pdx_scan.cu`` (one kernel template, two instances):
+All bind ``csrc/pdx_scan.cu``:
 
   ``pdx_prune_scan_multi_cuda`` (K1, replacing the TPU kernel
   ``repro.kernels.pdx_scan.pdx_prune_scan_multi_pallas``): one launch scans
@@ -11,34 +11,34 @@ Both bind ``csrc/pdx_scan.cu`` (one kernel template, two instances):
   cascade stages; a partition that enters dead fetches nothing, and the
   launch also returns ``streamed``, the d-tiles each partition fetched.
 
+  ``pdx_distance_cuda`` (K4, replacing ``pdx_distance_pallas``): the
+  paper's PDX kernel, a plain (D, V) distance scan (l2, ip, l1).
+
+  ``pdx_prune_scan_cuda`` (K6, replacing ``pdx_prune_scan_pallas``): one
+  (D, V) partition's fused L2 scan with the ADSampling test per d-tile.
+
 Callers go through ``kernels.ops``, which pads operands and dispatches by
 device; these wrappers take CUDA tensors only and raise on anything else.
 Each counts its kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
-import ctypes
+from typing import Optional
 
 import torch
 
-from ._build import library
+from ._build import bind, check_launch
 
-__all__ = ["pdx_prune_scan_multi_cuda", "pdx_prune_scan_multi_prefetch_cuda"]
+__all__ = [
+    "pdx_prune_scan_multi_cuda",
+    "pdx_prune_scan_multi_prefetch_cuda",
+    "pdx_distance_cuda",
+    "pdx_prune_scan_cuda",
+]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3}
-
-
-def _bind(name: str, n_outputs: int):
-    lib = library("pdx_scan")
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p, i, p, p, p, p, p] + [p] * n_outputs
-                       + [i, i, i, i, i, ctypes.c_float, i, p])
-        fn.restype = i
-        lib.pdx_scan_error_string.argtypes = [i]
-        lib.pdx_scan_error_string.restype = ctypes.c_char_p
-    return lib, fn
+#: the metrics of the plain distance kernels (K4, K5), by their code
+METRIC_CODES = {"l2": 0, "ip": 1, "l1": 2}
 
 
 def _check(t: torch.Tensor, name: str, dtype=None, shape=None) -> None:
@@ -69,7 +69,7 @@ def _launch(name: str, T, ids, q, thr, scale, offset, outputs, dim, d_tile,
     for vname, t in (("q", q), ("scale", scale), ("offset", offset)):
         _check(t, vname, torch.float32, (Dlog,))
     _check(thr, "thr", torch.float32, (1,))
-    lib, fn = _bind(name, len(outputs))
+    fn = bind("pdx_scan", name, "pippppp" + "p" * len(outputs) + "iiiiifip")
     rc = fn(
         T.data_ptr(), _DTYPE_CODES[T.dtype], ids.data_ptr(), q.data_ptr(),
         thr.data_ptr(), scale.data_ptr(), offset.data_ptr(),
@@ -77,10 +77,7 @@ def _launch(name: str, T, ids, q, thr, scale, offset, outputs, dim, d_tile,
         float(eps0), int(quantized or packed),
         torch.cuda.current_stream(T.device).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(
-            f"{name} launch failed: " + lib.pdx_scan_error_string(rc).decode()
-        )
+    check_launch("pdx_scan", name, rc)
 
 
 def pdx_prune_scan_multi_cuda(
@@ -135,5 +132,60 @@ def pdx_prune_scan_multi_prefetch_cuda(
     return dists, alive, streamed
 
 
+def pdx_distance_cuda(T: torch.Tensor, q: torch.Tensor, metric: str) -> torch.Tensor:
+    """(D, V) f32/bf16 tile, (D,) f32 query -> (V,) f32 distances: l2,
+    l1 or negated ip."""
+    if metric not in METRIC_CODES:
+        raise ValueError(f"metric must be one of {tuple(METRIC_CODES)}, got {metric!r}")
+    _check(T, "T")
+    if T.dtype not in (torch.float32, torch.bfloat16) or T.ndim != 2:
+        raise ValueError(f"T must be a (D, V) f32 or bf16 tile, got {T.dtype} {tuple(T.shape)}")
+    D, V = T.shape
+    _check(q, "q", torch.float32, (D,))
+    out = torch.empty((V,), dtype=torch.float32, device=T.device)
+    fn = bind("pdx_scan", "pdx_distance", "pippiiip")
+    rc = fn(T.data_ptr(), _DTYPE_CODES[T.dtype], q.data_ptr(), out.data_ptr(), D, V,
+            METRIC_CODES[metric], torch.cuda.current_stream(T.device).cuda_stream)
+    check_launch("pdx_scan", "pdx_distance", rc)
+    pdx_distance_cuda.launches += 1
+    return out
+
+
+def pdx_prune_scan_cuda(
+    T: torch.Tensor,
+    ids: Optional[torch.Tensor],
+    q: torch.Tensor,
+    thr: torch.Tensor,
+    *,
+    d_tile: int,
+    eps0: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(D, V) f32/bf16 partition, (V,) int32 ids or None (every lane
+    real), (D,) f32 query, (1,) f32 thr on the device -> (dists (V,) f32,
+    alive (V,) bool).  The test divides by D: the operands are not padded,
+    so every stored dimension is a logical one."""
+    _check(T, "T")
+    if T.dtype not in (torch.float32, torch.bfloat16) or T.ndim != 2:
+        raise ValueError(f"T must be a (D, V) f32 or bf16 tile, got {T.dtype} {tuple(T.shape)}")
+    D, V = T.shape
+    if d_tile <= 0:
+        raise ValueError(f"d_tile must be positive, got {d_tile}")
+    if ids is not None:
+        _check(ids, "ids", torch.int32, (V,))
+    _check(q, "q", torch.float32, (D,))
+    _check(thr, "thr", torch.float32, (1,))
+    dists = torch.empty((V,), dtype=torch.float32, device=T.device)
+    alive = torch.empty((V,), dtype=torch.bool, device=T.device)
+    fn = bind("pdx_scan", "pdx_prune_scan", "pipppppiiifp")
+    rc = fn(T.data_ptr(), _DTYPE_CODES[T.dtype], None if ids is None else ids.data_ptr(),
+            q.data_ptr(), thr.data_ptr(), dists.data_ptr(), alive.data_ptr(), D, V, d_tile,
+            float(eps0), torch.cuda.current_stream(T.device).cuda_stream)
+    check_launch("pdx_scan", "pdx_prune_scan", rc)
+    pdx_prune_scan_cuda.launches += 1
+    return dists, alive
+
+
 pdx_prune_scan_multi_cuda.launches = 0
 pdx_prune_scan_multi_prefetch_cuda.launches = 0
+pdx_distance_cuda.launches = 0
+pdx_prune_scan_cuda.launches = 0

@@ -15,8 +15,11 @@ import torch
 
 __all__ = [
     "dequantize_ref",
+    "pdx_distance_ref",
+    "nary_distance_ref",
     "batched_distance_ref",
     "batched_distance_quant_ref",
+    "pdx_prune_scan_ref",
     "pdx_prune_scan_multi_ref",
     "pdx_prune_scan_multi_dskip_ref",
     "batched_cascade_stage_ref",
@@ -59,6 +62,30 @@ def dequantize_ref(
     return T32 * scale.reshape(shape) + offset.reshape(shape)
 
 
+def pdx_distance_ref(T: torch.Tensor, q: torch.Tensor, metric: str = "l2") -> torch.Tensor:
+    """(D, V), (D,) -> (V,) float32 accumulation regardless of input dtype."""
+    T32 = T.to(torch.float32)
+    q32 = q.to(torch.float32)
+    if metric == "l2":
+        d = T32 - q32[:, None]
+        return torch.sum(d * d, dim=0)
+    if metric == "l1":
+        return torch.sum(torch.abs(T32 - q32[:, None]), dim=0)
+    return -torch.sum(T32 * q32[:, None], dim=0)
+
+
+def nary_distance_ref(X: torch.Tensor, q: torch.Tensor, metric: str = "l2") -> torch.Tensor:
+    """(N, D), (D,) -> (N,)."""
+    X32 = X.to(torch.float32)
+    q32 = q.to(torch.float32)
+    if metric == "l2":
+        d = X32 - q32[None, :]
+        return torch.sum(d * d, dim=1)
+    if metric == "l1":
+        return torch.sum(torch.abs(X32 - q32[None, :]), dim=1)
+    return -torch.sum(X32 * q32[None, :], dim=1)
+
+
 def batched_distance_ref(T: torch.Tensor, Q: torch.Tensor, metric: str = "l2") -> torch.Tensor:
     """(D, V), (B, D) -> (B, V); l2 or ip (matmul family)."""
     T32 = T.to(torch.float32)
@@ -95,6 +122,36 @@ class ScanTrace(NamedTuple):
     margin: torch.Tensor
     lanes: torch.Tensor
     parts: torch.Tensor
+
+
+def pdx_prune_scan_ref(
+    T: torch.Tensor,
+    q: torch.Tensor,
+    thr,
+    *,
+    d_tile: int,
+    eps0: float,
+    ids: Optional[torch.Tensor] = None,
+    trace: bool = False,
+):
+    """Plain version of the fused PDXearch + ADSampling partition scan.
+
+    (D, V) tile, (D,) query -> (dists (V,), alive (V,) f32 mask).  Walks
+    d-tiles of ``d_tile`` dims; after each the ADSampling test runs at the
+    dims seen so far, and a pruned lane's accumulator freezes at its partial
+    distance.  ``ids`` is the partition's (V,) id row: lanes with
+    ``ids < 0`` (PAD columns) start dead; None means every lane is real.
+    The whole-store walk with one partition, so the test's scalars are true
+    f32 operations.  ``trace=True`` adds the walk's ``ScanTrace``
+    (``lanes``: lanes alive entering each d-tile)."""
+    V = T.shape[1]
+    if ids is None:
+        ids = torch.zeros((V,), dtype=torch.int32, device=T.device)
+    acc, alive, _, walk = _multi_walk(T[None], torch.as_tensor(ids)[None], q, thr, d_tile,
+                                      eps0, None, None, False, None, trace)
+    if trace:
+        return acc[0], alive[0], ScanTrace(walk.margin[0], walk.lanes, walk.parts)
+    return acc[0], alive[0]
 
 
 def pdx_prune_scan_multi_ref(

@@ -13,6 +13,12 @@ Tolerances (the kernels sum in another order and contract to FMA):
     masks agree.
   * The batched cascade stage (K2 per d-tile): K2's bound per tile summed
     over the tiles, and K1's rule for the alive masks.
+  * K4, K5: rtol 1e-5 / atol 1e-4 at f32 and bf16 (both sides upcast bf16
+    exactly and sum D terms in f32, in another order).
+  * K6: K1's rule; on one partition K6 and K1 give equal masks and dists
+    within rtol 1e-6 (the same sums in the same order; the compiler
+    contracts them into FMAs differently, so the last bit may differ).
+  * K7: K2's bound.
 """
 import numpy as np
 import pytest
@@ -22,14 +28,21 @@ from repro_torch.core import layout as tl
 from repro_torch.core.engine import SearchSpec, VectorSearchEngine
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.kernels import ref
-from repro_torch.kernels.batched_matmul import batched_distance_quant_cuda
+from repro_torch.kernels.batched_matmul import batched_distance_cuda, batched_distance_quant_cuda
+from repro_torch.kernels.nary_scan import nary_distance_cuda
 from repro_torch.kernels.ops import (
     batched_cascade_stage_op,
+    batched_distance_op,
     batched_distance_quant_op,
+    nary_distance_op,
+    pdx_distance_op,
     pdx_prune_scan_multi_op,
     pdx_prune_scan_multi_prefetch_op,
+    pdx_prune_scan_op,
 )
 from repro_torch.kernels.pdx_scan import (
+    pdx_distance_cuda,
+    pdx_prune_scan_cuda,
     pdx_prune_scan_multi_cuda,
     pdx_prune_scan_multi_prefetch_cuda,
 )
@@ -251,3 +264,109 @@ def test_ivf_build_on_the_card_is_reproducible(dev):
     for name in ("data", "ids", "counts"):
         assert torch.equal(getattr(a.store, name), getattr(b.store, name))
     np.testing.assert_array_equal(a.ivf.part_counts, b.ivf.part_counts)
+
+
+def _randn(shape, seed, dev, dtype=torch.float32):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.from_numpy(x).to(dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "ip", "l1"])
+@pytest.mark.parametrize("D,V", [(8, 64), (33, 130), (130, 33), (960, 2050), (1536, 4096)])
+def test_k4_matches_plain(dev, D, V, metric, dtype):
+    """V % 4 != 0 takes the scalar loads; D = 1536 keeps q in 6 KB of
+    shared memory."""
+    T = _randn((D, V), D + V, dev, dtype)
+    q = _randn((D,), D, dev, dtype)
+    n0 = pdx_distance_cuda.launches
+    got = pdx_distance_op(T, q, metric)
+    assert pdx_distance_cuda.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (V,)
+    torch.testing.assert_close(got, ref.pdx_distance_ref(T, q, metric), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "ip", "l1"])
+@pytest.mark.parametrize("N,D", [(64, 8), (130, 33), (1000, 128), (257, 12), (300, 1536),
+                                 (1031, 4)])
+def test_k5_matches_plain(dev, N, D, metric, dtype):
+    """Groups of 1 to 32 threads a row; D = 33 (and 12 at bf16) take the
+    scalar loads; N is not a multiple of a block's rows."""
+    X = _randn((N, D), N + D, dev, dtype)
+    q = _randn((D,), D, dev, dtype)
+    n0 = nary_distance_cuda.launches
+    got = nary_distance_op(X, q, metric)
+    assert nary_distance_cuda.launches == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (N,)
+    torch.testing.assert_close(got, ref.nary_distance_ref(X, q, metric), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("B,D,V", [(4, 32, 64), (3, 50, 130), (65, 49, 1030), (64, 960, 4096)])
+def test_k7_matches_plain(dev, B, D, V, metric, dtype):
+    T = _randn((D, V), B + D + V, dev, dtype)
+    Q = _randn((B, D), B * D, dev, dtype)
+    n0 = batched_distance_cuda.launches
+    got = batched_distance_op(T, Q, metric)
+    assert batched_distance_cuda.launches == n0 + 1
+    want = ref.batched_distance_ref(T, Q, metric)
+    T32, Q32 = T.float(), Q.float()
+    scale = (Q32 * Q32).sum(1)[:, None] + (T32 * T32).sum(0)[None, :]
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-3).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("thr_kind", ["k11", "q1", "zero", "inf"])
+@pytest.mark.parametrize("D,V,d_tile,pad", [(96, 130, 64, True), (33, 1030, 16, False),
+                                            (960, 2050, 64, True), (64, 5000, 32, True)])
+def test_k6_matches_plain(dev, D, V, d_tile, pad, thr_kind, dtype):
+    """K6 through its op against the plain scan: PAD lanes start dead, the
+    last d-tile may be clipped, V spreads over several blocks; K1's rule
+    for the masks and dists."""
+    T = _randn((D, V), D * V, dev, dtype)
+    q = _randn((D,), D + 1, dev)
+    ids = None
+    if pad:
+        ids = torch.arange(V, dtype=torch.int32, device=dev)
+        ids[[0, 5, V // 2]] = -1
+        ids[-7:] = -1
+    full = ref.pdx_distance_ref(T, q)
+    thr = {"k11": torch.sort(full).values[10], "q1": torch.quantile(full, 0.01),
+           "zero": torch.tensor(0.0, device=dev),
+           "inf": torch.tensor(float("inf"), device=dev)}[thr_kind]
+    n0 = pdx_prune_scan_cuda.launches
+    kd, ka = pdx_prune_scan_op(T, q, thr, ids, eps0=2.1, d_tile=d_tile)
+    assert pdx_prune_scan_cuda.launches == n0 + 1
+    assert ka.dtype == torch.bool
+    pd_, pa, walk = ref.pdx_prune_scan_ref(T, q, thr, d_tile=d_tile, eps0=2.1, ids=ids,
+                                           trace=True)
+    pa = pa != 0
+    real = torch.ones(V, dtype=torch.bool, device=dev) if ids is None else ids >= 0
+    assert not ka[~real].any()
+    mism = ka != pa
+    if mism.any():
+        assert float(walk.margin[mism].max()) < 1e-4
+    both = ka & pa
+    torch.testing.assert_close(kd[both], pd_[both], rtol=1e-4, atol=1e-3)
+    if thr_kind == "inf":
+        assert bool(ka[real].all())
+        torch.testing.assert_close(kd[real], full[real], rtol=1e-4, atol=1e-3)
+    if thr_kind == "zero":
+        assert not ka.any()
+
+
+@pytest.mark.parametrize("thr_kind", ["k11", "inf"])
+def test_k6_equals_k1_on_one_partition(dev, thr_kind):
+    """K6 on a (D, C) partition and K1 on the same tile as a one-partition
+    store, same ids and thr: equal masks, dists equal to the last bit or
+    two."""
+    store, m = _mirror(2, 960, 1024, "f32", 11, dev)
+    q = _randn((960,), 12, dev)
+    full = ref.pdx_distance_ref(store.data[1], q)[store.ids[1] >= 0]
+    thr = torch.sort(full).values[10] if thr_kind == "k11" else float("inf")
+    kd6, ka6 = pdx_prune_scan_op(store.data[1], q, thr, store.ids[1], eps0=2.1)
+    kd1, ka1 = pdx_prune_scan_multi_op(store.data[1:2], store.ids[1:2], q, thr, eps0=2.1)
+    assert torch.equal(ka6, ka1[0])
+    torch.testing.assert_close(kd6, kd1[0], rtol=1e-6, atol=1e-5)

@@ -19,8 +19,11 @@ from repro_torch.core import layout, pruners
 from repro_torch.core.engine import SearchSpec, VectorSearchEngine
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.index import ivf, kmeans
-from repro_torch.kernels.batched_matmul import batched_distance_quant_cuda
+from repro_torch.kernels.batched_matmul import batched_distance_cuda, batched_distance_quant_cuda
+from repro_torch.kernels.nary_scan import nary_distance_cuda
 from repro_torch.kernels.pdx_scan import (
+    pdx_distance_cuda,
+    pdx_prune_scan_cuda,
     pdx_prune_scan_multi_cuda,
     pdx_prune_scan_multi_prefetch_cuda,
 )
@@ -160,7 +163,8 @@ def test_unported_engine_calls_name_their_roadmap_item(cpu_engine):
 
 def test_kernel_wrappers_refuse_cpu_tensors_without_fallback():
     wrappers = (pdx_prune_scan_multi_cuda, pdx_prune_scan_multi_prefetch_cuda,
-                batched_distance_quant_cuda)
+                batched_distance_quant_cuda, pdx_distance_cuda, nary_distance_cuda,
+                pdx_prune_scan_cuda, batched_distance_cuda)
     before = [w.launches for w in wrappers]
     T = torch.zeros((1, 8, 16))
     f = torch.zeros(8)
@@ -171,6 +175,15 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_fallback():
     with pytest.raises(ValueError, match="CUDA tensor"):
         batched_distance_quant_cuda(T, torch.zeros((2, 8)), torch.zeros(2), f, f,
                                     metric="l2", quantized=False)
+    T2 = torch.zeros((8, 16))
+    for plain in (pdx_distance_cuda, nary_distance_cuda):
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            plain(T2 if plain is pdx_distance_cuda else T2.T.contiguous(), f, "l2")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pdx_prune_scan_cuda(T2, None, f, torch.zeros(1), d_tile=4, eps0=2.1)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        batched_distance_cuda(T2, torch.zeros((2, 8)), torch.zeros(2), torch.zeros(16),
+                              metric="l2")
     assert [w.launches for w in wrappers] == before
 
 
