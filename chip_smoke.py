@@ -2,9 +2,12 @@
 """Drive the PyTorch/CUDA port's main search path on one CUDA card.
 
     python3 chip_smoke.py [--n 1000000] [--dim 960] [--seed 0]
+    python3 chip_smoke.py --compare OTHER/batched_matmul.cu
 
-Imports only ``torch``, ``numpy`` and the port (``src/repro_torch``), never
-JAX or the JAX package.  Phases, each printing one JSON line:
+The second form only times another build's K2 and K7 against this tree's
+(``compare_k2_k7``).  Imports only ``torch``, ``numpy`` and the port
+(``src/repro_torch``), never JAX or the JAX package.  Phases, each
+printing one JSON line:
 
   1. device — the card's name and power limit, torch/CUDA versions, and
      the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -45,8 +48,8 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      passed on the counted path (also at +inf and the 1 % quantile) —
      against their plain PyTorch
      versions on the same card tensors, with CUDA-event medians of the
-     kernel, the plain version and (K2) a library matmul, and the least
-     time the card could take (bound).
+     kernel, the whole op (K2), the plain version and (K2) a library
+     matmul, and the least time the card could take (bound).
      Before it, a ``torch.profiler`` breakdown of the main path's device
      time by kernel at f32 and int8, and of cascade ladder A (where the
      time goes).
@@ -94,13 +97,21 @@ RECALL_FLOORS = {"f32": (0.95, 0.99), "bf16": (0.95, 0.99),
                  "int8": (0.95, 0.99), "int4": None}
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the full 700 W):
-# HBM3 bandwidth; f32 on the SIMT cores, the rate of any product with an
-# f32 operand (TF32 would change the function); bf16 on the tensor cores,
-# the rate of a product of two bf16 operands (exact in its f32 accumulator,
-# so the tensor cores compute the same function).
+# HBM3 bandwidth; f32 on the SIMT cores, the rate of the scans with no
+# product and of the elementwise work beside a product; bf16 on the tensor
+# cores, the rate of a product of two bf16 operands (exact in its f32
+# accumulator, so the tensor cores compute the same function).  A product
+# with an f32 operand is held to the card's fastest f32-accurate route, an
+# exact bf16 split on the tensor cores (TF32 would change the function, and
+# f32 SIMT is slower): 989/3 where the other operand is exact in bf16 (bf16
+# tiles, int8/int4 levels with the scale folded into the queries), three
+# passes of the three query planes; 989/6 for f32 x f32, six passes.  These
+# are the routes K2 and K7 take, so no share of theirs can pass 100 %.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_SPLIT3_FLOPS = PEAK_BF16_FLOPS / 3
+PEAK_SPLIT6_FLOPS = PEAK_BF16_FLOPS / 6
 
 K1_SOURCE = "src/repro_torch/kernels/csrc/pdx_scan.cu"
 K1_REPLACES = "src/repro/kernels/pdx_scan.py:236"
@@ -177,13 +188,21 @@ class Flush:
         self.torch.sum(self.clean)
 
 
-def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS
-             ) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS,
+             simt_flops: float = 0.0) -> tuple[float, str]:
     """(least ms, "bytes" or "operations"): the larger of the bytes over
-    the memory rate and the operations over ``peak_flops``, the peak for the
-    operands' type."""
-    tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak_flops * 1e3
+    the memory rate and the operations over their peaks: ``flops`` at
+    ``peak_flops``, the peak for the operands' type, plus ``simt_flops``
+    (elementwise work beside a product) at the f32 SIMT peak."""
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    to = (flops / peak_flops + simt_flops / PEAK_F32_FLOPS) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def product_peak(*f32_operands: bool) -> float:
+    """The peak a product is held to: bf16 x bf16 on the tensor cores, the
+    three-pass split with one f32 operand, the six-pass split with two."""
+    return (PEAK_BF16_FLOPS, PEAK_SPLIT3_FLOPS, PEAK_SPLIT6_FLOPS)[sum(f32_operands)]
 
 
 def ptxas_summary(logs: dict) -> dict:
@@ -447,9 +466,11 @@ def stage_kernel_row(torch, ref, call: dict, ladder: str, stage: str) -> dict:
     # each entering column's norm and dequant
     nbytes = (float((parts * w).sum()) * bpv + B * S * (1 + 4 + 1) + Qs.numel() * 4
               + B * 4 + (2 * D * 4 if quantized else 0))
-    flops = (float((lanes * (2.0 * w + 7)).sum())
-             + float(parts[0]) * D * (4.0 if quantized else 2.0))
-    b, by = bound_ms(nbytes, flops)
+    # the cross term at the split's rate (queries f32; an f32 tile is the
+    # second f32 operand), the rest on the SIMT cores
+    flops = float((lanes * 2.0 * w).sum())
+    simt = float((lanes * 7.0).sum()) + float(parts[0]) * D * (4.0 if quantized else 2.0)
+    b, by = bound_ms(nbytes, flops, product_peak(True, T.dtype == torch.float32), simt)
     ms = cuda_ms(torch, lambda: kernel(thr))
     plain_ms = cuda_ms(torch, lambda: plain(thr))
     row = {"name": name, "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
@@ -461,7 +482,7 @@ def stage_kernel_row(torch, ref, call: dict, ladder: str, stage: str) -> dict:
           "columns_entering": int(parts[0]), "pairs_entering": int(alive.sum()),
           "pairs_per_tile": lanes.tolist(), "columns_per_tile": parts.tolist(),
           "d_tile": d_tile, "eps0": eps0, "bound_bytes": nbytes, "bound_flops": flops,
-          **extra})
+          "bound_simt_flops": simt, **extra})
     assert summary["parity"], f"{name} disagrees with its plain version"
     return row
 
@@ -712,7 +733,7 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
     (pruned vs full); K7 against its plain version at K2's tolerance.
     -> (phase line, kernel rows)."""
     from repro_torch.core.layout import device_mirror
-    from repro_torch.kernels.batched_matmul import batched_distance_cuda
+    from repro_torch.kernels.batched_matmul import batched_distance_cuda, query_planes
     from repro_torch.kernels.ops import (
         batched_distance_op, pdx_distance_op, pdx_prune_scan_multi_op, pdx_prune_scan_op,
         squared_norms,
@@ -844,17 +865,17 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
         err = float(diff.max())
         del diff, want
         B = Qx.shape[0]
-        ms = cuda_ms(torch, lambda: batched_distance_cuda(Tx, Qx, qn, xn, metric=m))
+        Ax = query_planes(Qx)
+        ms = cuda_ms(torch, lambda: batched_distance_cuda(Tx, Ax, qn, xn, metric=m))
         op_ms = cuda_ms(torch, lambda: batched_distance_op(Tx, Qx, m))
         plain = cuda_ms(torch, lambda: ref.batched_distance_ref(Tx, Qx, m))
         lib = cuda_ms(torch, lambda: torch.matmul(Q32, T32))
         # T and Q at their width, the (B, n) f32 output, the norms (l2); the
-        # product and the epilogue, at the bf16 tensor-core rate where both
-        # operands are bf16
+        # product at its operands' peak, the epilogue on the SIMT cores
         nbytes = (Tx.numel() * Tx.element_size() + Qx.numel() * Qx.element_size()
                   + B * n * 4 + ((B + n) * 4 if m == "l2" else 0))
-        peak = PEAK_BF16_FLOPS if Tx.dtype == Qx.dtype == torch.bfloat16 else PEAK_F32_FLOPS
-        b, by = bound_ms(nbytes, 2.0 * B * D * n + (3.0 if m == "l2" else 1.0) * B * n, peak)
+        peak = product_peak(Tx.dtype == torch.float32, Qx.dtype == torch.float32)
+        b, by = bound_ms(nbytes, 2.0 * B * D * n, peak, (3.0 if m == "l2" else 1.0) * B * n)
         k7[f"{dt}_{m}"] = {"ms": ms, "op_ms": op_ms, "bound_ms": b, "bound_by": by,
                            "max_abs_err": err, "launches": k7_launches[(dt, m)]}
         rows.append({"name": f"K7 batched_distance [{dt} {m}, B={B}, rotated {n} x {D}]",
@@ -863,7 +884,7 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
                      "plain_ms": plain, "bound_ms": b, "bound_by": by, "library_ms": lib,
                      "parity": ok, "op_ms": op_ms,
                      "library_call": "torch.matmul(Q, T) on f32 operands, cross term only"})
-        del T32, Q32
+        del T32, Q32, Ax
         assert ok, f"flat_scan: K7 {dt} {m} disagrees with its plain version"
     ratios = [r["pruned_vs_full"] for r in per_query]
     rec = statistics.mean(r["recall_at_10"] for r in per_query)
@@ -882,6 +903,129 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
     return line, rows
 
 
+def compare_k2_k7(torch, source: str, seed: int) -> int:
+    """``--compare SOURCE``: time the K2 and K7 entry points of another
+    build of ``csrc/batched_matmul.cu`` (``SOURCE``, the SIMT kernel of the
+    port's first version, with its argument lists) against this tree's, in
+    turns (other, this, this, other), on one card, at the main path's
+    shapes: K2 over a (1532, 960, 1024) stack at f32, bf16 and int8 levels,
+    K7 over a (960, 2^20) tile at f32 and bf16, l2 and ip, for a batch of
+    64; operands drawn on the card from ``seed``.  Both outputs are held to
+    K2's tolerance against each other.  Prints one JSON line per row and
+    the card's name and power limit; no search runs."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.batched_matmul import (
+        batched_distance_cuda, batched_distance_quant_cuda, query_planes,
+    )
+
+    out_dir = ROOT / "build" / "compare"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / "libother.so"
+    t0 = time.perf_counter()
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), source],
+                   check=True, capture_output=True, text=True)
+    other = ctypes.CDLL(str(lib_path))
+    k2_old, k7_old = other.batched_distance_quant, other.batched_distance
+    k2_old.argtypes = [_build._CTYPES[c] for c in "pipppppiiiiiip"]
+    k7_old.argtypes = [_build._CTYPES[c] for c in "pipipppiiiip"]
+    k2_old.restype = k7_old.restype = ctypes.c_int
+    _build.build_all()
+    emit({"phase": "compare_build", "source": source, "seconds": time.perf_counter() - t0})
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    P, D, C, B, n = 1532, 960, 1024, N_BATCH, 1 << 20
+    stream = torch.cuda.current_stream().cuda_stream
+    Q = torch.randn((B, D), generator=gen, device=dev)
+    qn = torch.sum(Q * Q, dim=1)
+    ones, zeros = torch.ones(D, device=dev), torch.zeros(D, device=dev)
+    scale = torch.rand(D, generator=gen, device=dev) * 0.05 + 0.01
+    offset = torch.randn(D, generator=gen, device=dev) * 0.1
+    rows = []
+
+    def turns(name, old, new, nbytes):
+        ms = [cuda_ms(torch, f) for f in (old, new, new, old)]
+        row = {"phase": "compare", "name": name, "other_ms": (ms[0] + ms[3]) / 2,
+               "this_ms": (ms[1] + ms[2]) / 2, "turns_ms": ms,
+               "bytes_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
+        row["speedup"] = row["other_ms"] / row["this_ms"]
+        emit(row)
+        rows.append(row)
+
+    def parity(got, want, xn):
+        tol = 1e-5 * (qn[:, None] + xn[None, :]) + 1e-3
+        ok = bool(((got - want).abs() <= tol).all())
+        assert ok, "compare: the two builds disagree"
+
+    T32 = torch.randn((P, D, C), generator=gen, device=dev)
+    for dt in ("f32", "bf16", "int8"):
+        if dt == "f32":
+            T, code, quant = T32, 0, False
+        elif dt == "bf16":
+            T, code, quant = T32.to(torch.bfloat16), 1, False
+        else:
+            T = torch.randint(-128, 128, (P, D, C), generator=gen, device=dev,
+                              dtype=torch.int8)
+            code, quant = 2, True
+        sc, off = (scale, offset) if quant else (ones, zeros)
+        out_old = torch.empty((B, P * C), device=dev)
+        A = query_planes(Q, sc, off) if quant else query_planes(Q)
+        sc_new, off_new = (sc, off) if quant else (None, None)
+
+        def old(T=T, code=code, sc=sc, off=off, quant=quant, out_old=out_old):
+            rc = k2_old(T.data_ptr(), code, Q.data_ptr(), qn.data_ptr(), sc.data_ptr(),
+                        off.data_ptr(), out_old.data_ptr(), P, B, D, C, int(quant), 0,
+                        stream)
+            assert rc == 0, rc
+
+        def new(T=T, A=A, sc=sc_new, off=off_new):
+            return batched_distance_quant_cuda(T, A, qn, sc, off, metric="l2")
+
+        old()
+        got = new()
+        xh = T.float() * sc[None, :, None] + off[None, :, None] if quant else T.float()
+        parity(got, out_old, torch.sum(xh * xh, dim=1).reshape(-1))
+        del xh, got
+        turns(f"K2 [{dt}, B={B}, P={P}, C={C}]", old, new,
+              T.numel() * T.element_size() + B * P * C * 4)
+        del out_old, A
+        if dt != "f32":
+            del T
+    del T32
+    torch.cuda.empty_cache()
+
+    Tf = torch.randn((D, n), generator=gen, device=dev)
+    for dt in ("f32", "bf16"):
+        T = Tf if dt == "f32" else Tf.to(torch.bfloat16)
+        Qx = Q if dt == "f32" else Q.to(torch.bfloat16)
+        A = query_planes(Qx)
+        code = 0 if dt == "f32" else 1
+        xn = torch.sum(T.float() ** 2, dim=0)
+        qx = torch.sum(Qx.float() ** 2, dim=1)
+        for m in ("l2", "ip"):
+            out_old = torch.empty((B, n), device=dev)
+
+            def old(T=T, Qx=Qx, code=code, m=m, xn=xn, qx=qx, out_old=out_old):
+                rc = k7_old(T.data_ptr(), code, Qx.data_ptr(), code, qx.data_ptr(),
+                            xn.data_ptr(), out_old.data_ptr(), B, D, n, int(m == "ip"), stream)
+                assert rc == 0, rc
+
+            def new(T=T, A=A, m=m, xn=xn, qx=qx):
+                return batched_distance_cuda(T, A, qx, xn, metric=m)
+
+            old()
+            parity(new(), out_old, xn)
+            turns(f"K7 [{dt} {m}, B={B}, {D} x {n}]", old, new,
+                  T.numel() * T.element_size() + B * n * 4)
+            del out_old
+        del T, A
+    print(nvidia_smi(), flush=True)
+    emit({"compare": rows})
+    return 0
+
+
 def recall(found, true) -> float:
     found, true = found.reshape(len(true), -1), true
     hits = sum(len(set(f.tolist()) & set(t.tolist())) for f, t in zip(found, true))
@@ -893,6 +1037,9 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--dim", type=int, default=960)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compare", metavar="SOURCE", default=None,
+                    help="time another build of csrc/batched_matmul.cu against this "
+                         "tree's K2 and K7, in turns, and stop")
     args = ap.parse_args()
 
     import torch
@@ -912,13 +1059,16 @@ def main() -> int:
     from repro_torch.core.distance import pdx_distance
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.batched_matmul import batched_distance_quant_cuda
+    from repro_torch.kernels.batched_matmul import batched_distance_quant_cuda, query_planes
     from repro_torch.kernels.ops import (
         _unpack_int4_levels, batched_distance_quant_op, pdx_prune_scan_multi_op,
     )
     from repro_torch.kernels.pdx_scan import (
         pdx_prune_scan_multi_cuda, pdx_prune_scan_multi_prefetch_cuda,
     )
+
+    if args.compare is not None:
+        return compare_k2_k7(torch, args.compare, args.seed)
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -1110,33 +1260,36 @@ def main() -> int:
         diff = (kout - pout).abs()[:, live_cols]
         err2 = float(diff.max())
         ok2 = bool((diff <= tol[:, live_cols]).all())
-        tiles = src.contiguous()
-        sc2 = m.scale if m.quantized else torch.ones(D, device=dev)
-        off2 = m.offset if m.quantized else torch.zeros(D, device=dev)
+        A2 = query_planes(Qt, sc, off)
+        # the kernel reads the mirror as stored (int4: packed bytes)
         ms2 = cuda_ms(torch, lambda: batched_distance_quant_cuda(
-            tiles, Qt, qn, sc2, off2, metric="l2", quantized=m.quantized))
+            m.data, A2, qn, sc, off, metric="l2", dim=m.dim if m.packed else None))
+        # the whole op: qn and the query planes included
+        op2 = cuda_ms(torch, lambda: batched_distance_quant_op(
+            m.data, Qt, sc, off, "l2", packed=m.packed, dim=m.dim))
         plain2 = cuda_ms(torch, k2_plain)
         lib2 = cuda_ms(torch, lambda: torch.matmul(Qt, T32))
         # the search needs the live columns only: their tile values at the
-        # mirror's width, the queries, (B, live) distances out; the product,
-        # the column norms, the epilogue, and the dequant FMA where quantized
+        # mirror's width, the queries, (B, live) distances out; the product
+        # at the split's rate, the column norms, the epilogue and the
+        # dequant FMA where quantized on the SIMT cores
         k2_bytes = (n_live * D * m.bytes_per_value + Qt.numel() * 4
                     + N_BATCH * n_live * 4 + (2 * D * 4 if m.quantized else 0))
-        k2_flops = n_live * (2.0 * N_BATCH * D + 2.0 * D + 3.0 * N_BATCH
-                             + (2.0 * D if m.quantized else 0.0))
-        b2, by2 = bound_ms(k2_bytes, k2_flops)
+        k2_flops = n_live * 2.0 * N_BATCH * D
+        k2_simt = n_live * (2.0 * D + 3.0 * N_BATCH + (2.0 * D if m.quantized else 0.0))
+        b2, by2 = bound_ms(k2_bytes, k2_flops, product_peak(True, dt == "f32"), k2_simt)
         row2 = {"name": f"K2 batched_distance_quant [{dt}]", "route": "cuda",
                 "source": K2_SOURCE, "replaces": K2_REPLACES,
                 "launches": per_dtype[dt]["k2"], "max_abs_err": err2,
                 "ms": ms2, "plain_ms": plain2, "bound_ms": b2, "bound_by": by2,
-                "library_ms": lib2, "parity": ok2}
+                "library_ms": lib2, "parity": ok2, "op_ms": op2}
         emit({"phase": "kernel_vs_plain", **row2,
               "library_call": "torch.matmul(Q, dequantized f32 tiles), cross term only",
-              "bound_bytes": k2_bytes, "bound_flops": k2_flops,
+              "bound_bytes": k2_bytes, "bound_flops": k2_flops, "bound_simt_flops": k2_simt,
               "live_columns": n_live, "columns_written": P * C})
         assert ok2, f"K2 {dt} disagrees with its plain version"
         kernels.append(row2)
-        del T32, pout, kout, tiles, src
+        del T32, pout, kout, src, A2
 
     # K3 ----------------------------------------------------------------
     # its ids are the survivors of a real previous stage: ladder A's

@@ -23,6 +23,8 @@ __all__ = [
     "pdx_prune_scan_multi_ref",
     "pdx_prune_scan_multi_dskip_ref",
     "batched_cascade_stage_ref",
+    "split_bf16",
+    "fold_scale",
     "ScanTrace",
 ]
 
@@ -108,6 +110,33 @@ def batched_distance_quant_ref(
     """Plain version of the quantized batch kernel: dequantize, then the
     exact ``batched_distance_ref`` arithmetic."""
     return batched_distance_ref(dequantize_ref(T, scale, offset), Q, metric)
+
+
+def split_bf16(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` -> (3, *x.shape) bf16 with ``x1 + x2 + x3 == x``
+    exactly: each plane is the bf16 rounding of what the earlier ones left
+    (an exact f32 difference), and three bf16 carry all 24 significant bits
+    of an f32.  The query operand of the tensor-core K2/K7, whose products
+    ``x_i * t`` with a bf16-exact ``t`` are exact in f32."""
+    out = []
+    r = x.to(torch.float32)
+    for _ in range(3):
+        h = r.to(torch.bfloat16)
+        out.append(h)
+        r = r - h.to(torch.float32)
+    return torch.stack(out)
+
+
+def fold_scale(Q: torch.Tensor, scale: torch.Tensor,
+               offset: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, D) f32 queries and a mirror's (D,) dequant vectors -> ``(Q * scale,
+    Q @ offset)``: ``q.x^ = (q * scale).x + q.offset`` for ``x^ = x * scale
+    + offset``, so the product takes the stored levels as they are and the
+    offset term is one f32 constant per query."""
+    Q = Q.to(torch.float32)
+    s = scale.to(device=Q.device, dtype=torch.float32)
+    o = offset.to(device=Q.device, dtype=torch.float32)
+    return (Q * s[None, :]).contiguous(), torch.sum(Q * o[None, :], dim=1)
 
 
 class ScanTrace(NamedTuple):

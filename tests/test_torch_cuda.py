@@ -19,6 +19,10 @@ Tolerances (the kernels sum in another order and contract to FMA):
     within rtol 1e-6 (the same sums in the same order; the compiler
     contracts them into FMAs differently, so the last bit may differ).
   * K7: K2's bound.
+  * Near ties (``tests/test_torch_near_tie.py``): columns whose exact l2
+    distances differ by about 1e-6 relative, which plain TF32 orders
+    wrongly: K2 (f32, bf16, int8) and K7 (f32, bf16 tiles) order every
+    column of every query as the plain f32 version does.
 """
 import numpy as np
 import pytest
@@ -46,6 +50,8 @@ from repro_torch.kernels.pdx_scan import (
     pdx_prune_scan_multi_cuda,
     pdx_prune_scan_multi_prefetch_cuda,
 )
+
+from test_torch_near_tie import NEAR_TIE_DTYPES, near_tie_case
 
 DTYPES = ("f32", "bf16", "int8", "int4")
 pytestmark = pytest.mark.cuda
@@ -154,9 +160,11 @@ def test_k3_matches_plain(dev, P, D, V, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("B,D,V", [(4, 32, 64), (3, 50, 130), (65, 49, 1030)])
+@pytest.mark.parametrize("B,D,V", [(4, 32, 64), (3, 50, 130), (65, 49, 1030), (64, 960, 1024),
+                                   (1, 33, 130), (130, 96, 520)])
 def test_k2_matches_plain(dev, B, D, V, metric, dtype):
-    store, m = _mirror(3, D, V, dtype, B * D, dev)
+    """(64, 960, 1024) is the main path's tile, at P = 4."""
+    store, m = _mirror(4 if D == 960 else 3, D, V, dtype, B * D, dev)
     Q = torch.from_numpy(np.random.default_rng(D).standard_normal((B, D)).astype(np.float32)).to(dev)
     sc, off = (m.scale, m.offset) if m.quantized else (None, None)
     n0 = batched_distance_quant_cuda.launches
@@ -304,7 +312,8 @@ def test_k5_matches_plain(dev, N, D, metric, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-@pytest.mark.parametrize("B,D,V", [(4, 32, 64), (3, 50, 130), (65, 49, 1030), (64, 960, 4096)])
+@pytest.mark.parametrize("B,D,V", [(4, 32, 64), (3, 50, 130), (65, 49, 1030), (64, 960, 4096),
+                                   (1, 33, 130), (130, 96, 520)])
 def test_k7_matches_plain(dev, B, D, V, metric, dtype):
     T = _randn((D, V), B + D + V, dev, dtype)
     Q = _randn((B, D), B * D, dev, dtype)
@@ -315,6 +324,37 @@ def test_k7_matches_plain(dev, B, D, V, metric, dtype):
     T32, Q32 = T.float(), Q.float()
     scale = (Q32 * Q32).sum(1)[:, None] + (T32 * T32).sum(0)[None, :]
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-3).all())
+
+
+def _order_matches(got, want, pairs):
+    rows = torch.arange(got.shape[0], device=got.device)[:, None]
+    a, c = pairs[..., 0].to(got.device), pairs[..., 1].to(got.device)
+    assert bool((got[rows, a] < got[rows, c]).all())
+    assert torch.equal(torch.argsort(got, dim=1, stable=True),
+                       torch.argsort(want, dim=1, stable=True))
+
+
+@pytest.mark.parametrize("dtype", NEAR_TIE_DTYPES)
+def test_k2_orders_near_ties_as_plain_f32(dev, dtype):
+    T, Q, sc, off, pairs = near_tie_case(dtype)
+    T, Q = T.to(dev), Q.to(dev)
+    sc, off = (None, None) if sc is None else (sc.to(dev), off.to(dev))
+    n0 = batched_distance_quant_cuda.launches
+    got = batched_distance_quant_op(T, Q, sc, off, "l2")
+    assert batched_distance_quant_cuda.launches == n0 + 1
+    _order_matches(got, ref.batched_distance_quant_ref(T[0], Q, sc, off, "l2"), pairs)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k7_orders_near_ties_as_plain_f32(dev, dtype):
+    """f32 queries on an f32 tile (six split products) and a bf16 tile
+    (three)."""
+    T, Q, _, _, pairs = near_tie_case(dtype)
+    T, Q = T[0].to(dev), Q.to(dev)
+    n0 = batched_distance_cuda.launches
+    got = batched_distance_op(T, Q, "l2")
+    assert batched_distance_cuda.launches == n0 + 1
+    _order_matches(got, ref.batched_distance_ref(T, Q, "l2"), pairs)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

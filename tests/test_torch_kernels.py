@@ -224,3 +224,88 @@ def test_ops_refuse_unsupported_metric():
     _, m = _mirror(1, 8, 16, "f32", seed=0)
     with pytest.raises(ValueError, match="l2 or ip"):
         t_bmm(m.data, torch.zeros(2, 8), metric="l1")
+
+
+# ------------------------------------------- K2/K7: the tensor-core operands
+@pytest.mark.parametrize("seed", [0, 1])
+def test_split_bf16_planes_sum_exactly(seed):
+    """Three bf16 planes carry all 24 bits of an f32: they sum back to the
+    value exactly, each at most 2^-8 of the one before; one or two planes
+    (bf16, or TF32-like width) do not."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((65, 97)).astype(np.float32)
+    x *= (np.float32(10.0) ** rng.integers(-20, 21, x.shape)).astype(np.float32)
+    x[0, :4] = [0.0, -0.0, tl.PAD_VALUE, 1.0 + 2.0 ** -23]
+    X = torch.from_numpy(x)
+    planes = tref.split_bf16(X)
+    assert planes.shape == (3, 65, 97) and planes.dtype == torch.bfloat16
+    p = planes.float()
+    assert torch.equal((p[0] + p[1]) + p[2], X)
+    for hi, lo in ((p[0], p[1]), (p[1], p[2])):
+        assert bool((lo.abs() <= hi.abs() * 2.0 ** -8).all())
+    assert not torch.equal(p[0] + p[1], X)
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+def test_fold_scale_planes_sum_to_scaled_queries(dtype):
+    _, m = _mirror(1, 33, 16, dtype, seed=3)
+    Q = torch.from_numpy(np.random.default_rng(4).standard_normal((5, 33)).astype(np.float32))
+    Qs, qo = tref.fold_scale(Q, m.scale, m.offset)
+    assert torch.equal(Qs, Q * m.scale[None, :])
+    np.testing.assert_allclose(qo.numpy(), (Q.double() @ m.offset.double()).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    p = tref.split_bf16(Qs).float()
+    assert torch.equal((p[0] + p[1]) + p[2], Qs)
+
+
+@pytest.mark.parametrize("B,D", [(1, 33), (64, 960), (130, 49)])
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_query_planes_layout(B, D, qdtype):
+    """The kernel's query operand: per 64-query M-tile, dim-major, zero rows
+    past B and zero dims past D (to a multiple of 64); f32 queries give
+    their three planes, bf16 queries one."""
+    from repro_torch.kernels.batched_matmul import query_planes
+
+    Q = torch.from_numpy(np.random.default_rng(B + D).standard_normal((B, D))
+                         .astype(np.float32)).to(qdtype)
+    A = query_planes(Q)
+    n_planes = 3 if qdtype == torch.float32 else 1
+    n_mt, Dpad = -(-B // 64), -(-D // 64) * 64
+    assert A.data.shape == (n_planes, n_mt, Dpad, 64) and A.data.dtype == torch.bfloat16
+    assert (A.rows, A.dim, A.qo) == (B, D, None)
+    back = A.data.transpose(2, 3).reshape(n_planes, n_mt * 64, Dpad)
+    want = tref.split_bf16(Q) if qdtype == torch.float32 else Q[None]
+    assert torch.equal(back[:, :B, :D], want)
+    assert not back[:, B:].any() and not back[:, :, D:].any()
+
+
+@pytest.mark.parametrize("dtype", ["int8", "int4"])
+@pytest.mark.parametrize("D", [33, 960])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_folded_split_product_matches_plain(D, dtype, metric):
+    """What the tensor-core K2 computes on a quantized mirror, in plain f32
+    torch: ``(q * s)`` in three bf16 planes times the int8 levels (each
+    product exact), smallest plane first, plus ``q . o``, and the norms of
+    ``x^ = x s + o`` -> the plain version within K2's tolerance,
+    ``1e-5 * (||q||^2 + ||x^||^2) + 1e-3``, on live columns."""
+    from repro_torch.kernels.batched_matmul import query_planes
+
+    store, m = _mirror(2, D, 130, dtype, seed=D)
+    B = 5
+    Q = torch.from_numpy(np.random.default_rng(D + 1).standard_normal((B, D))
+                         .astype(np.float32))
+    A = query_planes(Q, m.scale, m.offset)
+    planes = A.data.transpose(2, 3).reshape(3, -1, A.data.shape[2])[:, :B, :D].float()
+    levels = tref.dequantize_ref(m.data, None, None, dim_axis=1, packed=m.packed, dim=D)
+    xhat = tref.dequantize_ref(m.data, m.scale, m.offset, dim_axis=1, packed=m.packed, dim=D)
+    got, want, scale = [], [], []
+    qn = torch.sum(Q * Q, dim=1)
+    for lv, xh in zip(levels, xhat):
+        cross = (planes[2] @ lv + planes[1] @ lv) + planes[0] @ lv + A.qo[:, None]
+        xn = torch.sum(xh * xh, dim=0)
+        got.append(-cross if metric == "ip" else (qn[:, None] - 2.0 * cross) + xn[None, :])
+        scale.append(qn[:, None] + xn[None, :])
+    got, scale = torch.cat(got, dim=1), torch.cat(scale, dim=1)
+    want = t_bmm(m.data, Q, m.scale, m.offset, metric, packed=m.packed, dim=m.dim)
+    live = (store.ids >= 0).reshape(-1)
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-3)[:, live].all())
