@@ -2,12 +2,9 @@
 """Drive the PyTorch/CUDA port's main search path on one CUDA card.
 
     python3 chip_smoke.py [--n 1000000] [--dim 960] [--seed 0]
-    python3 chip_smoke.py --compare OTHER/batched_matmul.cu
 
-The second form only times another build's K2 and K7 against this tree's
-(``compare_k2_k7``).  Imports only ``torch``, ``numpy`` and the port
-(``src/repro_torch``), never JAX or the JAX package.  Phases, each
-printing one JSON line:
+Imports only ``torch``, ``numpy`` and the port (``src/repro_torch``), never
+JAX or the JAX package.  Phases, each printing one JSON line:
 
   1. device — the card's name and power limit, torch/CUDA versions, and
      the build of the CUDA kernels from ``src/repro_torch/kernels/csrc``
@@ -192,10 +189,11 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float = PEAK_F32_FLOPS,
              simt_flops: float = 0.0) -> tuple[float, str]:
     """(least ms, "bytes" or "operations"): the larger of the bytes over
     the memory rate and the operations over their peaks: ``flops`` at
-    ``peak_flops``, the peak for the operands' type, plus ``simt_flops``
-    (elementwise work beside a product) at the f32 SIMT peak."""
+    ``peak_flops``, the peak for the operands' type, or ``simt_flops``
+    (elementwise work beside a product) at the f32 SIMT peak, whichever
+    takes longer, since the two kinds of unit run side by side."""
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    to = (flops / peak_flops + simt_flops / PEAK_F32_FLOPS) * 1e3
+    to = max(flops / peak_flops, simt_flops / PEAK_F32_FLOPS) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -733,7 +731,7 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
     (pruned vs full); K7 against its plain version at K2's tolerance.
     -> (phase line, kernel rows)."""
     from repro_torch.core.layout import device_mirror
-    from repro_torch.kernels.batched_matmul import batched_distance_cuda, query_planes
+    from repro_torch.kernels.batched_matmul import batched_distance_cuda
     from repro_torch.kernels.ops import (
         batched_distance_op, pdx_distance_op, pdx_prune_scan_multi_op, pdx_prune_scan_op,
         squared_norms,
@@ -865,8 +863,7 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
         err = float(diff.max())
         del diff, want
         B = Qx.shape[0]
-        Ax = query_planes(Qx)
-        ms = cuda_ms(torch, lambda: batched_distance_cuda(Tx, Ax, qn, xn, metric=m))
+        ms = cuda_ms(torch, lambda: batched_distance_cuda(Tx, Qx, qn, xn, metric=m))
         op_ms = cuda_ms(torch, lambda: batched_distance_op(Tx, Qx, m))
         plain = cuda_ms(torch, lambda: ref.batched_distance_ref(Tx, Qx, m))
         lib = cuda_ms(torch, lambda: torch.matmul(Q32, T32))
@@ -884,7 +881,7 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
                      "plain_ms": plain, "bound_ms": b, "bound_by": by, "library_ms": lib,
                      "parity": ok, "op_ms": op_ms,
                      "library_call": "torch.matmul(Q, T) on f32 operands, cross term only"})
-        del T32, Q32, Ax
+        del T32, Q32
         assert ok, f"flat_scan: K7 {dt} {m} disagrees with its plain version"
     ratios = [r["pruned_vs_full"] for r in per_query]
     rec = statistics.mean(r["recall_at_10"] for r in per_query)
@@ -903,129 +900,6 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
     return line, rows
 
 
-def compare_k2_k7(torch, source: str, seed: int) -> int:
-    """``--compare SOURCE``: time the K2 and K7 entry points of another
-    build of ``csrc/batched_matmul.cu`` (``SOURCE``, the SIMT kernel of the
-    port's first version, with its argument lists) against this tree's, in
-    turns (other, this, this, other), on one card, at the main path's
-    shapes: K2 over a (1532, 960, 1024) stack at f32, bf16 and int8 levels,
-    K7 over a (960, 2^20) tile at f32 and bf16, l2 and ip, for a batch of
-    64; operands drawn on the card from ``seed``.  Both outputs are held to
-    K2's tolerance against each other.  Prints one JSON line per row and
-    the card's name and power limit; no search runs."""
-    import ctypes
-
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.batched_matmul import (
-        batched_distance_cuda, batched_distance_quant_cuda, query_planes,
-    )
-
-    out_dir = ROOT / "build" / "compare"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / "libother.so"
-    t0 = time.perf_counter()
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path), source],
-                   check=True, capture_output=True, text=True)
-    other = ctypes.CDLL(str(lib_path))
-    k2_old, k7_old = other.batched_distance_quant, other.batched_distance
-    k2_old.argtypes = [_build._CTYPES[c] for c in "pipppppiiiiiip"]
-    k7_old.argtypes = [_build._CTYPES[c] for c in "pipipppiiiip"]
-    k2_old.restype = k7_old.restype = ctypes.c_int
-    _build.build_all()
-    emit({"phase": "compare_build", "source": source, "seconds": time.perf_counter() - t0})
-
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    P, D, C, B, n = 1532, 960, 1024, N_BATCH, 1 << 20
-    stream = torch.cuda.current_stream().cuda_stream
-    Q = torch.randn((B, D), generator=gen, device=dev)
-    qn = torch.sum(Q * Q, dim=1)
-    ones, zeros = torch.ones(D, device=dev), torch.zeros(D, device=dev)
-    scale = torch.rand(D, generator=gen, device=dev) * 0.05 + 0.01
-    offset = torch.randn(D, generator=gen, device=dev) * 0.1
-    rows = []
-
-    def turns(name, old, new, nbytes):
-        ms = [cuda_ms(torch, f) for f in (old, new, new, old)]
-        row = {"phase": "compare", "name": name, "other_ms": (ms[0] + ms[3]) / 2,
-               "this_ms": (ms[1] + ms[2]) / 2, "turns_ms": ms,
-               "bytes_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3}
-        row["speedup"] = row["other_ms"] / row["this_ms"]
-        emit(row)
-        rows.append(row)
-
-    def parity(got, want, xn):
-        tol = 1e-5 * (qn[:, None] + xn[None, :]) + 1e-3
-        ok = bool(((got - want).abs() <= tol).all())
-        assert ok, "compare: the two builds disagree"
-
-    T32 = torch.randn((P, D, C), generator=gen, device=dev)
-    for dt in ("f32", "bf16", "int8"):
-        if dt == "f32":
-            T, code, quant = T32, 0, False
-        elif dt == "bf16":
-            T, code, quant = T32.to(torch.bfloat16), 1, False
-        else:
-            T = torch.randint(-128, 128, (P, D, C), generator=gen, device=dev,
-                              dtype=torch.int8)
-            code, quant = 2, True
-        sc, off = (scale, offset) if quant else (ones, zeros)
-        out_old = torch.empty((B, P * C), device=dev)
-        A = query_planes(Q, sc, off) if quant else query_planes(Q)
-        sc_new, off_new = (sc, off) if quant else (None, None)
-
-        def old(T=T, code=code, sc=sc, off=off, quant=quant, out_old=out_old):
-            rc = k2_old(T.data_ptr(), code, Q.data_ptr(), qn.data_ptr(), sc.data_ptr(),
-                        off.data_ptr(), out_old.data_ptr(), P, B, D, C, int(quant), 0,
-                        stream)
-            assert rc == 0, rc
-
-        def new(T=T, A=A, sc=sc_new, off=off_new):
-            return batched_distance_quant_cuda(T, A, qn, sc, off, metric="l2")
-
-        old()
-        got = new()
-        xh = T.float() * sc[None, :, None] + off[None, :, None] if quant else T.float()
-        parity(got, out_old, torch.sum(xh * xh, dim=1).reshape(-1))
-        del xh, got
-        turns(f"K2 [{dt}, B={B}, P={P}, C={C}]", old, new,
-              T.numel() * T.element_size() + B * P * C * 4)
-        del out_old, A
-        if dt != "f32":
-            del T
-    del T32
-    torch.cuda.empty_cache()
-
-    Tf = torch.randn((D, n), generator=gen, device=dev)
-    for dt in ("f32", "bf16"):
-        T = Tf if dt == "f32" else Tf.to(torch.bfloat16)
-        Qx = Q if dt == "f32" else Q.to(torch.bfloat16)
-        A = query_planes(Qx)
-        code = 0 if dt == "f32" else 1
-        xn = torch.sum(T.float() ** 2, dim=0)
-        qx = torch.sum(Qx.float() ** 2, dim=1)
-        for m in ("l2", "ip"):
-            out_old = torch.empty((B, n), device=dev)
-
-            def old(T=T, Qx=Qx, code=code, m=m, xn=xn, qx=qx, out_old=out_old):
-                rc = k7_old(T.data_ptr(), code, Qx.data_ptr(), code, qx.data_ptr(),
-                            xn.data_ptr(), out_old.data_ptr(), B, D, n, int(m == "ip"), stream)
-                assert rc == 0, rc
-
-            def new(T=T, A=A, m=m, xn=xn, qx=qx):
-                return batched_distance_cuda(T, A, qx, xn, metric=m)
-
-            old()
-            parity(new(), out_old, xn)
-            turns(f"K7 [{dt} {m}, B={B}, {D} x {n}]", old, new,
-                  T.numel() * T.element_size() + B * n * 4)
-            del out_old
-        del T, A
-    print(nvidia_smi(), flush=True)
-    emit({"compare": rows})
-    return 0
-
-
 def recall(found, true) -> float:
     found, true = found.reshape(len(true), -1), true
     hits = sum(len(set(f.tolist()) & set(t.tolist())) for f, t in zip(found, true))
@@ -1037,9 +911,6 @@ def main() -> int:
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--dim", type=int, default=960)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--compare", metavar="SOURCE", default=None,
-                    help="time another build of csrc/batched_matmul.cu against this "
-                         "tree's K2 and K7, in turns, and stop")
     args = ap.parse_args()
 
     import torch
@@ -1059,7 +930,7 @@ def main() -> int:
     from repro_torch.core.distance import pdx_distance
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.batched_matmul import batched_distance_quant_cuda, query_planes
+    from repro_torch.kernels.batched_matmul import batched_distance_quant_cuda
     from repro_torch.kernels.ops import (
         _unpack_int4_levels, batched_distance_quant_op, pdx_prune_scan_multi_op,
     )
@@ -1067,8 +938,6 @@ def main() -> int:
         pdx_prune_scan_multi_cuda, pdx_prune_scan_multi_prefetch_cuda,
     )
 
-    if args.compare is not None:
-        return compare_k2_k7(torch, args.compare, args.seed)
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -1260,11 +1129,10 @@ def main() -> int:
         diff = (kout - pout).abs()[:, live_cols]
         err2 = float(diff.max())
         ok2 = bool((diff <= tol[:, live_cols]).all())
-        A2 = query_planes(Qt, sc, off)
         # the kernel reads the mirror as stored (int4: packed bytes)
         ms2 = cuda_ms(torch, lambda: batched_distance_quant_cuda(
-            m.data, A2, qn, sc, off, metric="l2", dim=m.dim if m.packed else None))
-        # the whole op: qn and the query planes included
+            m.data, Qt, qn, sc, off, metric="l2", dim=m.dim if m.packed else None))
+        # the whole op: qn included
         op2 = cuda_ms(torch, lambda: batched_distance_quant_op(
             m.data, Qt, sc, off, "l2", packed=m.packed, dim=m.dim))
         plain2 = cuda_ms(torch, k2_plain)
@@ -1289,7 +1157,7 @@ def main() -> int:
               "live_columns": n_live, "columns_written": P * C})
         assert ok2, f"K2 {dt} disagrees with its plain version"
         kernels.append(row2)
-        del T32, pout, kout, src, A2
+        del T32, pout, kout, src
 
     # K3 ----------------------------------------------------------------
     # its ids are the survivors of a real previous stage: ladder A's

@@ -6,91 +6,42 @@
 launch computes ``||q||^2 - 2 q.x^ + ||x^||^2`` (or ``-q.x^``) for a query
 batch against every tile of a stacked (P, D, V) mirror (f32, bf16, int8,
 or int4 packed two dims a byte), the product on the tensor cores in an
-exact bf16 split.  Callers go through
-``kernels.ops.batched_distance_quant_op``, which prepares the query planes
-(``query_planes``) and dispatches by device; this wrapper takes CUDA
-tensors only and raises on anything else.  ``launches`` counts kernel
-launches.
+exact bf16 split that the launch makes from the f32 queries into a
+workspace (``_workspace``; plain versions of its split and scale fold:
+``ref.split_bf16``, ``ref.fold_scale``).  Callers go through
+``kernels.ops.batched_distance_quant_op``, which dispatches by device;
+this wrapper takes CUDA tensors only and raises on anything else.
+``launches`` counts calls that launch the kernel (the query split, then
+the main kernel).
 
 ``batched_distance_cuda`` (K7, replacing
 ``repro.kernels.batched_matmul.batched_distance_pallas``) is the same
 kernel over one f32 or bf16 (D, V) tile with the norms given: the caller
 (``kernels.ops.batched_distance_op``) computes them outside the kernel, as
 the reference's wrapper does.
-
-``query_planes`` lays the queries out as the kernel reads them: the bf16
-planes of ``ref.split_bf16`` (three for f32 queries, the scale folded in
-for a quantized mirror by ``ref.fold_scale``; one for bf16 queries),
-zero-padded to whole 64-query M-tiles and to a multiple of 64 dims, each
-M-tile stored dim-major (64 queries contiguous per dim), so the kernel
-copies 16-byte chunks straight into its swizzled shared memory.  It is
-plain torch and runs on any device.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
-from . import ref
 from ._build import bind, check_launch
 from .pdx_scan import _check
 
-__all__ = [
-    "QueryPlanes",
-    "query_planes",
-    "batched_distance_quant_cuda",
-    "batched_distance_cuda",
-    "MAX_PARTITIONS",
-]
+__all__ = ["batched_distance_quant_cuda", "batched_distance_cuda", "MAX_PARTITIONS"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3}
 #: partitions one launch takes
 MAX_PARTITIONS = 65535
-_M_TILE = 64  # queries per wgmma M-tile
-_D_PAD = 64   # dims are padded to whole stages of the kernel
 
 
-class QueryPlanes(NamedTuple):
-    """The queries as the kernel reads them (``query_planes``)."""
-
-    data: torch.Tensor          # (planes, ceil(B/64), Dpad, 64) bf16, zero-padded
-    rows: int                   # B
-    dim: int                    # D
-    qo: Optional[torch.Tensor]  # (B,) f32 sum_d q_d offset_d, or None
-
-
-def query_planes(Q: torch.Tensor, scale: Optional[torch.Tensor] = None,
-                 offset: Optional[torch.Tensor] = None) -> QueryPlanes:
-    """(B, D) f32 or bf16 queries -> ``QueryPlanes``.  f32 queries become
-    three bf16 planes that sum exactly to ``Q`` (or to ``Q * scale`` when
-    ``scale``/``offset`` are given, with ``qo = Q @ offset``); bf16 queries
-    are one plane."""
-    B, D = Q.shape
-    qo = None
-    if Q.dtype == torch.bfloat16 and scale is None:
-        planes = Q[None]
-    else:
-        Q = Q.to(torch.float32)
-        if scale is not None:
-            Q, qo = ref.fold_scale(Q, scale, offset)
-        planes = ref.split_bf16(Q)
-    n_mt = -(-B // _M_TILE)
-    Dpad = -(-D // _D_PAD) * _D_PAD
-    buf = torch.zeros((planes.shape[0], n_mt * _M_TILE, Dpad), dtype=torch.bfloat16,
-                      device=Q.device)
-    buf[:, :B, :D] = planes
-    data = buf.reshape(planes.shape[0], n_mt, _M_TILE, Dpad).transpose(2, 3).contiguous()
-    return QueryPlanes(data, B, D, qo)
-
-
-def _check_planes(A: QueryPlanes, D: int, planes) -> None:
-    if A.dim != D:
-        raise ValueError(f"query planes have {A.dim} dims, the tile {D}")
-    shape = (A.data.shape[0], -(-A.rows // _M_TILE), -(-D // _D_PAD) * _D_PAD, _M_TILE)
-    if A.data.shape[0] not in planes:
-        raise ValueError(f"expected {planes} query planes, got {A.data.shape[0]}")
-    _check(A.data, "query planes", torch.bfloat16, shape)
+def _workspace(B: int, D: int, device) -> torch.Tensor:
+    """The device memory a launch splits B queries of D dims into."""
+    n = bind("batched_matmul", "batched_matmul_workspace_bytes", "ii")(B, D)
+    if n < 0:
+        raise ValueError(f"{B} queries of {D} dims are too many for one launch")
+    return torch.empty(n, dtype=torch.uint8, device=device)
 
 
 def _aligned(T: torch.Tensor, V: int) -> int:
@@ -103,7 +54,7 @@ def _aligned(T: torch.Tensor, V: int) -> int:
 
 def batched_distance_quant_cuda(
     T: torch.Tensor,
-    A: QueryPlanes,
+    Q: torch.Tensor,
     qn: torch.Tensor,
     scale: Optional[torch.Tensor] = None,
     offset: Optional[torch.Tensor] = None,
@@ -112,10 +63,9 @@ def batched_distance_quant_cuda(
     dim: Optional[int] = None,
 ) -> torch.Tensor:
     """(P, D, V) f32/bf16/int8 tiles, or int4 levels packed two dims a byte
-    ((P, ceil(dim/2), V) uint8, ``dim`` dims), the queries' three planes
-    (``query_planes(Q, scale, offset)``), (B,) f32 query norms, and for a
-    quantized mirror (int8, int4) its (D,) f32 scale/offset -> (B, P*V)
-    f32, column ``p*V + v``."""
+    ((P, ceil(dim/2), V) uint8, ``dim`` dims), (B, D) f32 queries, (B,) f32
+    query norms, and for a quantized mirror (int8, int4) its (D,) f32
+    scale/offset -> (B, P*V) f32, column ``p*V + v``."""
     _check(T, "T")
     if T.dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported tile dtype {T.dtype}")
@@ -128,23 +78,21 @@ def batched_distance_quant_cuda(
             raise ValueError(f"packed int4 tiles take dim with ceil(dim/2) = {D} rows and "
                              f"their scale, got dim={dim}")
         D = dim
-    B = A.rows
+    B = Q.shape[0]
     if P > MAX_PARTITIONS:
         raise ValueError(f"at most {MAX_PARTITIONS} partitions per launch, got {P}")
-    _check_planes(A, D, (3,))
+    _check(Q, "Q", torch.float32, (B, D))
     _check(qn, "qn", torch.float32, (B,))
-    if quantized != (A.qo is not None):
-        raise ValueError("a quantized tile takes query planes with the scale folded in")
     if quantized:
         _check(scale, "scale", torch.float32, (D,))
         _check(offset, "offset", torch.float32, (D,))
-        _check(A.qo, "qo", torch.float32, (B,))
     out = torch.empty((B, P * V), dtype=torch.float32, device=T.device)
-    fn = bind("batched_matmul", "batched_distance_quant", "pi" + "p" * 6 + "i" * 7 + "p")
-    ptr = [None if t is None else t.data_ptr() for t in (A.qo, scale, offset)]
+    work = _workspace(B, D, T.device)
+    fn = bind("batched_matmul", "batched_distance_quant", "pi" + "p" * 6 + "i" * 6 + "p")
     rc = fn(
-        T.data_ptr(), _DTYPE_CODES[T.dtype], A.data.data_ptr(), qn.data_ptr(), *ptr,
-        out.data_ptr(), P, B, D, A.data.shape[2], V, int(metric == "ip"), _aligned(T, V),
+        T.data_ptr(), _DTYPE_CODES[T.dtype], Q.data_ptr(), qn.data_ptr(),
+        scale.data_ptr() if quantized else None, offset.data_ptr() if quantized else None,
+        work.data_ptr(), out.data_ptr(), P, B, D, V, int(metric == "ip"), _aligned(T, V),
         torch.cuda.current_stream(T.device).cuda_stream,
     )
     check_launch("batched_matmul", "batched_distance_quant", rc)
@@ -154,34 +102,39 @@ def batched_distance_quant_cuda(
 
 def batched_distance_cuda(
     T: torch.Tensor,
-    A: QueryPlanes,
+    Q: torch.Tensor,
     qn: Optional[torch.Tensor],
     xn: Optional[torch.Tensor],
     *,
     metric: str,
 ) -> torch.Tensor:
-    """(D, V) f32/bf16 tile, the queries' planes (``query_planes(Q)``: three
-    for f32 queries, one for bf16), (B,) f32 ``||q||^2``, (V,) f32
-    ``||x||^2`` -> (B, V) f32: ``qn - 2 Q T + xn`` (l2) or ``-Q T`` (ip,
-    which takes None for both norms)."""
+    """(D, V) f32/bf16 tile, (B, D) f32 or bf16 queries (bf16 queries go
+    in as one plane of their f32 values, f32 queries as three), (B,) f32
+    ``||q||^2``, (V,) f32 ``||x||^2`` -> (B, V) f32: ``qn - 2 Q T + xn``
+    (l2) or ``-Q T`` (ip, which takes None for both norms)."""
     if metric not in ("l2", "ip"):
         raise ValueError(f"batched distance kernel takes l2 or ip, got {metric!r}")
     _check(T, "T")
     if T.dtype not in (torch.float32, torch.bfloat16) or T.ndim != 2:
         raise ValueError(f"T must be a 2-d f32 or bf16 tensor, got {T.dtype} {tuple(T.shape)}")
     D, V = T.shape
-    B = A.rows
-    _check_planes(A, D, (1, 3))
+    B = Q.shape[0]
+    if Q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"Q must be f32 or bf16, got {Q.dtype}")
+    _check(Q, "Q", None, (B, D))
     if metric == "l2":
         _check(qn, "qn", torch.float32, (B,))
         _check(xn, "xn", torch.float32, (V,))
     else:
         qn = xn = None
+    planes = 3 if Q.dtype == torch.float32 else 1
+    Q = Q.to(torch.float32)
     out = torch.empty((B, V), dtype=torch.float32, device=T.device)
-    fn = bind("batched_matmul", "batched_distance", "pipi" + "p" * 3 + "i" * 6 + "p")
-    rc = fn(T.data_ptr(), _DTYPE_CODES[T.dtype], A.data.data_ptr(), A.data.shape[0],
+    work = _workspace(B, D, T.device)
+    fn = bind("batched_matmul", "batched_distance", "pipi" + "p" * 4 + "i" * 5 + "p")
+    rc = fn(T.data_ptr(), _DTYPE_CODES[T.dtype], Q.data_ptr(), planes,
             None if qn is None else qn.data_ptr(), None if xn is None else xn.data_ptr(),
-            out.data_ptr(), B, D, A.data.shape[2], V, int(metric == "ip"), _aligned(T, V),
+            work.data_ptr(), out.data_ptr(), B, D, V, int(metric == "ip"), _aligned(T, V),
             torch.cuda.current_stream(T.device).cuda_stream)
     check_launch("batched_matmul", "batched_distance", rc)
     batched_distance_cuda.launches += 1

@@ -22,31 +22,37 @@
 // column against 1-4 bytes per tile value, so on the SIMT cores (67
 // TFLOP/s f32) operations bound it; on the tensor cores memory does.  The
 // product runs through wgmma in an exact bf16 split, as accurate as f32:
-//   * the queries arrive as bf16 planes q = q1 + q2 + q3 (exact: three
-//     bf16 carry all 24 significant bits of an f32), prepared outside by
-//     kernels/batched_matmul.py:query_planes; for a quantized mirror the
-//     scale is folded in, q.x^ = (q*s).x + q.o, so the int8 levels go in
-//     as they are and q.o is one f32 constant per query (qo);
+//   * the queries are split into bf16 planes q = q1 + q2 + q3, each the
+//     bf16 rounding of what the ones before left (exact: three bf16 carry
+//     all 24 significant bits of an f32; plain version ref.split_bf16);
+//     for a quantized mirror the scale is folded in first, q.x^ =
+//     (q*s).x + q.o, so the int8 levels go in as they are and q.o is one
+//     f32 per query (ref.fold_scale).  A small first kernel
+//     (split_queries) does this once per call into a workspace that the
+//     caller allocates (batched_matmul_workspace_bytes): splitting in the
+//     main kernel's stages instead made every block redo it for each of
+//     its tiles, and took K2 0.4-1.1 ms longer on an H100;
 //   * a bf16 tile and int8 levels are exact in bf16: one plane, so each
 //     product q_i * x is exact and only the f32 sums round, as on the SIMT
 //     cores: 3 passes;
-//   * an f32 tile is split the same way in the kernel, x = x1 + x2 + x3,
-//     and the six products q_i x_j with i + j <= 2 are summed (the three
-//     dropped terms are below 2^-24 of the product, finer than 3xTF32);
-//     bf16 queries (K7) are one plane.
+//   * an f32 tile is split the same way, as it passes through the
+//     consumers, x = x1 + x2 + x3, and the six products q_i x_j with
+//     i + j <= 2 are summed (the three dropped terms are below 2^-24 of
+//     the product, finer than 3xTF32); bf16 queries (K7, given as their
+//     f32 values) are one plane.
 // Passes are summed smallest first.  Plain TF32 is not used: it flips
 // near-tie ids in the cancelling l2 form.
 //
 // Layout: a block owns 64 queries (one wgmma M-tile; B > 64 takes more
-// blocks on grid.y, B < 64 reads zero rows) x 256 lanes of one partition
-// (grid.x = partition x lane tile).  Both operands sit in shared memory
+// tiles, B < 64 reads zero rows) x 256 lanes of one partition.  Both
+// operands sit in shared memory
 // MN-major with the 128-byte swizzle: a row is 64 bf16 of the query or
 // lane axis and rows run along D, which is how the PDX tile (D, V) is
 // stored, so the tile feeds wgmma through its transpose bit with no
 // relayout.  A stage holds BK dims: 32, or 16 for an f32 tile (three
 // planes).  Three warpgroups:
 //   * the producer warpgroup only copies: a ring of up to 8 stages, each
-//     the stage's query planes (already in wgmma's layout), the tile rows
+//     the stage's query planes (dim-major, 64 queries a row), the tile rows
 //     and, for a quantized mirror, the rows' scale and offset, all by
 //     cp.async (16-byte copies, 8 for int8, zero-filled past D and V) that
 //     arrive on the stage's mbarrier as they land.  A bf16 tile is copied
@@ -55,8 +61,8 @@
 //     by value instead;
 //   * two consumer warpgroups, each owning 128 lanes: per stage they
 //     convert their lanes of the tile (int8 or int4 -> bf16; f32 -> three
-//     planes, by bit operations) into a 2-stage operand ring, summing the column
-//     norms on the way, then issue m64n128k16 wgmma and leave it running
+//     planes) into a 2-stage operand ring, summing the column norms on
+//     the way, then issue m64n128k16 wgmma and leave it running
 //     while they convert the next stage; a stage goes back to the producer
 //     once the wgmma that read it is done.
 // Ragged edges are zero-filled in shared memory (a dim past D adds nothing
@@ -213,12 +219,6 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       : "l"(da), "l"(db), "r"(add));
 }
 
-// Two bf16 from the high halves of two f32 bit patterns (exact where the
-// values have at most 8 significant bits): lo in the low half.
-__device__ __forceinline__ uint32_t pack_hi(uint32_t lo, uint32_t hi) {
-  return __byte_perm(lo, hi, 0x7632);
-}
-
 // Eight consecutive lanes of one tile row, as stored.
 template <typename T>
 struct Unit;
@@ -239,26 +239,40 @@ struct Unit<uint8_t> {
   uint2 w;
 };
 
-// A unit's values as f32 (for the norms) and as NB bf16 planes.  An f32
-// value splits by truncation, x = x1 + x2 + x3 exactly: x1 keeps x's top 8
-// significant bits, x2 the top 8 of the (exact) remainder, x3 the rest,
-// which has at most 8.
-__device__ __forceinline__ void unpack(const Unit<float>& u, float (&v)[8], uint4 (&pl)[3]) {
-  uint32_t h[3][8];
+// Eight f32 values -> N bf16 planes, 8 values each (the first in the low
+// half): plane j is the bf16 rounding of what planes 0 ... j-1 left, an
+// exact f32 difference, so three planes sum exactly to the values and one
+// plane is exact for bf16 values (ref.split_bf16).
+template <int N>
+__device__ __forceinline__ void split(const float (&v)[8], uint4 (&pl)[N]) {
+  float r[8];
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    v[e] = u.v[e];
-    float r = v[e];
+  for (int e = 0; e < 8; ++e) r[e] = v[e];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      h[j][e] = __float_as_uint(r) & 0xFFFF0000u;
-      r = r - __uint_as_float(h[j][e]);
+  for (int j = 0; j < N; ++j) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(r[2 * i], r[2 * i + 1]);
+      w[i] = *reinterpret_cast<const uint32_t*>(&b);
+      r[2 * i] = __fsub_rn(r[2 * i], __low2float(b));
+      r[2 * i + 1] = __fsub_rn(r[2 * i + 1], __high2float(b));
     }
+    pl[j] = make_uint4(w[0], w[1], w[2], w[3]);
   }
+}
+
+// Two bf16 from the high halves of two f32 bit patterns (exact where the
+// values have at most 8 significant bits): lo in the low half.
+__device__ __forceinline__ uint32_t pack_hi(uint32_t lo, uint32_t hi) {
+  return __byte_perm(lo, hi, 0x7632);
+}
+
+// A unit's values as f32 (for the norms) and as its bf16 planes.
+__device__ __forceinline__ void unpack(const Unit<float>& u, float (&v)[8], uint4 (&pl)[3]) {
 #pragma unroll
-  for (int j = 0; j < 3; ++j)
-    pl[j] = make_uint4(pack_hi(h[j][0], h[j][1]), pack_hi(h[j][2], h[j][3]),
-                       pack_hi(h[j][4], h[j][5]), pack_hi(h[j][6], h[j][7]));
+  for (int e = 0; e < 8; ++e) v[e] = u.v[e];
+  split(v, pl);
 }
 
 __device__ __forceinline__ void unpack(const Unit<__nv_bfloat16>& u, float (&v)[8],
@@ -376,6 +390,53 @@ __device__ __forceinline__ void store_chunk(uint32_t dst, const T* row, int n, i
       b[e] = (row != nullptr && n + e < V) ? static_cast<uint8_t>(row[n + e]) : 0u;
     st_shared8(dst, make_uint2(b[0] | (b[1] << 8) | (b[2] << 16) | (b[3] << 24),
                                b[4] | (b[5] << 8) | (b[6] << 16) | (b[7] << 24)));
+  }
+}
+
+// The queries as the main kernel reads them: NA bf16 planes, (NA, n_mtiles,
+// Dpad, 64), dim-major within each 64-query M-tile, zero past B and D; for
+// a quantized mirror the planes are of q * scale and qo (n_mtiles * 64) =
+// q.offset.  One block per M-tile: thread t splits queries 8 (t % 8) ... +7
+// at dims t / 8, t / 8 + 32, ...; q.o is summed per thread, then per query
+// in a fixed order.
+template <int NA>
+__global__ void __launch_bounds__(256)
+split_queries(const float* __restrict__ q, const float* __restrict__ scale,
+              const float* __restrict__ offset, __nv_bfloat16* __restrict__ qa,
+              float* __restrict__ qo, int B, int D, int Dpad, int n_mtiles) {
+  __shared__ float part[32][65];
+  const int mt = blockIdx.x, g = threadIdx.x % 8, d0 = threadIdx.x / 8;
+  float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  for (int d = d0; d < Dpad; d += 32) {
+    float v[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int m = mt * 64 + 8 * g + e;
+      v[e] = m < B && d < D ? q[static_cast<int64_t>(m) * D + d] : 0.f;
+    }
+    if (scale != nullptr && d < D) {
+      const float sc = scale[d], of = offset[d];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        o[e] = fmaf(v[e], of, o[e]);
+        v[e] = __fmul_rn(v[e], sc);
+      }
+    }
+    uint4 pl[NA];
+    split(v, pl);
+#pragma unroll
+    for (int j = 0; j < NA; ++j)
+      *reinterpret_cast<uint4*>(qa + ((int64_t{j} * n_mtiles + mt) * Dpad + d) * 64 + 8 * g) =
+          pl[j];
+  }
+  if (qo == nullptr) return;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) part[d0][8 * g + e] = o[e];
+  __syncthreads();
+  if (threadIdx.x < 64) {
+    float sum = 0.f;
+    for (int i = 0; i < 32; ++i) sum += part[i][threadIdx.x];
+    qo[mt * 64 + threadIdx.x] = sum;
   }
 }
 
@@ -625,7 +686,7 @@ bmm_wgmma(const T* __restrict__ x, const __nv_bfloat16* __restrict__ qa,
       asm volatile("bar.sync %0, 128;" ::"r"(1 + h) : "memory");
       float sum = 0.f;
 #pragma unroll
-      for (int q = 0; q < 8; ++q) sum += col_norm[q][h * 128 + t];
+      for (int f = 0; f < 8; ++f) sum += col_norm[f][h * 128 + t];
       asm volatile("bar.sync %0, 128;" ::"r"(1 + h) : "memory");
       col_norm[0][h * 128 + t] = sum;
       asm volatile("bar.sync %0, 128;" ::"r"(1 + h) : "memory");
@@ -723,6 +784,27 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+int round64(int n) { return (n + 63) / 64 * 64; }
+
+// Bytes of the three query planes of B queries over D dims.
+int64_t plane_bytes(int B, int D) { return int64_t{3} * round64(B) * round64(D) * 2; }
+
+// Splits the queries into the workspace (planes, then q.offset for a
+// quantized mirror) and points a at them.
+template <int NA>
+cudaError_t prepare_queries(Args& a, const float* q, void* work, cudaStream_t s) {
+  const int n_mtiles = (a.B + 63) / 64;
+  auto* qa = static_cast<__nv_bfloat16*>(work);
+  float* qo = a.scale == nullptr
+                  ? nullptr
+                  : reinterpret_cast<float*>(static_cast<char*>(work) + plane_bytes(a.B, a.D));
+  split_queries<NA><<<n_mtiles, 256, 0, s>>>(q, a.scale, a.offset, qa, qo, a.B, a.D, a.Dpad,
+                                              n_mtiles);
+  a.qa = qa;
+  a.qo = qo;
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t dispatch_quant(const Args& a, bool quant, bool ip, cudaStream_t s) {
   if (quant) return ip ? launch<T, 3, true, true, false>(a, s) : launch<T, 3, true, false, false>(a, s);
@@ -736,20 +818,29 @@ cudaError_t dispatch_given(const Args& a, bool ip, cudaStream_t s) {
 
 }  // namespace
 
+// Bytes of the workspace that K2 and K7 take for B queries over D dims
+// (the split queries), or -1 past 2^31.
+extern "C" int batched_matmul_workspace_bytes(int B, int D) {
+  const int64_t n = plane_bytes(B, D) + int64_t{4} * round64(B);
+  return n > INT32_MAX ? -1 : static_cast<int>(n);
+}
+
 // K2.  dtype: 0 f32, 1 bf16, 2 int8 levels, 3 int4 levels packed two a byte
-// (x has ceil(D/2) rows; D counts dims).  qa: the three query planes,
-// (3, ceil(B/64), Dpad, 64) bf16 (kernels/batched_matmul.py:query_planes);
-// a quantized mirror gives scale, offset (D,) and qo (B,) = sum_d q_d
-// offset_d, any other passes null for all three.  vec: the tile's rows can
-// be copied in aligned 16-byte pieces (8-byte for int8/int4).
+// (x has ceil(D/2) rows; D counts dims).  q (B, D) f32 queries; a quantized
+// mirror gives scale, offset (D,), any other passes null for both.  work:
+// batched_matmul_workspace_bytes(B, D) bytes of device memory, 16-byte
+// aligned.  vec: the tile's rows can be copied in aligned 16-byte pieces
+// (8-byte for int8/int4).  Launches split_queries, then the main kernel.
 // Returns a cudaError_t.
-extern "C" int batched_distance_quant(const void* x, int dtype, const void* qa,
-                                      const float* qn, const float* qo, const float* scale,
-                                      const float* offset, float* out, int P, int B, int D,
-                                      int Dpad, int V, int ip, int vec, void* stream) {
+extern "C" int batched_distance_quant(const void* x, int dtype, const float* q,
+                                      const float* qn, const float* scale, const float* offset,
+                                      void* work, float* out, int P, int B, int D, int V, int ip,
+                                      int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{x, qa, qn, qo, nullptr, scale, offset, out, P, B, D, Dpad, V,
-               static_cast<int64_t>(P) * V, vec != 0};
+  Args a{x, nullptr, qn, nullptr, nullptr, scale, offset, out, P, B, D, round64(D), V,
+         static_cast<int64_t>(P) * V, vec != 0};
+  const cudaError_t err = prepare_queries<3>(a, q, work, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const bool quant = scale != nullptr, is_ip = ip != 0;
   switch (dtype) {
     case 0:
@@ -765,17 +856,20 @@ extern "C" int batched_distance_quant(const void* x, int dtype, const void* qa,
   }
 }
 
-// K7.  t_dtype: 0 f32, 1 bf16; q_planes: 3 (f32 queries) or 1 (bf16),
-// qa (q_planes, ceil(B/64), Dpad, 64) bf16.  qn, xn are ignored for ip.
-// Returns a cudaError_t.
-extern "C" int batched_distance(const void* x, int t_dtype, const void* qa, int q_planes,
-                                const float* qn, const float* xn, float* out, int B, int D,
-                                int Dpad, int V, int ip, int vec, void* stream) {
+// K7.  t_dtype: 0 f32, 1 bf16; q (B, D) f32 queries, q_planes 3, or 1
+// where every query value is a bf16 value; work as for K2.  qn, xn are
+// ignored for ip.  Returns a cudaError_t.
+extern "C" int batched_distance(const void* x, int t_dtype, const float* q, int q_planes,
+                                const float* qn, const float* xn, void* work, float* out, int B,
+                                int D, int V, int ip, int vec, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Args a{x, qa, qn, nullptr, xn, nullptr, nullptr, out, 1, B, D, Dpad, V,
-               static_cast<int64_t>(V), vec != 0};
+  Args a{x, nullptr, qn, nullptr, xn, nullptr, nullptr, out, 1, B, D, round64(D), V,
+         static_cast<int64_t>(V), vec != 0};
   const bool is_ip = ip != 0;
   if (q_planes != 1 && q_planes != 3) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err =
+      q_planes == 3 ? prepare_queries<3>(a, q, work, s) : prepare_queries<1>(a, q, work, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   switch (t_dtype * 2 + (q_planes == 1)) {
     case 0:
       return dispatch_given<float, 3>(a, is_ip, s);

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from . import ref
-from .batched_matmul import batched_distance_cuda, batched_distance_quant_cuda, query_planes
+from .batched_matmul import batched_distance_cuda, batched_distance_quant_cuda
 from .nary_scan import nary_distance_cuda
 from .pdx_scan import (
     METRIC_CODES,
@@ -81,8 +81,7 @@ def batched_distance_op(T: torch.Tensor, Q: torch.Tensor, metric: str = "l2") ->
     negated ip.  The norms are plain reductions outside the kernel, as the
     reference computes them outside its ``pallas_call``; each is one
     reduction in f32 over the operand as stored, so no f32 copy of T is
-    made.  On the card the queries go in as ``query_planes`` (three exact
-    bf16 planes of f32 queries, one of bf16)."""
+    made."""
     _check_metric(metric, ("l2", "ip"))
     if _device_kind(T) == "cpu":
         return ref.batched_distance_ref(T, Q, metric)
@@ -92,7 +91,7 @@ def batched_distance_op(T: torch.Tensor, Q: torch.Tensor, metric: str = "l2") ->
     if metric == "l2":
         qn = squared_norms(Q, dim=1)
         xn = squared_norms(T, dim=0)
-    return batched_distance_cuda(T, query_planes(Q), qn, xn, metric=metric)
+    return batched_distance_cuda(T, Q, qn, xn, metric=metric)
 
 
 def squared_norms(A: torch.Tensor, dim: int) -> torch.Tensor:
@@ -243,9 +242,7 @@ def batched_distance_quant_op(
     stack, + (B, D) f32 queries -> (B, V), or (B, P*V) with column
     ``p*V + v``, f32 distances (l2 or ip).  ``packed`` takes int4 bytes
     ((..., ceil(dim/2), V) uint8): the plain version unpacks it to int8
-    levels first, the kernel reads the packed bytes.  On the card the scale
-    of a quantized mirror is folded into the queries, which go in as three
-    exact bf16 planes (``query_planes``)."""
+    levels first, the kernel reads the packed bytes."""
     if metric not in ("l2", "ip"):
         raise ValueError(f"batched distance takes l2 or ip, got {metric!r}")
     if _device_kind(T) == "cpu":
@@ -255,7 +252,6 @@ def batched_distance_quant_op(
         out = [ref.batched_distance_quant_ref(t, Q, scale, offset, metric) for t in stack]
         return torch.cat(out, dim=1)
     stack = T if T.ndim == 3 else T[None]
-    D = dim if packed else stack.shape[1]
     dev = T.device
     Q32 = Q.to(device=dev, dtype=torch.float32).contiguous()
     qn = torch.sum(Q32 * Q32, dim=1)
@@ -263,8 +259,7 @@ def batched_distance_quant_op(
     if scale is not None:
         sc, off = _f32_on(scale, dev), _f32_on(offset, dev)
     return batched_distance_quant_cuda(
-        stack.contiguous(), query_planes(Q32, sc, off), qn, sc, off, metric=metric,
-        dim=D if packed else None,
+        stack.contiguous(), Q32, qn, sc, off, metric=metric, dim=dim if packed else None,
     )
 
 

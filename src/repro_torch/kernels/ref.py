@@ -116,8 +116,10 @@ def split_bf16(x: torch.Tensor) -> torch.Tensor:
     """f32 ``x`` -> (3, *x.shape) bf16 with ``x1 + x2 + x3 == x``
     exactly: each plane is the bf16 rounding of what the earlier ones left
     (an exact f32 difference), and three bf16 carry all 24 significant bits
-    of an f32.  The query operand of the tensor-core K2/K7, whose products
-    ``x_i * t`` with a bf16-exact ``t`` are exact in f32."""
+    of an f32.  Plain version of the split the tensor-core K2/K7 make of
+    the queries and of an f32 tile (``csrc/batched_matmul.cu:split``),
+    bit for bit: products ``x_i * t`` with a bf16-exact ``t`` are exact in
+    f32."""
     out = []
     r = x.to(torch.float32)
     for _ in range(3):
@@ -132,7 +134,9 @@ def fold_scale(Q: torch.Tensor, scale: torch.Tensor,
     """(B, D) f32 queries and a mirror's (D,) dequant vectors -> ``(Q * scale,
     Q @ offset)``: ``q.x^ = (q * scale).x + q.offset`` for ``x^ = x * scale
     + offset``, so the product takes the stored levels as they are and the
-    offset term is one f32 constant per query."""
+    offset term is one f32 constant per query.  Plain version of K2's fold
+    on a quantized mirror (the kernel sums ``Q @ offset`` in another
+    order)."""
     Q = Q.to(torch.float32)
     s = scale.to(device=Q.device, dtype=torch.float32)
     o = offset.to(device=Q.device, dtype=torch.float32)

@@ -259,24 +259,43 @@ def test_fold_scale_planes_sum_to_scaled_queries(dtype):
 
 
 @pytest.mark.parametrize("B,D", [(1, 33), (64, 960), (130, 49)])
-@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
-def test_query_planes_layout(B, D, qdtype):
-    """The kernel's query operand: per 64-query M-tile, dim-major, zero rows
-    past B and zero dims past D (to a multiple of 64); f32 queries give
-    their three planes, bf16 queries one."""
-    from repro_torch.kernels.batched_matmul import query_planes
-
+def test_split_bf16_of_bf16_values_is_one_plane(B, D):
+    """K7 takes bf16 queries as one plane of their f32 values: the split of
+    a bf16 value is the value itself and two zero planes."""
     Q = torch.from_numpy(np.random.default_rng(B + D).standard_normal((B, D))
-                         .astype(np.float32)).to(qdtype)
-    A = query_planes(Q)
-    n_planes = 3 if qdtype == torch.float32 else 1
-    n_mt, Dpad = -(-B // 64), -(-D // 64) * 64
-    assert A.data.shape == (n_planes, n_mt, Dpad, 64) and A.data.dtype == torch.bfloat16
-    assert (A.rows, A.dim, A.qo) == (B, D, None)
-    back = A.data.transpose(2, 3).reshape(n_planes, n_mt * 64, Dpad)
-    want = tref.split_bf16(Q) if qdtype == torch.float32 else Q[None]
-    assert torch.equal(back[:, :B, :D], want)
-    assert not back[:, B:].any() and not back[:, :, D:].any()
+                         .astype(np.float32)).to(torch.bfloat16)
+    planes = tref.split_bf16(Q.float())
+    assert torch.equal(planes[0], Q)
+    assert not planes[1:].float().any()
+
+
+@pytest.mark.parametrize("D", [33, 960])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_six_product_split_matches_plain(D, metric):
+    """What the tensor-core K2/K7 compute on an f32 tile, in plain f32
+    torch: queries and tile each in three bf16 planes, the six products
+    ``q_i x_j`` with ``i + j <= 2`` (each exact), smallest first -> the
+    plain version within K2's tolerance, ``1e-5 * (||q||^2 + ||x||^2) +
+    1e-3``, on live columns."""
+    store, m = _mirror(2, D, 130, "f32", seed=D)
+    Q = torch.from_numpy(np.random.default_rng(D + 2).standard_normal((5, D))
+                         .astype(np.float32))
+    qp = tref.split_bf16(Q).float()
+    qn = torch.sum(Q * Q, dim=1)
+    got, scale = [], []
+    for t in m.data:
+        xp = tref.split_bf16(t).float()
+        cross = torch.zeros((5, t.shape[1]))
+        for total in (2, 1, 0):
+            for i in range(total + 1):
+                cross = cross + qp[i] @ xp[total - i]
+        xn = torch.sum(t * t, dim=0)
+        got.append(-cross if metric == "ip" else (qn[:, None] - 2.0 * cross) + xn[None, :])
+        scale.append(qn[:, None] + xn[None, :])
+    got, scale = torch.cat(got, dim=1), torch.cat(scale, dim=1)
+    want = t_bmm(m.data, Q, metric=metric)
+    live = (store.ids >= 0).reshape(-1)
+    assert bool(((got - want).abs() <= 1e-5 * scale + 1e-3)[:, live].all())
 
 
 @pytest.mark.parametrize("dtype", ["int8", "int4"])
@@ -288,20 +307,18 @@ def test_folded_split_product_matches_plain(D, dtype, metric):
     product exact), smallest plane first, plus ``q . o``, and the norms of
     ``x^ = x s + o`` -> the plain version within K2's tolerance,
     ``1e-5 * (||q||^2 + ||x^||^2) + 1e-3``, on live columns."""
-    from repro_torch.kernels.batched_matmul import query_planes
-
     store, m = _mirror(2, D, 130, dtype, seed=D)
     B = 5
     Q = torch.from_numpy(np.random.default_rng(D + 1).standard_normal((B, D))
                          .astype(np.float32))
-    A = query_planes(Q, m.scale, m.offset)
-    planes = A.data.transpose(2, 3).reshape(3, -1, A.data.shape[2])[:, :B, :D].float()
+    Qs, qo = tref.fold_scale(Q, m.scale, m.offset)
+    planes = tref.split_bf16(Qs).float()
     levels = tref.dequantize_ref(m.data, None, None, dim_axis=1, packed=m.packed, dim=D)
     xhat = tref.dequantize_ref(m.data, m.scale, m.offset, dim_axis=1, packed=m.packed, dim=D)
     got, want, scale = [], [], []
     qn = torch.sum(Q * Q, dim=1)
     for lv, xh in zip(levels, xhat):
-        cross = (planes[2] @ lv + planes[1] @ lv) + planes[0] @ lv + A.qo[:, None]
+        cross = (planes[2] @ lv + planes[1] @ lv) + planes[0] @ lv + qo[:, None]
         xn = torch.sum(xh * xh, dim=0)
         got.append(-cross if metric == "ip" else (qn[:, None] - 2.0 * cross) + xn[None, :])
         scale.append(qn[:, None] + xn[None, :])

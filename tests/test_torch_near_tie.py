@@ -102,18 +102,15 @@ def test_near_tie_case_split_is_exact(dtype):
     """The kernel's operands on this case: the query planes (the scale
     folded in at int8) sum exactly to the queries, and the split product
     plus ``q.o`` gives the exact distances in f32."""
-    from repro_torch.kernels.batched_matmul import query_planes
-
     T, Q, sc, off, _ = near_tie_case(dtype)
-    A = query_planes(Q, sc, off) if sc is not None else query_planes(Q)
-    B, D = Q.shape
-    planes = A.data.transpose(2, 3).reshape(3, -1, A.data.shape[2])[:, :B, :D].float()
+    Qs, qo = ref.fold_scale(Q, sc, off) if sc is not None else (Q, None)
+    planes = ref.split_bf16(Qs).float()
     want = Q * sc[None, :] if sc is not None else Q
     assert torch.equal((planes[0] + planes[1]) + planes[2], want)
     levels = T[0].float()
     cross = planes[2] @ levels + planes[1] @ levels + planes[0] @ levels
-    if A.qo is not None:
-        cross = cross + A.qo[:, None]
+    if qo is not None:
+        cross = cross + qo[:, None]
     x = ref.dequantize_ref(T[0], sc, off)
     got = (Q * Q).sum(1)[:, None] - 2 * cross + (x * x).sum(0)[None, :]
     np.testing.assert_array_equal(got.double().numpy(), exact_l2(T, Q, sc, off))

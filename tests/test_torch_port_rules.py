@@ -19,9 +19,7 @@ from repro_torch.core import layout, pruners
 from repro_torch.core.engine import SearchSpec, VectorSearchEngine
 from repro_torch.data.synthetic import make_dataset
 from repro_torch.index import ivf, kmeans
-from repro_torch.kernels.batched_matmul import (
-    batched_distance_cuda, batched_distance_quant_cuda, query_planes,
-)
+from repro_torch.kernels.batched_matmul import batched_distance_cuda, batched_distance_quant_cuda
 from repro_torch.kernels.nary_scan import nary_distance_cuda
 from repro_torch.kernels.pdx_scan import (
     pdx_distance_cuda,
@@ -175,8 +173,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_fallback():
             scan(T, torch.zeros((1, 16), dtype=torch.int32), f, torch.zeros(1), f, f,
                  dim=8, d_tile=4, eps0=2.1, quantized=False)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        batched_distance_quant_cuda(T, query_planes(torch.zeros((2, 8))), torch.zeros(2),
-                                    metric="l2")
+        batched_distance_quant_cuda(T, torch.zeros((2, 8)), torch.zeros(2), metric="l2")
     T2 = torch.zeros((8, 16))
     for plain in (pdx_distance_cuda, nary_distance_cuda):
         with pytest.raises(ValueError, match="CUDA tensor"):
@@ -184,8 +181,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_without_fallback():
     with pytest.raises(ValueError, match="CUDA tensor"):
         pdx_prune_scan_cuda(T2, None, f, torch.zeros(1), d_tile=4, eps0=2.1)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        batched_distance_cuda(T2, query_planes(torch.zeros((2, 8))), torch.zeros(2),
-                              torch.zeros(16), metric="l2")
+        batched_distance_cuda(T2, torch.zeros((2, 8)), torch.zeros(2), torch.zeros(16),
+                              metric="l2")
     assert [w.launches for w in wrappers] == before
 
 
