@@ -28,7 +28,10 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      against direct f32 distances of the returned ids, and recall@10
      against a ground truth computed on the card by direct f32
      differences (>= 0.95 for fused-scan, >= 0.99 for fused-batch at
-     f32/bf16/int8; recorded at int4, see RECALL_FLOORS).
+     f32/bf16/int8; recorded at int4, see RECALL_FLOORS).  Then
+     ``fused-scan``'s wall per query over WALL_ROUNDS rounds of the 16
+     queries per dtype, after the counters were read (phase
+     ``fused_scan_wall``).
   3. cascade — the same engine through the multi-resolution cascade, for
      each ladder of LADDERS: 16 single queries (``cascade-scan``: K1 on the
      first stage, K3 on the second) and one batch of 64 (``cascade-batch``:
@@ -46,7 +49,15 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      against their plain PyTorch
      versions on the same card tensors, with CUDA-event medians of the
      kernel, the whole op (K2), the plain version and (K2) a library
-     matmul, and the least time the card could take (bound).
+     matmul, and the least time the card could take (bound).  The K1 and
+     K3 rows also carry their launch shape (body bulk or direct, lanes
+     per block, blocks, shared memory, look-ahead and the most bytes it
+     can add; the path's rows must run the bulk body), a lane-level bound
+     (the row's ``bound_ms``) beside the partition-level one, the time at
+     thr = 0 (the sweep of d-tile 0 alone) and the host's time in the
+     wrapper (``host_ms``: Python, ctypes and the library's host code).
+     Every kernel time is the device's: the timed run waits behind a 1 ms
+     spin of the card, so the host's enqueue is not counted.
      Before it, a ``torch.profiler`` breakdown of the main path's device
      time by kernel at f32 and int8, and of cascade ladder A (where the
      time goes).
@@ -130,6 +141,8 @@ TABLE4_N = 1 << 20
 TABLE4_DIMS = (8, 16, 32, 64, 128, 192, 256, 384, 512, 768, 1024, 1536)
 TABLE4_METRICS = ("l2", "ip", "l1")
 L2_CACHE_BYTES = 50 * 2**20  # H100 SXM
+SPIN_CYCLES = 2_000_000  # about 1 ms of the card's clock, ahead of a timed run
+WALL_ROUNDS = 8  # rounds of the 16 single queries behind each fused-scan wall
 
 # cascade ladders: A is the reference's own benchmark ladder
 # (benchmarks/bench_cascade.py), B a full-dimension one
@@ -149,25 +162,39 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2, flush=None) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` runs.
+def cuda_times(torch, fn, reps: int = 10, warmup: int = 2, flush=None) -> tuple[float, float]:
+    """Medians of ``reps`` timed runs of ``fn`` after ``warmup`` runs: its
+    CUDA-event time on the device and the host's time in the call (ms).
     ``flush`` (a ``Flush``) empties the L2 cache before each timed run,
-    outside the events."""
+    outside the events.  The timed run is queued behind a 1 ms spin of the
+    card, so the events time the device's work and not the host's enqueue
+    of it (a short kernel's wrapper takes 0.05-0.1 ms of Python and ctypes,
+    which an idle card would wait for between the events; the work of a
+    plain version that takes longer to enqueue than the spin still counts
+    its host gaps), and the host's time is that of the enqueue alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    times, host = [], []
     for _ in range(reps):
         if flush is not None:
             flush()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
+        h0 = time.perf_counter()
         fn()
+        host.append((time.perf_counter() - h0) * 1e3)
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e))
-    return statistics.median(times)
+    return statistics.median(times), statistics.median(host)
+
+
+def cuda_ms(torch, fn, reps: int = 10, warmup: int = 2, flush=None) -> float:
+    """The device's time of ``fn`` (``cuda_times``), ms."""
+    return cuda_times(torch, fn, reps, warmup, flush)[0]
 
 
 class Flush:
@@ -204,7 +231,10 @@ def product_peak(*f32_operands: bool) -> float:
 
 
 def ptxas_summary(logs: dict) -> dict:
-    """Max registers and total spill bytes per library from ``-Xptxas -v``."""
+    """Max registers and total spill bytes per library from ``-Xptxas -v``;
+    for the scan library also each K1/K3 kernel's registers, spills and
+    static shared memory (the dynamic ring is in the ``kernel_vs_plain``
+    lines)."""
     import re
 
     out = {}
@@ -214,6 +244,21 @@ def ptxas_summary(logs: dict) -> dict:
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
         out[name] = {"kernels": len(regs), "max_registers": max(regs, default=0),
                      "spill_bytes": sum(spills)}
+        scans = []
+        for entry in re.split(r"Compiling entry function '", log)[1:]:
+            fn = entry.split("'", 1)[0]
+            m = re.search(r"Used (\d+) registers", entry)
+            if m is None or not re.search(r"prune_scan_(sweep|tail|multi)_kernel", fn):
+                continue
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+            sm = re.search(r"(\d+) bytes smem", entry)
+            short = re.search(r"(prune_scan_\w+?_kernelI.*?)EEv", fn)
+            scans.append({"kernel": short.group(1) if short else fn,
+                          "registers": int(m.group(1)),
+                          "spill_bytes": int(sp.group(1)) + int(sp.group(2)) if sp else 0,
+                          "static_smem_bytes": int(sm.group(1)) if sm else 0})
+        if scans:
+            out[name]["k1_k3_kernels"] = scans
     return out
 
 
@@ -246,6 +291,24 @@ def dist_error(torch, X, Q, ids, dists) -> float:
     true = torch.sum(diff * diff, dim=2)
     got = torch.from_numpy(dists).to(X.device)
     return float(((got - true).abs() / true.clamp(min=1e-6)).max())
+
+
+def scan_walls(torch, eng, Q, specs: dict) -> dict:
+    """``fused-scan``'s wall per query, host clock around ``engine.search``
+    (NumPy out, so synchronized), in ``WALL_ROUNDS`` rounds of the 16 single
+    queries per scan dtype: the rounds' median, least and most, so that a
+    change of the wall can be told from its spread."""
+    out = {"phase": "fused_scan_wall", "rounds": WALL_ROUNDS}
+    for dt, spec in specs.items():
+        rounds = []
+        for _ in range(WALL_ROUNDS):
+            t0 = time.perf_counter()
+            for i in range(N_SINGLE):
+                eng.search(Q[i], spec)
+            rounds.append((time.perf_counter() - t0) / N_SINGLE * 1e3)
+        out[dt] = {"ms_per_query_median": statistics.median(rounds),
+                   "ms_per_query_min": min(rounds), "ms_per_query_max": max(rounds)}
+    return out
 
 
 def where_time_goes(torch, eng, Q, spec, prefix: str, **tag) -> dict:
@@ -317,6 +380,24 @@ def scan_parity(torch, ref, m, ids, qt, thr, eps0, prefetch: bool = False,
     return {"parity": ok, **out}, walk, ka
 
 
+def first_vote_blocks(torch, ref, m, ids, qt, thr, eps0, d_tile: int, lanes: int) -> int:
+    """Blocks of ``lanes`` lanes of mirror ``m`` with a lane still alive
+    after their first d-tile's vote, by the plain walk's test (sums in
+    PyTorch's order, so a lane at the bound may fall either way)."""
+    d0 = min(d_tile, m.dim)
+    rows0 = -(-d0 // 2) if m.packed else d0
+    sc = m.scale[:d0] if m.quantized else None
+    off = m.offset[:d0] if m.quantized else None
+    T32 = ref.dequantize_ref(m.data[:, :rows0], sc, off, dim_axis=1, packed=m.packed, dim=d0)
+    diff = T32 - qt[None, :d0, None].to(torch.float32)
+    acc = torch.sum(diff * diff, dim=1)
+    keep = (ids >= 0) & (acc * ref._ratio(m.dim, d0) <= thr * ref._inflation(eps0, d0))
+    P, V = keep.shape
+    nb = -(-V // lanes)
+    keep = torch.nn.functional.pad(keep, (0, nb * lanes - V)).reshape(P, nb, lanes)
+    return int(keep.any(dim=2).sum())
+
+
 def scan_kernel_row(torch, ref, m, ids, qt, thr, eps0, *, prefetch: bool,
                     launches: int, d_tile: int = 64, tag: str = "",
                     **row_extra) -> dict:
@@ -326,10 +407,14 @@ def scan_kernel_row(torch, ref, m, ids, qt, thr, eps0, *, prefetch: bool,
     of the live lanes' full distances, where lanes die at every d-tile;
     CUDA-event medians of the kernel (on the operands its wrapper prepares)
     and of the plain version; the bound.  ``tag`` names the row (the mirror
-    dtype by default).  Emits the phase line, returns the row."""
+    dtype by default).  The row carries the launch shape (body, lanes per
+    block, blocks, shared memory, look-ahead and the most bytes it can add);
+    a row on the path (``launches`` > 0) must run the bulk body.  Emits the
+    phase line, returns the row."""
     from repro_torch.kernels.ops import _prep_multi
     from repro_torch.kernels.pdx_scan import (
-        pdx_prune_scan_multi_cuda, pdx_prune_scan_multi_prefetch_cuda,
+        pdx_prune_scan_multi_cuda, pdx_prune_scan_multi_geometry,
+        pdx_prune_scan_multi_prefetch_cuda,
     )
     from repro_torch.obs.meters import tile_widths
 
@@ -358,30 +443,51 @@ def scan_kernel_row(torch, ref, m, ids, qt, thr, eps0, *, prefetch: bool,
     lanes = walk.lanes.cpu().numpy()
     parts = walk.parts.cpu().numpy()
     w = tile_widths(m.dim, d_tile)
-    # the tiles of the partitions still alive entering each d-tile, at the
-    # mirror's width; ids in, dists and alive (and K3's streamed) out;
-    # q/scale/offset; the operations of the lanes alive entering each tile
-    nbytes = (float((parts * w).sum()) * C * m.bytes_per_value
-              + P * C * (4 + 4 + 1) + (P * 4 if prefetch else 0) + 3 * m.dim * 4)
+    # ids in, dists and alive (and K3's streamed) out; q/scale/offset; the
+    # tiles either of the partitions alive entering each d-tile at the
+    # mirror's width (partition level, the grain of the direct body) or of
+    # the lanes alive entering it (lane level, as K6's row counts; the
+    # row's bound, since the bulk body skips at a finer grain than a
+    # partition); the operations of the lanes alive entering each tile
+    fixed = P * C * (4 + 4 + 1) + (P * 4 if prefetch else 0) + 3 * m.dim * 4
+    part_bytes = float((parts * w).sum()) * C * m.bytes_per_value + fixed
+    nbytes = float((lanes * w).sum()) * m.bytes_per_value + fixed
     flops = float((lanes * w).sum()) * (5 if m.quantized else 3)
     b, by = bound_ms(nbytes, flops)
+    b_part, _ = bound_ms(part_bytes, flops)
     args, kwargs = _prep_multi(m.data, ids, qt, thr, sc, off, eps0, d_tile, m.packed,
                                m.dim)
+    geo = pdx_prune_scan_multi_geometry(args[0], dim=kwargs["dim"], d_tile=kwargs["d_tile"],
+                                        quantized=kwargs["quantized"], prefetch=prefetch)
+    rows = min(kwargs["d_tile"] // 2 if m.packed else kwargs["d_tile"], m.data.shape[1])
+    first = first_vote_blocks(torch, ref, m, ids, qt, thr, eps0, kwargs["d_tile"],
+                              geo["lanes_per_block"])
+    # the look-ahead runs in the tail launch only (none where one d-tile)
+    geo.update(blocks_alive_after_first_vote=first,
+               lookahead_bytes_max=(geo["lookahead_tiles"] * first * rows
+                                    * geo["lanes_per_block"] * m.data.element_size()
+                                    * (geo["tail_blocks"] > 0)))
     kern = pdx_prune_scan_multi_prefetch_cuda if prefetch else pdx_prune_scan_multi_cuda
-    ms = cuda_ms(torch, lambda: kern(*args, **kwargs))
+    ms, host_ms = cuda_times(torch, lambda: kern(*args, **kwargs))
+    args0 = (*args[:3], torch.zeros_like(args[3]), *args[4:])  # thr = 0
+    ms_sweep = cuda_ms(torch, lambda: kern(*args0, **kwargs))
     plain_ms = cuda_ms(torch, plain)
     row = {"name": name, "route": "cuda",
            "source": K3_SOURCE if prefetch else K1_SOURCE,
            "replaces": K3_REPLACES if prefetch else K1_REPLACES,
            "launches": launches, "max_abs_err": summary["max_abs_err"],
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
-           "library_ms": None, "parity": summary["parity"], **row_extra}
+           "library_ms": None, "parity": summary["parity"],
+           "bound_ms_partition": b_part, "host_ms": host_ms,
+           "ms_sweep": ms_sweep, **geo, **row_extra}
     emit({"phase": "kernel_vs_plain", **summary, **row, "threshold": float(thr),
           "d_tile": d_tile, "eps0": eps0, "lanes_entering": int(live.sum()),
           "partitions_entering": int(live.any(dim=1).sum()),
           "lanes_alive_after": int(ka.sum()), "tiles_streamed": float(parts.sum()),
-          "bound_bytes": nbytes, "bound_flops": flops, **extra})
+          "bound_bytes": nbytes, "bound_bytes_partition": part_bytes,
+          "bound_flops": flops, **extra})
     assert summary["parity"], f"{name} disagrees with its plain version"
+    assert launches == 0 or geo["body"] == "bulk", f"{name}: the path ran the {geo['body']} body"
     return row
 
 
@@ -1041,6 +1147,7 @@ def main() -> int:
           "k1_launches": pdx_prune_scan_multi_cuda.launches,
           "k2_launches": batched_distance_quant_cuda.launches,
           "seconds": time.perf_counter() - t0})
+    emit(scan_walls(torch, eng, Q, specs))
 
     # --------------------------------------------------------- 3. cascade
     t0 = time.perf_counter()

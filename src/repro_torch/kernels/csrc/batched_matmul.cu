@@ -76,6 +76,8 @@
 
 #include <type_traits>
 
+#include "mbarrier.cuh"
+
 namespace {
 
 constexpr int kBN = 256;           // lanes per block: 2 consumer warpgroups x 128
@@ -85,33 +87,6 @@ constexpr int kRow = 128;          // bytes of a shared-memory row (64 bf16)
 constexpr int kPlaneStages = 2;    // converted tile planes handed to wgmma
 constexpr int kMaxRaw = 8;         // copy stages in flight, at most
 constexpr int kBudget = 218 * 1024;  // dynamic shared memory, alignment included
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  uint64_t state;
-  asm volatile("mbarrier.arrive.shared::cta.b64 %0, [%1];" : "=l"(state) : "r"(bar) : "memory");
-  asm volatile("" ::"l"(state));
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 // Asynchronous copies global -> shared of 16 or 8 bytes; in == false
 // writes zeros instead (src is then not read).

@@ -5,6 +5,10 @@ All bind ``csrc/pdx_scan.cu``:
   ``pdx_prune_scan_multi_cuda`` (K1, replacing the TPU kernel
   ``repro.kernels.pdx_scan.pdx_prune_scan_multi_pallas``): one launch scans
   every partition of a mirror with the ADSampling test fused per d-tile.
+  Its launch shape (``pdx_prune_scan_multi_geometry``, K3's too) follows
+  the mirror: the bulk body, fed by tensor copies (TMA) into a ring in
+  shared memory, wherever its row segments are 16-byte aligned, else the
+  direct body.
 
   ``pdx_prune_scan_multi_prefetch_cuda`` (K3, replacing
   ``pdx_prune_scan_multi_prefetch_pallas``): the same scan for the later
@@ -23,6 +27,7 @@ Each counts its kernel launches in ``.launches``.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -32,6 +37,7 @@ from ._build import bind, check_launch
 __all__ = [
     "pdx_prune_scan_multi_cuda",
     "pdx_prune_scan_multi_prefetch_cuda",
+    "pdx_prune_scan_multi_geometry",
     "pdx_distance_cuda",
     "pdx_prune_scan_cuda",
 ]
@@ -130,6 +136,31 @@ def pdx_prune_scan_multi_prefetch_cuda(
             (dists, alive, streamed), dim, d_tile, eps0, quantized)
     pdx_prune_scan_multi_prefetch_cuda.launches += 1
     return dists, alive, streamed
+
+
+def pdx_prune_scan_multi_geometry(T: torch.Tensor, *, dim: int, d_tile: int, quantized: bool,
+                                  prefetch: bool = False) -> dict:
+    """The launch shape K1 (K3 with ``prefetch``) takes for the (P, Drows,
+    V) mirror tiles ``T`` and the arguments its wrapper receives, from the
+    library's own rule; launches nothing.  ``body`` is "bulk" where every
+    row segment a block reads is 16-byte aligned, else "direct".  The bulk
+    body launches a sweep of d-tile 0 over ``blocks`` blocks and, where
+    there are more d-tiles, a tail of ``tail_blocks`` persistent blocks over
+    the survivors; shared memory is per block, ``smem_bytes`` of the tail
+    (or only) launch, ``smem_bytes_sweep`` of the sweep;
+    ``lookahead_tiles`` is the d-tiles a tail block keeps requested ahead."""
+    _check(T, "T")
+    if T.dtype not in _DTYPE_CODES or T.ndim != 3:
+        raise ValueError(f"T must be (P, Drows, V) mirror tiles, got {T.dtype} {tuple(T.shape)}")
+    P, Drows, V = T.shape
+    out = (ctypes.c_int * 7)()
+    fn = bind("pdx_scan", "pdx_prune_scan_multi_geometry", "piiiiiiiip")
+    rc = fn(T.data_ptr(), _DTYPE_CODES[T.dtype], P, Drows, V, dim, d_tile,
+            int(quantized or T.dtype == torch.uint8), int(prefetch), ctypes.addressof(out))
+    check_launch("pdx_scan", "pdx_prune_scan_multi_geometry", rc)
+    return {"body": "bulk" if out[0] else "direct", "lanes_per_block": out[1],
+            "blocks": out[2], "tail_blocks": out[6], "smem_bytes": out[3],
+            "smem_bytes_sweep": out[5], "lookahead_tiles": out[4]}
 
 
 def pdx_distance_cuda(T: torch.Tensor, q: torch.Tensor, metric: str) -> torch.Tensor:

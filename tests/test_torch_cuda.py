@@ -10,7 +10,9 @@ Tolerances (the kernels sum in another order and contract to FMA):
   * K2: |kernel - plain| <= 1e-5 * (||q||^2 + ||x^||^2) + 1e-3, the
     rounding scale of the cancelling form.
   * K3: K1's rule, and ``streamed`` equal on every partition whose alive
-    masks agree.
+    masks agree.  K1 and K3 in their bulk body (aligned rows, a partition
+    over several blocks fed by bulk copies): the same rules; ten launches
+    back to back give equal outputs bit for bit.
   * The batched cascade stage (K2 per d-tile): K2's bound per tile summed
     over the tiles, and K1's rule for the alive masks.
   * K4, K5: rtol 1e-5 / atol 1e-4 at f32 and bf16 (both sides upcast bf16
@@ -48,6 +50,7 @@ from repro_torch.kernels.pdx_scan import (
     pdx_distance_cuda,
     pdx_prune_scan_cuda,
     pdx_prune_scan_multi_cuda,
+    pdx_prune_scan_multi_geometry,
     pdx_prune_scan_multi_prefetch_cuda,
 )
 
@@ -64,9 +67,13 @@ def dev():
     return torch.device("cuda")
 
 
-def _mirror(P, D, V, dtype, seed, dev):
+def _mirror(P, D, V, dtype, seed, dev, shift=None):
+    """A (P, D, V) store of standard normal rows (plus ``shift`` (P, V) per
+    lane, if given), the last 7 lanes of each partition PAD, and its mirror."""
     rng = np.random.default_rng(seed)
     data = rng.standard_normal((P, D, V)).astype(np.float32)
+    if shift is not None:
+        data += shift[:, None, :]
     ids = rng.integers(0, 10_000, (P, V)).astype(np.int32)
     ids[:, -7:] = -1
     data[np.broadcast_to((ids < 0)[:, None, :], data.shape)] = tl.PAD_VALUE
@@ -156,6 +163,236 @@ def test_k3_matches_plain(dev, P, D, V, dtype):
             assert bool(ka[live].all())
             assert ks.tolist() == [float(n_tiles) if bool(live[p].any()) else 0.0
                                    for p in range(P)]
+
+
+# Lanes whose rows sit 3 standard deviations off the query die at the first
+# d-tile (their estimate is ~5x the threshold there); lanes drawn like the
+# query live on, some of them to the last tile.
+FAR = 3.0
+
+
+def _bulk_case(case, dtype, prefetch, dev):
+    """(mirror, ids, q, thr) of a bulk-body case.
+
+    * ``path``: the main path's tile, P = 24, D = 960, V = 1024: three
+      partitions drawn near the query, the rest far, so most partitions die
+      at tile 0 and a few live to the last tile (K3: random lanes, a whole
+      partition and partition 11's first 256 lanes enter dead);
+    * ``v2048``: P = 4, V = 2048, near and far lanes by block-sized groups,
+      so some blocks of a partition die at their first vote while others
+      live (K3: partition 2's lanes 1024-1279 enter dead);
+    * ``thr0``: the path's tile at thr = 0, every block dies at tile 0;
+    * ``inf``: the path's tile at thr = +inf, every block runs every tile.
+    The threshold (path, v2048) is the 10th smallest full distance."""
+    if case == "v2048":
+        P, V = 4, 2048
+        shift = np.full((P, V), FAR, np.float32)
+        shift[[0, 2], 1024:] = 0.0
+        shift[3, 1536:1664] = 0.0
+    else:
+        P, V = 24, 1024
+        shift = np.full((P, V), FAR, np.float32)
+        shift[[3, 11, 17]] = 0.0
+    store, m = _mirror(P, 960, V, dtype, P + V, dev, shift)
+    ids = store.ids.clone()
+    if prefetch:
+        gen = torch.Generator(device="cpu").manual_seed(V)
+        ids[(torch.rand(ids.shape, generator=gen) < 0.3).to(dev)] = -1
+        if case == "v2048":
+            ids[2, 1024:1280] = -1
+        else:
+            ids[5] = -1
+            ids[11, :256] = -1
+    q = _randn((960,), 7, dev)
+    if case == "thr0":
+        return m, ids, q, 0.0
+    if case == "inf":
+        return m, ids, q, float("inf")
+    T32 = ref.dequantize_ref(m.data, *((m.scale, m.offset) if m.quantized else (None, None)),
+                             dim_axis=1, packed=m.packed, dim=m.dim)
+    full = torch.sum((T32 - q[None, :, None]) ** 2, dim=1)[ids >= 0]
+    return m, ids, q, torch.sort(full).values[10]
+
+
+def _scan_vs_plain(m, ids, q, thr, prefetch):
+    """One K1 (K3) launch through its op, held to the plain version by K1's
+    (K3's) rule -> (kernel outputs, plain outputs, the plain walk)."""
+    sc, off = (m.scale, m.offset) if m.quantized else (None, None)
+    op = pdx_prune_scan_multi_prefetch_op if prefetch else pdx_prune_scan_multi_op
+    counter = pdx_prune_scan_multi_prefetch_cuda if prefetch else pdx_prune_scan_multi_cuda
+    plain = ref.pdx_prune_scan_multi_dskip_ref if prefetch else ref.pdx_prune_scan_multi_ref
+    n0 = counter.launches
+    got = op(m.data, ids, q, thr, sc, off, packed=m.packed, dim=m.dim)
+    assert counter.launches == n0 + 1
+    *want, walk = plain(m.data, ids, q, thr, d_tile=64, eps0=2.1, scale=sc, offset=off,
+                        packed=m.packed, dim=m.dim, trace=True)
+    kd, ka, pd_, pa = got[0], got[1], want[0], want[1] != 0
+    live = ids >= 0
+    assert not ka[~live].any()
+    mism = (ka != pa) & live
+    if mism.any():
+        assert float(walk.margin[mism].max()) < 1e-4
+    both = ka & pa
+    torch.testing.assert_close(kd[both], pd_[both], rtol=1e-4, atol=1e-3)
+    if prefetch:
+        agree = ~mism.any(dim=1)
+        assert torch.equal(got[2][agree], want[2][agree])
+    return got, want, walk
+
+
+@pytest.mark.parametrize("prefetch", [False, True], ids=["K1", "K3"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["path", "v2048", "thr0", "inf"])
+def test_bulk_scan_matches_plain(dev, case, dtype, prefetch):
+    m, ids, q, thr = _bulk_case(case, dtype, prefetch, dev)
+    assert pdx_prune_scan_multi_geometry(m.data, dim=960, d_tile=64, quantized=m.quantized,
+                                         prefetch=prefetch)["body"] == "bulk"
+    got, want, walk = _scan_vs_plain(m, ids, q, thr, prefetch)
+    live = ids >= 0
+    entering = live.any(dim=1)
+    n_tiles = 15  # 960 dims / 64
+    parts = walk.parts.tolist()
+    if case == "path":
+        # the far partitions die at tile 0; a near one lives to the last tile
+        assert parts[1] == 3 and parts[-1] >= 1
+    if case == "v2048":
+        # every partition has live blocks after tile 0 but partition 1
+        assert parts[1] == 3
+    if case == "thr0":
+        # every lane dies at its first vote, with tile 0's partial distance
+        assert not got[1].any() and parts[1:] == [0] * (n_tiles - 1)
+        torch.testing.assert_close(got[0][live], want[0][live], rtol=1e-4, atol=1e-3)
+    if case == "inf":
+        assert bool(got[1][live].all())
+        torch.testing.assert_close(got[0][live], want[0][live], rtol=1e-4, atol=1e-3)
+    if prefetch:
+        if case in ("thr0", "inf"):
+            want_streamed = (1.0 if case == "thr0" else float(n_tiles)) * entering.float()
+            assert torch.equal(got[2], want_streamed)
+        # entry-dead lanes read nothing and report dist 0, alive false
+        real = m.data.shape[2] - 7
+        dead = ~live
+        dead[:, real:] = False
+        assert bool((got[0][dead] == 0).all())
+
+
+@pytest.mark.parametrize("prefetch", [False, True], ids=["K1", "K3"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bulk_scan_back_to_back(dev, dtype, prefetch):
+    """Ten launches in a row, then one synchronize: a block that left with a
+    bulk copy still in flight would corrupt a later block's ring or fault.
+    Every launch gives the first one's outputs bit for bit."""
+    m, ids, q, thr = _bulk_case("path", dtype, prefetch, dev)
+    sc, off = (m.scale, m.offset) if m.quantized else (None, None)
+    op = pdx_prune_scan_multi_prefetch_op if prefetch else pdx_prune_scan_multi_op
+    outs = [op(m.data, ids, q, thr, sc, off, packed=m.packed, dim=m.dim) for _ in range(10)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for a, b in zip(out, outs[0]):
+            assert torch.equal(a, b)
+
+
+def _storage(dtype):
+    """The torch dtype and stored rows per dim of a mirror of ``dtype``."""
+    return {"f32": (torch.float32, 1), "bf16": (torch.bfloat16, 1), "int8": (torch.int8, 1),
+            "int4": (torch.uint8, 2)}[dtype]
+
+
+@pytest.mark.parametrize("thr_kind", ["inf", "q30"])
+@pytest.mark.parametrize("prefetch", [False, True], ids=["K1", "K3"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_bulk_tail_block_walks_several_items(dev, dtype, prefetch, thr_kind):
+    """More items (partition, block of lanes) alive after tile 0 than tail
+    blocks, so each tail block walks two or three of them one after the
+    other on one ring, whose mbarriers are initialised once and whose phases
+    run on from item to item.  D = 320 gives four tail d-tiles an item
+    against a ring of three stages.  Every third item's rows sit FAR off the
+    query in d-tile 1, every third in d-tile 3: at the 30 % quantile of the
+    full distances those items die there, so items request 3 or 4 copies
+    and the phases a block waits on shift from item to item; at +inf every
+    item runs every tile.  K1's (K3's) rules against the plain version."""
+    D, V = 320, 1024
+    torch_dtype, per_row = _storage(dtype)
+    kw = dict(dim=D, d_tile=64, quantized=dtype in ("int8", "int4"), prefetch=prefetch)
+    # the tail's block cap, read where the items exceed it
+    P = 64
+    while True:
+        probe = torch.empty((P, D // per_row, V), dtype=torch_dtype, device=dev)
+        geo = pdx_prune_scan_multi_geometry(probe, **kw)
+        del probe
+        lanes = geo["lanes_per_block"]
+        if P * (V // lanes) > 2 * geo["tail_blocks"]:
+            break
+        P *= 2
+    cap = geo["tail_blocks"]
+    nb = V // lanes
+    P = -(-(5 * cap // 2) // nb)  # about 2.5 items a tail block
+    gen = torch.Generator(device=dev).manual_seed(11)
+    data = torch.randn((P, D, V), generator=gen, device=dev)
+    item = torch.arange(P * nb, device=dev).reshape(P, nb, 1).expand(P, nb, lanes).reshape(P, V)
+    for tile, group in ((1, 1), (3, 2)):
+        data[:, 64 * tile:64 * (tile + 1), :] += FAR * (item % 3 == group)[:, None, :]
+    ids = torch.randint(0, 10_000, (P, V), generator=gen, device=dev, dtype=torch.int32)
+    ids[:, -7:] = -1
+    data[(ids < 0)[:, None, :].expand_as(data)] = float(tl.PAD_VALUE)
+    flat = data.transpose(1, 2)[ids >= 0]
+    store = tl.PDXStore(data=data, ids=ids, counts=(ids >= 0).sum(1).to(torch.int32),
+                        dim_means=flat.mean(0), dim_vars=flat.var(0, unbiased=False))
+    del flat
+    m = tl.device_mirror(store, dtype)
+    geo = pdx_prune_scan_multi_geometry(m.data, **kw)
+    assert geo["body"] == "bulk" and geo["tail_blocks"] == cap
+    assert P * nb >= 2 * cap
+    if prefetch:
+        ids = ids.clone()
+        ids[torch.rand(ids.shape, generator=gen, device=dev) < 0.3] = -1
+    q = torch.randn((D,), generator=gen, device=dev)
+    if thr_kind == "inf":
+        thr = float("inf")
+    else:
+        T32 = ref.dequantize_ref(m.data, *((m.scale, m.offset) if m.quantized else (None, None)),
+                                 dim_axis=1, packed=m.packed, dim=m.dim)
+        full = torch.sum((T32 - q[None, :, None]) ** 2, dim=1)[ids >= 0]
+        del T32
+        thr = torch.sort(full).values[int(0.3 * full.numel())]
+    got, want, walk = _scan_vs_plain(m, ids, q, thr, prefetch)
+    lanes_in = walk.lanes.tolist()
+    # every item enters the tail, so a tail block walks two or three
+    assert walk.parts.tolist()[1] == P
+    if thr_kind == "inf":
+        assert bool(got[1][ids >= 0].all())
+    else:
+        assert lanes_in[1] > lanes_in[2] and lanes_in[3] > lanes_in[4] > 0
+
+
+@pytest.mark.parametrize("dtype,lanes", [("f32", 128), ("bf16", 256), ("int8", 256),
+                                         ("int4", 256)])
+def test_scan_geometry_follows_the_shape(dev, dtype, lanes):
+    """The bulk body where every row segment is 16-byte aligned and a d-tile
+    of a block is at most 32 KB: a sweep of one stage a block, a persistent
+    tail of three stages, each beside the {q, scale, offset} table of its
+    dims; the direct body on unaligned rows or an unaligned base."""
+    _, m = _mirror(2, 96, 1024, dtype, 3, dev)
+    kw = dict(dim=96, d_tile=64, quantized=m.quantized)
+    rows = 32 if dtype == "int4" else 64
+    stage = rows * lanes * m.data.element_size()
+    geo = pdx_prune_scan_multi_geometry(m.data, **kw)
+    tail_blocks = geo.pop("tail_blocks")
+    assert 0 < tail_blocks <= 2 * 1024 // lanes
+    # ring stages, their mbarriers (32 bytes), 16 bytes a dim of the table
+    assert geo == {"body": "bulk", "lanes_per_block": lanes, "blocks": 2 * 1024 // lanes,
+                   "smem_bytes": 3 * stage + 32 + 32 * 16,
+                   "smem_bytes_sweep": stage + 32 + 64 * 16, "lookahead_tiles": 2}
+    direct = {"body": "direct", "lanes_per_block": 1024, "blocks": 2, "tail_blocks": 0,
+              "smem_bytes": 3 * 96 * 4, "smem_bytes_sweep": 3 * 96 * 4,  # q, scale, offset
+              "lookahead_tiles": 0}
+    _, m = _mirror(2, 96, 130, dtype, 3, dev)
+    assert pdx_prune_scan_multi_geometry(m.data, **kw) == direct
+    _, m = _mirror(2, 96, 1024, dtype, 3, dev)
+    flat = torch.empty(m.data.numel() + 1, dtype=m.data.dtype, device=dev)
+    shifted = flat[1:].view(m.data.shape)
+    assert shifted.data_ptr() % 16 != 0
+    assert pdx_prune_scan_multi_geometry(shifted, **kw) == direct
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -16,6 +16,9 @@ D for the packed int4 mirror and PAD lanes.  Tolerances:
   * ``batched_cascade_stage_op`` (K2 per d-tile): alive masks equal, dists
     at K2's tolerances, on non-PAD lanes.
 """
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -326,3 +329,43 @@ def test_folded_split_product_matches_plain(D, dtype, metric):
     want = t_bmm(m.data, Q, m.scale, m.offset, metric, packed=m.packed, dim=m.dim)
     live = (store.ids >= 0).reshape(-1)
     assert bool(((got - want).abs() <= 1e-5 * scale + 1e-3)[:, live].all())
+
+
+def test_scan_geometry_refuses_cpu_tensors():
+    """K1/K3's launch shape comes from the CUDA library's own rule, for a
+    CUDA mirror only: a CPU tensor raises before any library is built."""
+    from repro_torch.kernels.pdx_scan import pdx_prune_scan_multi_geometry
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        pdx_prune_scan_multi_geometry(torch.zeros((1, 8, 16)), dim=8, d_tile=4,
+                                      quantized=False)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("grain", ["lane", "partition"])
+def test_first_vote_blocks_counts_the_plain_walks_survivors(dtype, grain):
+    """``chip_smoke.first_vote_blocks`` (blocks alive after their first
+    d-tile, whose look-ahead copies the bulk body may waste) at one lane a
+    block is the plain walk's lanes alive entering tile 1, and at a whole
+    partition a block its partitions alive entering tile 1."""
+    store, m = _mirror(3, 96, 130, dtype, seed=5)
+    ids = _stage_ids(store, 3)
+    q = torch.from_numpy(np.random.default_rng(6).standard_normal(96).astype(np.float32))
+    sc, off = (m.scale, m.offset) if m.quantized else (None, None)
+    full, _ = tref.pdx_prune_scan_multi_ref(m.data, ids, q, float("inf"), d_tile=16, eps0=2.1,
+                                            scale=sc, offset=off, packed=m.packed, dim=m.dim)
+    thr = torch.sort(full[ids >= 0]).values[40]
+    _, _, walk = tref.pdx_prune_scan_multi_ref(m.data, ids, q, thr, d_tile=16, eps0=2.1,
+                                               scale=sc, offset=off, packed=m.packed,
+                                               dim=m.dim, trace=True)
+    lanes, want = (1, walk.lanes[1]) if grain == "lane" else (130, walk.parts[1])
+    got = _chip_smoke().first_vote_blocks(torch, tref, m, ids, q, thr, 2.1, 16, lanes)
+    assert 0 < got == int(want)
