@@ -65,8 +65,10 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      the collection in the engine's rotated space as one flat (960, 1M)
      f32 PDX block: for 16 single queries K4 (full l2 distances, from which
      the exact k = 10 threshold) then K6 (``ops.pdx_prune_scan_op``), with
-     survivors, recall@10 of the survivors, lanes alive entering each
-     d-tile and K6's time against K4's (the paper's pruned-vs-full); K6 on
+     survivors, recall@10 of the survivors, lanes and 32-byte sectors
+     alive entering each d-tile, K6's time against K4's (the paper's
+     pruned-vs-full), its sweep alone (thr = 0), the survivors its sweep
+     listed and its bound at the lane and the sector level; K6 on
      query 0 also at +inf and the 1 % quantile against its plain version,
      and against K1 on query 0's START partition; K7
      (``ops.batched_distance_op``) for the batch of 64 at f32 and bf16,
@@ -232,11 +234,13 @@ def product_peak(*f32_operands: bool) -> float:
 
 def ptxas_summary(logs: dict) -> dict:
     """Max registers and total spill bytes per library from ``-Xptxas -v``;
-    for the scan library also each K1/K3 kernel's registers, spills and
-    static shared memory (the dynamic ring is in the ``kernel_vs_plain``
-    lines)."""
+    for the scan library also each K1/K3 and K6 kernel's registers, spills
+    and static shared memory (the dynamic ring is in the
+    ``kernel_vs_plain`` lines)."""
     import re
 
+    groups = {"k1_k3_kernels": r"prune_scan_(sweep|tail|multi)_kernel",
+              "k6_kernels": r"prune_(sweep|tail)_kernel"}
     out = {}
     for name, log in logs.items():
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
@@ -244,21 +248,19 @@ def ptxas_summary(logs: dict) -> dict:
             r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
         out[name] = {"kernels": len(regs), "max_registers": max(regs, default=0),
                      "spill_bytes": sum(spills)}
-        scans = []
         for entry in re.split(r"Compiling entry function '", log)[1:]:
             fn = entry.split("'", 1)[0]
             m = re.search(r"Used (\d+) registers", entry)
-            if m is None or not re.search(r"prune_scan_(sweep|tail|multi)_kernel", fn):
+            group = next((g for g, pat in groups.items() if re.search(pat, fn)), None)
+            if m is None or group is None:
                 continue
             sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
             sm = re.search(r"(\d+) bytes smem", entry)
-            short = re.search(r"(prune_scan_\w+?_kernelI.*?)EEv", fn)
-            scans.append({"kernel": short.group(1) if short else fn,
-                          "registers": int(m.group(1)),
-                          "spill_bytes": int(sp.group(1)) + int(sp.group(2)) if sp else 0,
-                          "static_smem_bytes": int(sm.group(1)) if sm else 0})
-        if scans:
-            out[name]["k1_k3_kernels"] = scans
+            short = re.search(r"(prune_\w+?_kernelI.*?)EEv", fn)
+            out[name].setdefault(group, []).append({
+                "kernel": short.group(1) if short else fn, "registers": int(m.group(1)),
+                "spill_bytes": int(sp.group(1)) + int(sp.group(2)) if sp else 0,
+                "static_smem_bytes": int(sm.group(1)) if sm else 0})
     return out
 
 
@@ -341,6 +343,21 @@ def where_time_goes(torch, eng, Q, spec, prefix: str, **tag) -> dict:
                       "top": [{"kernel": k[:80], "ms": ms, "calls": c}
                               for k, ms, c in rows[:8]]}
     return out
+
+
+def kernel_times(torch, fn, reps: int = 5) -> dict:
+    """Device time a call of ``fn`` spends in each kernel (and memset), by
+    name, ms: ``torch.profiler``'s device events over ``reps`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
 
 
 def scan_parity(torch, ref, m, ids, qt, thr, eps0, prefetch: bool = False,
@@ -834,15 +851,21 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
     walk, K6's mask held to it by K1's rule); K6 on query 0 also at +inf
     and at the 1 % quantile, and against K1 on query 0's START partition of
     the engine's f32 mirror (masks equal); K6's time against K4's per query
-    (pruned vs full); K7 against its plain version at K2's tolerance.
-    -> (phase line, kernel rows)."""
+    (pruned vs full), its sweep alone (thr = 0), the survivors its sweep
+    listed, its bound at the lane and the 32-byte-sector level, the
+    tail's gathers a second, and its device time by kernel on query 0; K7
+    against its plain version at K2's tolerance.  -> (phase line, kernel
+    rows)."""
     from repro_torch.core.layout import device_mirror
     from repro_torch.kernels.batched_matmul import batched_distance_cuda
     from repro_torch.kernels.ops import (
         batched_distance_op, pdx_distance_op, pdx_prune_scan_multi_op, pdx_prune_scan_op,
         squared_norms,
     )
-    from repro_torch.kernels.pdx_scan import pdx_distance_cuda, pdx_prune_scan_cuda
+    from repro_torch.kernels.pdx_scan import (
+        pdx_distance_cuda, pdx_prune_scan_cuda, pdx_prune_scan_geometry,
+        pdx_prune_scan_workspace,
+    )
     from repro_torch.obs.meters import tile_widths
 
     pruner = eng.pruner
@@ -875,6 +898,10 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
 
     w = tile_widths(D, 64)
     per_query, k6_ms, k6_plain, k6_bound, k6_err, k6_ok = [], 0.0, 0.0, 0.0, 0.0, True
+    k6_sector, k6_sweep, k6_listed = 0.0, 0.0, 0
+    geo = pdx_prune_scan_geometry(T, d_tile=64)
+    ws = pdx_prune_scan_workspace(n, T.device)
+    zero = torch.zeros((1,), device=T.device)
     k4_ms = cuda_ms(torch, lambda: pdx_distance_cuda(T, Qt[0], "l2"))
     for i, (kd, ka) in enumerate(k6_out):
         q, thr = Qt[i], thrs[i]
@@ -887,21 +914,38 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
         err = float((kd - pd_).abs()[both].max()) if both.any() else 0.0
         ok = margin < 1e-4 and bool(torch.allclose(kd[both], pd_[both], rtol=1e-4, atol=1e-3))
         lanes = walk.lanes.cpu().numpy()
-        # the rows of the lanes alive entering each d-tile, q in, dists and
-        # alive out (no ids: every lane is real); the l2 terms of those lanes
-        nbytes = float((lanes * w).sum()) * 4 + D * 4 + n * (4 + 1)
-        b, k6_by = bound_ms(nbytes, float((lanes * w).sum()) * 3)
-        ms = cuda_ms(torch, lambda: pdx_prune_scan_cuda(T, None, q, thr.reshape(1), d_tile=64,
-                                                        eps0=eps0))
+        sectors = walk.sectors.cpu().numpy()
+        # the rows of the lanes alive entering each d-tile (lane level) or
+        # the 32-byte sectors holding one (sector level: what a gather of
+        # live lanes fetches), q in, dists and alive out (no ids: every lane
+        # is real); the l2 terms of those lanes
+        fixed = D * 4 + n * (4 + 1)
+        flops = float((lanes * w).sum()) * 3
+        b, k6_by = bound_ms(float((lanes * w).sum()) * 4 + fixed, flops)
+        b_sector, _ = bound_ms(float((sectors * w).sum()) * 32 + fixed, flops)
+        thr1 = thr.reshape(1)
+        ms = cuda_ms(torch, lambda: pdx_prune_scan_cuda(T, None, q, thr1, d_tile=64, eps0=eps0,
+                                                        workspace=ws))
+        ms_sweep = cuda_ms(torch, lambda: pdx_prune_scan_cuda(T, None, q, zero, d_tile=64,
+                                                              eps0=eps0, workspace=ws))
+        pdx_prune_scan_cuda(T, None, q, thr1, d_tile=64, eps0=eps0, workspace=ws)
+        listed = int(ws[0])  # the sweep's survivors, the list the tail walks
         plain = cuda_ms(torch, lambda: ref.pdx_prune_scan_ref(T, q, thr, d_tile=64, eps0=eps0))
         alive_ids = set(torch.nonzero(ka).flatten().cpu().tolist())
         rec = len(alive_ids & set(gt[i].tolist())) / K
+        # the tail's rate: one gather a lane alive entering each later
+        # d-tile, for each of the tile's rows, in its time beyond the sweep's
+        gathers = float((lanes[1:] * w[1:]).sum())
         per_query.append({"threshold": float(thr), "survivors": int(ka.sum()),
-                          "recall_at_10": rec, "ms": ms, "pruned_vs_full": k4_ms / ms,
-                          "bound_ms": b, "alive_mismatches": n_mism,
-                          "mismatch_margin_max": margin,
-                          "lanes_per_tile": lanes.tolist()})
+                          "recall_at_10": rec, "ms": ms, "ms_sweep": ms_sweep,
+                          "tail_gathers_per_s": gathers / max(ms - ms_sweep, 1e-6) * 1e3,
+                          "pruned_vs_full": k4_ms / ms, "bound_ms": b,
+                          "bound_ms_sector": b_sector, "survivors_after_tile0": listed,
+                          "alive_mismatches": n_mism, "mismatch_margin_max": margin,
+                          "lanes_per_tile": lanes.tolist(), "sectors_per_tile": sectors.tolist()})
         k6_ms, k6_plain, k6_bound = k6_ms + ms, k6_plain + plain, k6_bound + b
+        k6_sector, k6_sweep = k6_sector + b_sector, k6_sweep + ms_sweep
+        k6_listed += listed
         k6_err, k6_ok = max(k6_err, err), k6_ok and ok
         assert ok, f"flat_scan: K6 disagrees with its plain version on query {i}"
 
@@ -938,6 +982,10 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
     extra["vs_k1_start_partition"] = vs_k1
     assert vs_k1["masks_equal"], f"flat_scan: K6 and K1 disagree on partition {p0}"
 
+    # K6's device time by kernel on query 0: the sweep, the tail, the memset
+    extra["k6_kernels_ms_query0"] = kernel_times(torch, lambda: pdx_prune_scan_cuda(
+        T, None, q0, thrs[0].reshape(1), d_tile=64, eps0=eps0, workspace=ws))
+
     k4_plain = cuda_ms(torch, lambda: ref.pdx_distance_ref(T, q0))
     k4_lib = cuda_ms(torch, library_distance(torch, T.t(), q0, "l2"))
     row_norm = torch.linalg.vector_norm(T, dim=0)
@@ -955,7 +1003,10 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
              "route": "cuda", "source": K6_SOURCE, "replaces": K6_REPLACES,
              "launches": got["k6"], "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain,
              "bound_ms": k6_bound, "bound_by": k6_by, "library_ms": None, "parity": k6_ok,
+             "bound_ms_sector": k6_sector, "ms_sweep": k6_sweep,
+             "survivors_after_tile0": k6_listed, **geo,
              "work": f"sum over the {N_SINGLE} queries of one call each"}]
+    assert geo["body"] == "list" and geo["tail_blocks"] > 0, f"flat_scan: K6 shape {geo}"
 
     # K7: the batch over the block, f32 and bf16 operands, l2 and ip
     k7 = {}
@@ -1001,7 +1052,7 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
             "survivors_median": statistics.median(r["survivors"] for r in per_query),
             "recall_at_10_of_survivors": rec,
             "queries": per_query, "k7": k7, **extra}
-    del T, T16, Q16, k6_out, k7_out
+    del T, T16, Q16, k6_out, k7_out, ws
     torch.cuda.empty_cache()
     return line, rows
 

@@ -93,11 +93,15 @@
 // repro_torch/kernels/ref.py:pdx_distance_ref.  T (D, V) f32 | bf16, q (D,)
 // f32 -> (V,) f32: sum_d (x - q)^2 (l2), sum_d |x - q| (l1) or
 // -sum_d x*q (ip), accumulated in f32.  Bound on an H100: bytes (one read
-// of T, 1-3 flops a value).  Each thread owns 4 consecutive lanes and walks
-// all D rows, so a warp reads 128 consecutive lanes of a row (one 16- or
-// 8-byte vector a thread): loads are coalesced along V, the tile's
-// contiguous axis, and no lane ever needs another's sum (no cross-thread
-// reduction, the point of the layout).  q sits in shared memory.
+// of T, 1-3 flops a value).  Each thread owns kStreamLanes consecutive
+// lanes and walks all D rows (stream_rows), so a warp reads 256
+// consecutive lanes of a row in 16-byte vectors: loads are coalesced along
+// V, the tile's contiguous axis, and no lane ever needs another's sum (no
+// cross-thread reduction, the point of the layout).  The loads of
+// kStreamAhead rows are written before their sums, which run row by row.
+// q sits in shared memory.  Where V is not a multiple of the vector width,
+// or the base is unaligned, the loads are scalar.  The lanes a thread and
+// the rows ahead were chosen by timing candidates on the H100 (PERF.md).
 //
 // K6: one partition's fused L2 scan with the ADSampling test per d-tile.
 //
@@ -107,18 +111,42 @@
 // ids (V,) int32 or null (every lane real), q (D,) f32, thr one f32 on the
 // device -> dists (V,) f32, alive (V,) bool; K1's test, at
 // d_seen = min((t+1) * d_tile, D): the operands are not padded, so every
-// stored dimension is a logical one.
-// The TPU kernel walks the d-tiles of the whole (D, V) partition on one
-// core; here the V lanes are split over blocks of 1024, each running its own
-// d-tile loop.  That changes no output: a dead lane's accumulator is frozen,
-// so which lanes a block skips is invisible.  Bound on an H100: bytes of the
-// rows of the lanes still alive.  Pruned lanes are scattered over V, so a
-// block rarely dies whole (its vote still ends its loop, loads included);
-// what saves bytes is that a thread whose 4 lanes are all dead makes no
-// load, so a 32-byte sector of a row is read only while one of its 8 (f32)
-// lanes lives.  Per tile the sums run in K1's order (same helpers), so on
-// one partition K6 and K1 agree to the last bit or two (the compiler
-// contracts the two loops into FMAs differently).
+// stored dimension is a logical one.  A dead lane keeps its partial
+// distance, a PAD lane (ids < 0) reports 0 and dead.
+// Bound on an H100: bytes, of d-tile 0 over every lane and then of the
+// 32-byte sectors (8 f32 or 16 bf16 lanes of a row) that hold a lane alive
+// entering each later d-tile.  After d-tile 0 only a few percent of the
+// lanes live, scattered over V, so a block of consecutive lanes would walk
+// every d-tile for a handful of them, each thread waiting on its own few
+// rows.  The paper's PDXearch keeps a list of the positions still alive
+// after its warm-up; here that list is built on the card, in a workspace
+// the wrapper allocates (kPrefix).  Three steps on the stream, one
+// wrapper call:
+//   * the workspace's counters are zeroed;
+//   * the sweep of d-tile 0 over all V lanes: K4's streaming body
+//     (stream_rows) with the test after it.  It writes every lane's dists
+//     and alive, and each block writes its surviving lanes, in lane order,
+//     as its segment of the list (a block scan, no atomics); the last block
+//     to finish turns the segments' lengths into offsets;
+//   * where there are more d-tiles, a persistent tail of one block an SM
+//     (the host never reads the list's length).  A warp takes up to 32
+//     consecutive entries (one atomicAdd on the cursor; a binary search of
+//     the offsets, through the read-only cache, finds each entry), so a
+//     warp's lanes are neighbours in V and share DRAM pages and sectors
+//     where they can.  Per d-tile a lane issues that tile's row gathers (up to kGather
+//     in flight) before it sums them, tests, and a lane that died or
+//     finished writes its dists and alive back and takes the warp's next
+//     entry (ballot), so warps stay full as lanes die.  Lanes of one warp
+//     may be at different d-tiles: q sits in shared memory by d-tile, each
+//     padded to a stride of 1 mod 32 words, so their reads hit different
+//     banks.
+// Measured on the H100 (PERF.md): the sweep streams at K4's rate; the tail
+// gathers scattered 32-byte sectors at about a third of the card's
+// streaming rate.
+// Per tile the sums run in K1's order (same term, from 0, rows in order,
+// then into acc) and the test uses the same f32 scalars, so on one
+// partition K6 and K1 give equal masks.  A lane's arithmetic does not
+// depend on which warp takes it, so no output depends on the schedule.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -898,30 +926,142 @@ BulkArgs bulk_args(const float* q, const float* thr, const float* scale, const f
   return a;
 }
 
+// ------------------------------------------- K4 and K6's sweep: streaming rows
+// A streaming thread reads kStreamLanes consecutive lanes of each row (16
+// bytes at bf16, 32 at f32) and issues the loads of kStreamAhead rows
+// before it sums the first.
+constexpr int kStreamLanes = 8;
+constexpr int kStreamAhead = 16;
+
+// The N lanes at p (aligned) of one row as 32-bit words, in 16-byte vectors.
+template <typename T, int N>
+__device__ __forceinline__ void load_words(const T* p, uint32_t w[N * sizeof(T) / 4]) {
+  constexpr int kBytes = N * (int)sizeof(T);
+  static_assert(kBytes % 16 == 0, "whole 16-byte vectors a row");
+#pragma unroll
+  for (int c = 0; c < kBytes / 16; ++c) {
+    const uint4 u = reinterpret_cast<const uint4*>(p)[c];
+    w[4 * c] = u.x;
+    w[4 * c + 1] = u.y;
+    w[4 * c + 2] = u.z;
+    w[4 * c + 3] = u.w;
+  }
+}
+
+// Words of stored values -> the N lanes as floats (bf16: exact, the low
+// half of a word is the lower lane).
+template <typename T, int N>
+__device__ __forceinline__ void words_to_floats(const uint32_t* w, float x[N]) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = __uint_as_float(w[j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) {
+      x[2 * j] = __uint_as_float(w[j] << 16);
+      x[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+    }
+  }
+}
+
+// acc[j] = step(acc[j], x, q_r) over rows [0, rows) of the thread's N lanes
+// [v0, v0 + N), in row order, q_r = sq[r].  `vec`: the N lanes are in
+// range and their row segments aligned to the vector width; else scalar
+// loads (a lane past V reads 0 and is never stored).
+template <typename T, typename Step>
+__device__ __forceinline__ void stream_rows(const T* x, int V, int v0, bool vec, int rows,
+                                            const float* sq, float acc[kStreamLanes], Step step) {
+  constexpr int N = kStreamLanes, kAhead = kStreamAhead;
+  constexpr int kWords = N * (int)sizeof(T) / 4;
+  const int64_t stride = V;
+  const T* p = x + v0;
+  int r = 0;
+  if (vec) {
+    for (; r + kAhead <= rows; r += kAhead, p += kAhead * stride) {
+      uint32_t w[kAhead][kWords];
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) load_words<T, N>(p + k * stride, w[k]);
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k) {
+        float xv[N];
+        words_to_floats<T, N>(w[k], xv);
+        const float qv = sq[r + k];
+#pragma unroll
+        for (int j = 0; j < N; ++j) acc[j] = step(acc[j], xv[j], qv);
+      }
+    }
+    for (; r < rows; ++r, p += stride) {
+      uint32_t w[kWords];
+      load_words<T, N>(p, w);
+      float xv[N];
+      words_to_floats<T, N>(w, xv);
+      const float qv = sq[r];
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[j] = step(acc[j], xv[j], qv);
+    }
+  } else {
+    for (; r < rows; ++r, p += stride) {
+      const float qv = sq[r];
+#pragma unroll
+      for (int j = 0; j < N; ++j) acc[j] = step(acc[j], v0 + j < V ? to_f32(p[j]) : 0.f, qv);
+    }
+  }
+}
+
+// True where a streaming thread's lanes can be read as vectors: the base
+// and every row segment 16-byte aligned.
+template <typename T>
+bool stream_aligned(const void* x, int V) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0 && (int64_t)V * sizeof(T) % 16 == 0;
+}
+
+// The thread's N floats at out + v0, as vectors where all N are in range.
+template <int N>
+__device__ __forceinline__ void store_floats(float* out, int v0, int V, const float v[N]) {
+  if (v0 + N <= V) {
+#pragma unroll
+    for (int c = 0; c < N / 4; ++c) {
+      reinterpret_cast<float4*>(out + v0)[c] =
+          make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      if (v0 + j < V) out[v0 + j] = v[j];
+    }
+  }
+}
+
 // ------------------------------------------------------------------ K4
 template <typename T, int kMetric>
 __global__ void __launch_bounds__(kThreads)
 pdx_distance_kernel(const T* __restrict__ x, const float* __restrict__ q,
-                    float* __restrict__ out, int D, int V) {
+                    float* __restrict__ out, int D, int V, bool aligned) {
+  constexpr int N = kStreamLanes;
   extern __shared__ float sq[];
   for (int i = threadIdx.x; i < D; i += blockDim.x) sq[i] = q[i];
   __syncthreads();
-  const int v0 = (blockIdx.x * blockDim.x + threadIdx.x) * kLanes;
+  const int v0 = (blockIdx.x * blockDim.x + threadIdx.x) * N;
   if (v0 >= V) return;
-  const bool vec = (V % kLanes) == 0;
-  float acc[kLanes] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-  for (int r = 0; r < D; ++r) {
-    float xv[kLanes];
-    load4(x + (int64_t)r * V, v0, V, vec, xv);
-    const float qv = sq[r];
+  float acc[N];
 #pragma unroll
-    for (int j = 0; j < kLanes; ++j) acc[j] += term<kMetric>(xv[j], qv);
-  }
+  for (int j = 0; j < N; ++j) acc[j] = 0.f;
+  stream_rows<T>(x, V, v0, aligned && v0 + N <= V, D, sq, acc,
+                 [](float a, float xv, float qv) { return a + term<kMetric>(xv, qv); });
+  if constexpr (kMetric == kIP) {
 #pragma unroll
-  for (int j = 0; j < kLanes; ++j) {
-    if (v0 + j < V) out[v0 + j] = kMetric == kIP ? -acc[j] : acc[j];
+    for (int j = 0; j < N; ++j) acc[j] = -acc[j];
   }
+  store_floats<N>(out, v0, V, acc);
+}
+
+// Opts `kernel` in to `smem` bytes of dynamic shared memory where that is
+// more than the default 48 KB.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename T, int kMetric>
@@ -929,14 +1069,11 @@ cudaError_t launch_distance(const void* x, const float* q, float* out, int D, in
                             cudaStream_t stream) {
   const size_t smem = (size_t)D * sizeof(float);
   auto kernel = pdx_distance_kernel<T, kMetric>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const int lanes_per_block = kThreads * kLanes;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int lanes_per_block = kThreads * kStreamLanes;
   kernel<<<(V + lanes_per_block - 1) / lanes_per_block, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), q, out, D, V);
+      static_cast<const T*>(x), q, out, D, V, stream_aligned<T>(x, V));
   return cudaGetLastError();
 }
 
@@ -952,69 +1089,333 @@ cudaError_t dispatch_distance(const void* x, const float* q, float* out, int D, 
 }
 
 // ------------------------------------------------------------------ K6
+// The workspace, int32: [0] the list's length, [1] the tail's cursor, [2]
+// the sweep blocks done, then (kPrefix) nb + 1 offsets, entry b the list's
+// entries before segment b, then (list_at) the list: sweep block b's
+// survivors (its segment), in lane order, from b * kSegment.
+constexpr int kPrefix = 3;
+constexpr int kSegment = kThreads * kStreamLanes;  // lanes of a sweep block, a segment
+constexpr int kTailThreads = 128;  // threads of a tail block
+constexpr int kTailBlocksPerSM = 1;  // 4 warps an SM take the list's entries
+constexpr int kGather = 64;        // rows of one lane's gathers in flight
+
+__host__ __device__ constexpr int n_segments(int V) { return (V + kSegment - 1) / kSegment; }
+__host__ __device__ constexpr int64_t list_at(int V) { return kPrefix + n_segments(V) + 1; }
+
+// One row's term of a lane's tile sum, as K1 adds it: (x - q)^2 fused into
+// the sum (the contraction nvcc makes of K1's sq_dev; spelled out so that
+// no select or reordering around it can split the product from the add).
+__device__ __forceinline__ float l2_step(float c, float x, float qv) {
+  const float d = x - qv;
+  return __fmaf_rn(d, d, c);
+}
+
+// The test after a d-tile, K1's scalars: alive while
+// acc * (D / d_seen) <= thr * (1 + eps0 / sqrt(d_seen))^2.
+__device__ __forceinline__ bool keep(float acc, int d_seen, int D, float thr, float eps0) {
+  const float fd = (float)d_seen;
+  const float ratio = (float)D / fd;
+  const float s = 1.f + eps0 / sqrtf(fd);
+  const float bound = thr * (s * s);
+  return acc * ratio <= bound;
+}
+
+// The exclusive prefix of x over the block's threads (in thread order);
+// *total gets the block's sum.  Every thread of the block calls it.
+__device__ __forceinline__ int block_scan(int x, int* total) {
+  __shared__ int warp_total[kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  int incl = x;  // inclusive prefix over the warp's threads
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    before += w < warp ? warp_total[w] : 0;
+    sum += warp_total[w];
+  }
+  __syncthreads();  // warp_total is free for the next call
+  *total = sum;
+  return before + incl - x;
+}
+
+// Writes the block's live lanes (the thread's N lanes from v0) as its
+// segment of the list, in lane order, and its length as offset b + 1; the
+// last block to finish turns the lengths into the offsets and sets the
+// list's length.  Every thread of the block calls it.
+template <int N>
+__device__ __forceinline__ void append_survivors(const bool live[N], int v0, int V, int* ws) {
+  __shared__ bool last;
+  int mine = 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) mine += live[j];
+  int total = 0;
+  int pos = blockIdx.x * kSegment + block_scan(mine, &total);
+  int* list = ws + list_at(V);
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (live[j]) list[pos++] = v0 + j;
+  }
+  int* offsets = ws + kPrefix;
+  if (threadIdx.x == 0) {
+    offsets[blockIdx.x + 1] = total;
+    __threadfence();  // the length is visible before the block counts as done
+    last = atomicAdd(ws + 2, 1) == (int)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // every block's length is in: offsets[b] = lengths before b, in place
+  __threadfence();
+  int carry = 0;
+  for (int b0 = 0; b0 < (int)gridDim.x; b0 += kThreads) {
+    const int b = b0 + threadIdx.x;
+    const int len = b < (int)gridDim.x ? __ldcg(offsets + b + 1) : 0;
+    int chunk = 0;
+    const int before = block_scan(len, &chunk);
+    if (b < (int)gridDim.x) offsets[b + 1] = carry + before + len;
+    carry += chunk;
+  }
+  if (threadIdx.x == 0) {
+    offsets[0] = 0;
+    ws[0] = carry;
+  }
+}
+
+// The sweep: d-tile 0 (`rows` rows) of every lane, K4's streaming body;
+// writes every lane's dists and alive and appends the survivors.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-prune_scan_kernel(const T* __restrict__ x, const int* __restrict__ ids,
-                  const float* __restrict__ q, const float* __restrict__ thr_ptr,
-                  float* __restrict__ dists, bool* __restrict__ alive_out, int D, int V,
-                  int d_tile, float eps0) {
+prune_sweep_kernel(const T* __restrict__ x, const int* __restrict__ ids,
+                   const float* __restrict__ q, const float* __restrict__ thr_ptr,
+                   float* __restrict__ dists, bool* __restrict__ alive_out, int* __restrict__ ws,
+                   int D, int V, int rows, float eps0, bool aligned) {
+  constexpr int N = kStreamLanes;
   extern __shared__ float sq[];
-  for (int i = threadIdx.x; i < D; i += blockDim.x) sq[i] = q[i];
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) sq[i] = q[i];
   __syncthreads();
-  const int v0 = (blockIdx.x * blockDim.x + threadIdx.x) * kLanes;
-  float acc[kLanes];
-  bool live[kLanes];
+  const int v0 = (blockIdx.x * blockDim.x + threadIdx.x) * N;
+  float acc[N];
+  bool live[N];
+  bool any = false;
 #pragma unroll
-  for (int j = 0; j < kLanes; ++j) {
+  for (int j = 0; j < N; ++j) {
     acc[j] = 0.f;
-    live[j] = (v0 + j < V) && (ids == nullptr || ids[v0 + j] >= 0);
+    live[j] = v0 + j < V && (ids == nullptr || ids[v0 + j] >= 0);
+    any |= live[j];
   }
-  const bool vec = (V % kLanes) == 0;
-  const float thr = *thr_ptr;
-  for (int r0 = 0; r0 < D; r0 += d_tile) {
-    const int d_seen = min(r0 + d_tile, D);
-    float c[kLanes] = {0.f, 0.f, 0.f, 0.f};
-    if (live[0] | live[1] | live[2] | live[3]) {  // a dead thread loads nothing
-      tile_sum(x, r0, d_seen, V, v0, vec, sq, sq, sq, false, c);
-    }
-    const float fd = (float)d_seen;
-    const float ratio = (float)D / fd;
-    const float s = 1.f + eps0 / sqrtf(fd);
-    const float bound = thr * (s * s);
-    int any = 0;
+  if (any) {  // a thread of PAD lanes reads nothing
+    float c[N];
 #pragma unroll
-    for (int j = 0; j < kLanes; ++j) {
+    for (int j = 0; j < N; ++j) c[j] = 0.f;
+    stream_rows<T>(x, V, v0, aligned && v0 + N <= V, rows, sq, c,
+                   [](float a, float xv, float qv) { return l2_step(a, xv, qv); });
+    const float thr = *thr_ptr;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
       if (live[j]) {
         acc[j] += c[j];
-        live[j] = acc[j] * ratio <= bound;
+        live[j] = keep(acc[j], rows, D, thr, eps0);
       }
-      any |= live[j];
     }
-    if (!__syncthreads_or(any)) break;  // no lane of this block alive
   }
+  if (v0 < V) {
+    store_floats<N>(dists, v0, V, acc);
+    if (v0 + N <= V) {
 #pragma unroll
-  for (int j = 0; j < kLanes; ++j) {
-    if (v0 + j < V) {
-      dists[v0 + j] = acc[j];
-      alive_out[v0 + j] = live[j];
+      for (int c = 0; c < N / 4; ++c) {
+        reinterpret_cast<uchar4*>(alive_out + v0)[c] =
+            make_uchar4(live[4 * c], live[4 * c + 1], live[4 * c + 2], live[4 * c + 3]);
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        if (v0 + j < V) alive_out[v0 + j] = live[j];
+      }
+    }
+  }
+  append_survivors<N>(live, v0, V, ws);
+}
+
+// The segment holding list entry i: the last b < nb with offsets[b] <= i
+// (offsets[0] = 0 <= i < offsets[nb], the list's length).  The sweep wrote
+// the offsets before this launch, so they go through the read-only cache.
+__device__ __forceinline__ int segment_of(const int* offsets, int nb, int i) {
+  int lo = 0, hi = nb;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (__ldg(offsets + mid) <= i) {
+      lo = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// The tail: d-tiles 1.. of the listed lanes, one lane a thread.  A warp
+// takes up to 32 consecutive entries of the list (the cursor; neighbours
+// in lane order), each lane resuming from the sweep's dists; per d-tile a
+// lane loads up to kGather rows before it sums them (K1's order: from 0,
+// row by row, then into acc), tests, and a lane that died or finished
+// writes its dists and alive and takes the warp's next entry.  Shared
+// memory: q by d-tile (dim d_lo + k of tile t at t * q_stride + k).
+template <typename T>
+__global__ void __launch_bounds__(kTailThreads)
+prune_tail_kernel(const T* __restrict__ x, const float* __restrict__ q,
+                  const float* __restrict__ thr_ptr, float* __restrict__ dists,
+                  bool* __restrict__ alive_out, int* __restrict__ ws, int D, int V, int d_tile,
+                  int q_stride, float eps0) {
+  extern __shared__ float sq[];
+  const int count = ws[0];
+  if (count == 0) return;  // block-uniform: nothing survived d-tile 0
+  const int n_tiles = (D + d_tile - 1) / d_tile;
+  const int nb = n_segments(V);
+  for (int i = threadIdx.x; i < D; i += blockDim.x) sq[(i / d_tile) * q_stride + i % d_tile] = q[i];
+  __syncthreads();
+  const int* offsets = ws + kPrefix;
+  const float thr = *thr_ptr;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int* cursor = ws + 1;
+  const int* list = ws + list_at(V);
+  int v = -1, t = 0;  // the lane's entry (-1: none) and its next d-tile
+  float acc = 0.f;
+  bool more = true;   // the list may hold entries not yet taken (warp-uniform)
+  while (true) {
+    if (more) {
+      const unsigned empty = __ballot_sync(0xFFFFFFFFu, v < 0);
+      const int n = __popc(empty);
+      if (n > 0) {
+        int base = 0;
+        if (lane == 0) base = atomicAdd(cursor, n);
+        base = __shfl_sync(0xFFFFFFFFu, base, 0);
+        const int i = base + __popc(empty & below);  // to the empty lanes in order
+        if (v < 0 && i < count) {
+          const int b = segment_of(offsets, nb, i);
+          v = list[(int64_t)b * kSegment + i - __ldg(offsets + b)];
+          acc = dists[v];
+          t = 1;
+        }
+        more = base + n < count;
+      }
+    }
+    if (__ballot_sync(0xFFFFFFFFu, v >= 0) == 0u) break;
+    if (v >= 0) {
+      const int r0 = t * d_tile, r1 = min(r0 + d_tile, D);
+      const float* qt = sq + t * q_stride - r0;  // qt[r], r in [r0, r1)
+      float c = 0.f;
+      for (int i0 = r0; i0 < r1; i0 += kGather) {
+        // every load unconditional (rows past the tile repeat its last
+        // one), so the compiler issues all kGather before the first sum;
+        // loads under `k < n` came out interleaved with the sums
+        const int n = min(kGather, r1 - i0);
+        const T* p = x + (int64_t)i0 * V + v;
+        float xv[kGather];
+#pragma unroll
+        for (int k = 0; k < kGather; ++k) xv[k] = to_f32(p[(int64_t)min(k, n - 1) * V]);
+#pragma unroll
+        for (int k = 0; k < kGather; ++k) {
+          const float qv = qt[i0 + min(k, n - 1)];
+          c = k < n ? l2_step(c, xv[k], qv) : c;
+        }
+      }
+      acc += c;
+      const bool ok = keep(acc, r1, D, thr, eps0);
+      if (!ok || ++t == n_tiles) {
+        dists[v] = acc;
+        alive_out[v] = ok;
+        v = -1;
+      }
     }
   }
 }
 
+// K6's launch shape, one rule for the launch and pdx_prune_scan_geometry.
+struct PruneGeometry {
+  int rows0;          // rows of d-tile 0
+  int sweep_blocks;
+  int tail_blocks;    // 0 where D fits one d-tile
+  int q_stride;       // words of a d-tile's q in the tail's table
+  size_t smem_sweep, smem_tail;
+};
+
+// What K6's launch of T asks of the runtime, kept per device so that a
+// later call asks it nothing: the SMs, and the dynamic shared memory each
+// kernel was opted in to so far (48 KB needs no opt-in).
+struct PruneDevice {
+  int device, sms;
+  size_t sweep_smem, tail_smem;
+};
+
+// The current device's SMs, with both K6 kernels of T opted in to at least
+// g's shared memory there.
+template <typename T>
+cudaError_t prune_device(const PruneGeometry& g, int* sms) {
+  static std::mutex mu;
+  static std::vector<PruneDevice> seen;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  PruneDevice* e = nullptr;
+  for (PruneDevice& d : seen) {
+    if (d.device == device) e = &d;
+  }
+  if (e == nullptr) {
+    int n = 0;
+    if ((err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) {
+      return err;
+    }
+    seen.push_back({device, n, 48 * 1024, 48 * 1024});
+    e = &seen.back();
+  }
+  if (g.smem_sweep > e->sweep_smem) {
+    if ((err = allow_smem(prune_sweep_kernel<T>, g.smem_sweep)) != cudaSuccess) return err;
+    e->sweep_smem = g.smem_sweep;
+  }
+  if (g.smem_tail > e->tail_smem) {
+    if ((err = allow_smem(prune_tail_kernel<T>, g.smem_tail)) != cudaSuccess) return err;
+    e->tail_smem = g.smem_tail;
+  }
+  *sms = e->sms;
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t prune_plan(int D, int V, int d_tile, PruneGeometry* g) {
+  const int n_tiles = (D + d_tile - 1) / d_tile;
+  g->rows0 = std::min(d_tile, D);
+  g->sweep_blocks = n_segments(V);
+  g->q_stride = d_tile % 32 == 0 ? d_tile + 1 : d_tile;
+  g->smem_sweep = (size_t)g->rows0 * sizeof(float);
+  g->smem_tail = (size_t)n_tiles * g->q_stride * sizeof(float);
+  int sms = 0;
+  const cudaError_t err = prune_device<T>(*g, &sms);
+  g->tail_blocks = n_tiles > 1 ? kTailBlocksPerSM * sms : 0;
+  return err;
+}
+
 template <typename T>
 cudaError_t launch_prune(const void* x, const int* ids, const float* q, const float* thr,
-                         float* dists, bool* alive, int D, int V, int d_tile, float eps0,
-                         cudaStream_t stream) {
-  const size_t smem = (size_t)D * sizeof(float);
-  auto kernel = prune_scan_kernel<T>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
+                         float* dists, bool* alive, int* ws, int D, int V, int d_tile,
+                         float eps0, cudaStream_t stream) {
+  PruneGeometry g;
+  cudaError_t err = prune_plan<T>(D, V, d_tile, &g);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaMemsetAsync(ws, 0, kPrefix * sizeof(int), stream)) != cudaSuccess) return err;
+  const T* xt = static_cast<const T*>(x);
+  prune_sweep_kernel<T><<<g.sweep_blocks, kThreads, g.smem_sweep, stream>>>(
+      xt, ids, q, thr, dists, alive, ws, D, V, g.rows0, eps0, stream_aligned<T>(x, V));
+  if (g.tail_blocks > 0) {
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    prune_tail_kernel<T><<<g.tail_blocks, kTailThreads, g.smem_tail, stream>>>(
+        xt, q, thr, dists, alive, ws, D, V, d_tile, g.q_stride, eps0);
   }
-  const int lanes_per_block = kThreads * kLanes;
-  kernel<<<(V + lanes_per_block - 1) / lanes_per_block, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), ids, q, thr, dists, alive, D, V, d_tile, eps0);
   return cudaGetLastError();
 }
 
@@ -1083,19 +1484,55 @@ extern "C" int pdx_distance(const void* x, int dtype, const float* q, float* out
   }
 }
 
-// K6.  dtype: 0 f32, 1 bf16; ids may be null (every lane real).
+// Bytes of K6's workspace for V lanes: the list's length, the tail's
+// cursor, the sweep's done count, the segments' offsets and the list
+// (int32 each; see kPrefix); -1 where that passes 2^31.
+extern "C" int pdx_prune_scan_workspace_bytes(int V) {
+  const int64_t bytes = (list_at(V) + V) * (int64_t)sizeof(int);
+  return bytes > INT32_MAX ? -1 : (int)bytes;
+}
+
+// K6.  dtype: 0 f32, 1 bf16; ids may be null (every lane real); workspace:
+// pdx_prune_scan_workspace_bytes(V) bytes on the device, any contents.
+// After the call workspace[0] (int32) is the lanes alive after d-tile 0,
+// and the list holds them (kPrefix).
 extern "C" int pdx_prune_scan(const void* x, int dtype, const int* ids, const float* q,
-                              const float* thr, float* dists, bool* alive, int D, int V,
-                              int d_tile, float eps0, void* stream) {
+                              const float* thr, float* dists, bool* alive, void* workspace, int D,
+                              int V, int d_tile, float eps0, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* ws = static_cast<int*>(workspace);
   switch (dtype) {
     case 0:
-      return launch_prune<float>(x, ids, q, thr, dists, alive, D, V, d_tile, eps0, s);
+      return launch_prune<float>(x, ids, q, thr, dists, alive, ws, D, V, d_tile, eps0, s);
     case 1:
-      return launch_prune<__nv_bfloat16>(x, ids, q, thr, dists, alive, D, V, d_tile, eps0, s);
+      return launch_prune<__nv_bfloat16>(x, ids, q, thr, dists, alive, ws, D, V, d_tile, eps0,
+                                         s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// K6's launch shape for a (D, V) partition (dtype as above) at d_tile, by
+// the rule the launch follows; launches nothing.  out[0] lanes a sweep
+// thread; out[1] sweep blocks; out[2] tail blocks (0: no tail); out[3]
+// tail threads a block; out[4], out[5] dynamic shared memory of a sweep and
+// a tail block, bytes; out[6] rows a tail lane gathers at once; out[7]
+// lanes of a sweep block (a segment of the list).
+extern "C" int pdx_prune_scan_geometry(int dtype, int D, int V, int d_tile, int* out) {
+  PruneGeometry g{};
+  cudaError_t err = dtype == 0   ? prune_plan<float>(D, V, d_tile, &g)
+                    : dtype == 1 ? prune_plan<__nv_bfloat16>(D, V, d_tile, &g)
+                                 : cudaErrorInvalidValue;
+  if (err != cudaSuccess) return (int)err;
+  out[0] = kStreamLanes;
+  out[1] = g.sweep_blocks;
+  out[2] = g.tail_blocks;
+  out[3] = kTailThreads;
+  out[4] = (int)g.smem_sweep;
+  out[5] = (int)g.smem_tail;
+  out[6] = kGather;
+  out[7] = kSegment;
+  return 0;
 }
 
 extern "C" const char* pdx_scan_error_string(int code) {

@@ -16,10 +16,16 @@ All bind ``csrc/pdx_scan.cu``:
   launch also returns ``streamed``, the d-tiles each partition fetched.
 
   ``pdx_distance_cuda`` (K4, replacing ``pdx_distance_pallas``): the
-  paper's PDX kernel, a plain (D, V) distance scan (l2, ip, l1).
+  paper's PDX kernel, a plain (D, V) distance scan (l2, ip, l1), each
+  thread streaming its lanes down the rows with many loads in flight.
 
   ``pdx_prune_scan_cuda`` (K6, replacing ``pdx_prune_scan_pallas``): one
-  (D, V) partition's fused L2 scan with the ADSampling test per d-tile.
+  (D, V) partition's fused L2 scan with the ADSampling test per d-tile,
+  as two launches: a sweep of d-tile 0 over every lane (K4's streaming
+  body) that appends the survivors to a list in a workspace
+  (``pdx_prune_scan_workspace``), then a persistent tail over the list
+  whose warps gather only live lanes, a whole d-tile in flight
+  (``pdx_prune_scan_geometry`` gives the launch shape).
 
 Callers go through ``kernels.ops``, which pads operands and dispatches by
 device; these wrappers take CUDA tensors only and raise on anything else.
@@ -28,6 +34,7 @@ Each counts its kernel launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -40,6 +47,8 @@ __all__ = [
     "pdx_prune_scan_multi_geometry",
     "pdx_distance_cuda",
     "pdx_prune_scan_cuda",
+    "pdx_prune_scan_workspace",
+    "pdx_prune_scan_geometry",
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3}
@@ -182,6 +191,48 @@ def pdx_distance_cuda(T: torch.Tensor, q: torch.Tensor, metric: str) -> torch.Te
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _workspace_bytes(V: int) -> int:
+    n = bind("pdx_scan", "pdx_prune_scan_workspace_bytes", "i")(V)
+    if n < 0:
+        raise ValueError(f"a partition of {V} lanes is too wide for one launch")
+    return n
+
+
+def pdx_prune_scan_workspace(V: int, device) -> torch.Tensor:
+    """K6's workspace for a partition of V lanes, int32 on ``device``.
+    After a call: [0] the lanes alive after d-tile 0, [1] the tail's
+    cursor, [2] the sweep's blocks done, [3:3 + nb + 1] the list's offsets
+    (nb: ``pdx_prune_scan_geometry``'s ``sweep_blocks``; entry b the
+    survivors before segment b), then the list: segment b, the survivors
+    among the ``segment_lanes`` lanes from b * segment_lanes in lane order,
+    at that index.  Its contents on entry do not matter."""
+    return torch.empty(_workspace_bytes(V) // 4, dtype=torch.int32, device=device)
+
+
+def pdx_prune_scan_geometry(T: torch.Tensor, *, d_tile: int) -> dict:
+    """K6's launch shape for the (D, V) partition ``T`` at ``d_tile``, from
+    the library's own rule; launches nothing.  ``body`` is "list": a sweep
+    of d-tile 0 (``sweep_blocks`` blocks, ``lanes_per_thread`` lanes a
+    thread) that appends the survivors to the workspace's list, then, where
+    D spans more than one d-tile, a tail of ``tail_blocks`` blocks (one an
+    SM) of ``tail_threads`` over the list, a lane gathering up to
+    ``gather_rows`` rows at once; shared memory is per block.  A sweep
+    block's ``segment_lanes`` lanes give one segment of the list."""
+    _check(T, "T")
+    if T.dtype not in (torch.float32, torch.bfloat16) or T.ndim != 2:
+        raise ValueError(f"T must be a (D, V) f32 or bf16 tile, got {T.dtype} {tuple(T.shape)}")
+    D, V = T.shape
+    out = (ctypes.c_int * 8)()
+    fn = bind("pdx_scan", "pdx_prune_scan_geometry", "iiiip")
+    rc = fn(_DTYPE_CODES[T.dtype], D, V, d_tile, ctypes.addressof(out))
+    check_launch("pdx_scan", "pdx_prune_scan_geometry", rc)
+    return {"body": "list", "lanes_per_thread": out[0], "sweep_blocks": out[1],
+            "tail_blocks": out[2], "tail_threads": out[3], "smem_bytes_sweep": out[4],
+            "smem_bytes_tail": out[5], "gather_rows": out[6], "segment_lanes": out[7],
+            "workspace_bytes": _workspace_bytes(V)}
+
+
 def pdx_prune_scan_cuda(
     T: torch.Tensor,
     ids: Optional[torch.Tensor],
@@ -190,11 +241,14 @@ def pdx_prune_scan_cuda(
     *,
     d_tile: int,
     eps0: float,
+    workspace: Optional[torch.Tensor] = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(D, V) f32/bf16 partition, (V,) int32 ids or None (every lane
     real), (D,) f32 query, (1,) f32 thr on the device -> (dists (V,) f32,
     alive (V,) bool).  The test divides by D: the operands are not padded,
-    so every stored dimension is a logical one."""
+    so every stored dimension is a logical one.  ``workspace``
+    (``pdx_prune_scan_workspace(V, device)``) holds the survivor list; one
+    is allocated where none is given."""
     _check(T, "T")
     if T.dtype not in (torch.float32, torch.bfloat16) or T.ndim != 2:
         raise ValueError(f"T must be a (D, V) f32 or bf16 tile, got {T.dtype} {tuple(T.shape)}")
@@ -205,12 +259,19 @@ def pdx_prune_scan_cuda(
         _check(ids, "ids", torch.int32, (V,))
     _check(q, "q", torch.float32, (D,))
     _check(thr, "thr", torch.float32, (1,))
+    n = _workspace_bytes(V) // 4
+    if workspace is None:
+        workspace = torch.empty(n, dtype=torch.int32, device=T.device)
+    _check(workspace, "workspace", torch.int32)
+    if workspace.numel() < n or workspace.device != T.device:
+        raise ValueError(f"workspace must hold {n} int32 on {T.device}")
     dists = torch.empty((V,), dtype=torch.float32, device=T.device)
     alive = torch.empty((V,), dtype=torch.bool, device=T.device)
-    fn = bind("pdx_scan", "pdx_prune_scan", "pipppppiiifp")
+    fn = bind("pdx_scan", "pdx_prune_scan", "pippppppiiifp")
     rc = fn(T.data_ptr(), _DTYPE_CODES[T.dtype], None if ids is None else ids.data_ptr(),
-            q.data_ptr(), thr.data_ptr(), dists.data_ptr(), alive.data_ptr(), D, V, d_tile,
-            float(eps0), torch.cuda.current_stream(T.device).cuda_stream)
+            q.data_ptr(), thr.data_ptr(), dists.data_ptr(), alive.data_ptr(),
+            workspace.data_ptr(), D, V, d_tile, float(eps0),
+            torch.cuda.current_stream(T.device).cuda_stream)
     check_launch("pdx_scan", "pdx_prune_scan", rc)
     pdx_prune_scan_cuda.launches += 1
     return dists, alive

@@ -150,11 +150,17 @@ class ScanTrace(NamedTuple):
     over the d-tiles it entered alive — how close its keep test came to
     the bound (a kernel that sums in another order may decide a lane
     differently only where this is tiny).  ``lanes`` / ``parts``
-    (n_tiles,): lanes and partitions alive entering each d-tile."""
+    (n_tiles,): lanes and partitions alive entering each d-tile.
+    ``sectors`` (n_tiles,): the 32-byte sectors of a stored row (runs of
+    ``32 // element size`` lanes from each partition's lane 0: 8 f32, 16
+    bf16, 32 int8 or packed int4 lanes) that hold a lane alive entering
+    each d-tile — what a kernel reading only live lanes still fetches
+    (the partition scans' walk only)."""
 
     margin: torch.Tensor
     lanes: torch.Tensor
     parts: torch.Tensor
+    sectors: Optional[torch.Tensor] = None
 
 
 def pdx_prune_scan_ref(
@@ -183,7 +189,7 @@ def pdx_prune_scan_ref(
     acc, alive, _, walk = _multi_walk(T[None], torch.as_tensor(ids)[None], q, thr, d_tile,
                                       eps0, None, None, False, None, trace)
     if trace:
-        return acc[0], alive[0], ScanTrace(walk.margin[0], walk.lanes, walk.parts)
+        return acc[0], alive[0], walk._replace(margin=walk.margin[0])
     return acc[0], alive[0]
 
 
@@ -306,6 +312,7 @@ def batched_cascade_stage_ref(
 
 def _multi_walk(T, ids, q, thr, d_tile, eps0, scale, offset, packed, dim, trace):
     """The d-tile walk both scans share -> (acc, alive, streamed, trace)."""
+    per_sector = 32 // T.element_size()
     T32 = dequantize_ref(T, scale, offset, dim_axis=1, packed=packed, dim=dim)
     P, D, V = T32.shape
     q32 = torch.as_tensor(q, dtype=torch.float32, device=T32.device)
@@ -314,7 +321,7 @@ def _multi_walk(T, ids, q, thr, d_tile, eps0, scale, offset, packed, dim, trace)
     alive = (torch.as_tensor(ids, device=T32.device) >= 0).to(torch.float32)
     streamed = torch.zeros((P,), dtype=torch.float32, device=T32.device)
     margin = torch.full((P, V), float("inf"), device=T32.device) if trace else None
-    lanes, parts = [], []
+    lanes, parts, sectors = [], [], []
     d_seen = 0
     while d_seen < D:
         hi = min(d_seen + d_tile, D)
@@ -323,6 +330,7 @@ def _multi_walk(T, ids, q, thr, d_tile, eps0, scale, offset, packed, dim, trace)
         if trace:
             lanes.append(torch.sum(alive))
             parts.append(torch.sum(reached))
+            sectors.append(_sectors(alive > 0, per_sector))
         blk = T32[:, d_seen:hi, :] - q32[None, d_seen:hi, None]
         contrib = torch.sum(blk * blk, dim=1)
         acc = acc + contrib * alive
@@ -333,8 +341,17 @@ def _multi_walk(T, ids, q, thr, d_tile, eps0, scale, offset, packed, dim, trace)
             margin = torch.where(alive > 0,
                                  torch.minimum(margin, (lhs / bound - 1).abs()), margin)
         alive = alive * (lhs <= bound).to(torch.float32)
-    walk = ScanTrace(margin, torch.stack(lanes), torch.stack(parts)) if trace else None
+    walk = (ScanTrace(margin, torch.stack(lanes), torch.stack(parts), torch.stack(sectors))
+            if trace else None)
     return acc, alive, streamed, walk
+
+
+def _sectors(alive: torch.Tensor, per_sector: int) -> torch.Tensor:
+    """Runs of ``per_sector`` lanes, from lane 0 of each row of the (P, V)
+    bool ``alive`` (the last run may be short), holding a live lane."""
+    P, V = alive.shape
+    pad = torch.nn.functional.pad(alive.to(torch.float32), (0, -V % per_sector))
+    return torch.sum(torch.any(pad.reshape(P, -1, per_sector) > 0, dim=2))
 
 
 # The test's scalars, rounded as the reference rounds them: every operand

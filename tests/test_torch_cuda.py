@@ -20,12 +20,17 @@ Tolerances (the kernels sum in another order and contract to FMA):
   * K6: K1's rule; on one partition K6 and K1 give equal masks and dists
     within rtol 1e-6 (the same sums in the same order; the compiler
     contracts them into FMAs differently, so the last bit may differ).
+    Its sweep's survivor list holds exactly the plain walk's lanes after
+    d-tile 0 at thr = 0 and +inf, and two calls on one workspace give
+    equal outputs bit for bit.
   * K7: K2's bound.
   * Near ties (``tests/test_torch_near_tie.py``): columns whose exact l2
     distances differ by about 1e-6 relative, which plain TF32 orders
     wrongly: K2 (f32, bf16, int8) and K7 (f32, bf16 tiles) order every
     column of every query as the plain f32 version does.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -49,9 +54,11 @@ from repro_torch.kernels.ops import (
 from repro_torch.kernels.pdx_scan import (
     pdx_distance_cuda,
     pdx_prune_scan_cuda,
+    pdx_prune_scan_geometry,
     pdx_prune_scan_multi_cuda,
     pdx_prune_scan_multi_geometry,
     pdx_prune_scan_multi_prefetch_cuda,
+    pdx_prune_scan_workspace,
 )
 
 from test_torch_near_tie import NEAR_TIE_DTYPES, near_tie_case
@@ -518,9 +525,12 @@ def _randn(shape, seed, dev, dtype=torch.float32):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("metric", ["l2", "ip", "l1"])
-@pytest.mark.parametrize("D,V", [(8, 64), (33, 130), (130, 33), (960, 2050), (1536, 4096)])
+@pytest.mark.parametrize("D,V", [(8, 64), (33, 130), (130, 33), (960, 2050), (1536, 4096),
+                                 (64, 1028), (96, 4100), (200, 100), (17, 3), (50, 1021)])
 def test_k4_matches_plain(dev, D, V, metric, dtype):
-    """V % 4 != 0 takes the scalar loads; D = 1536 keeps q in 6 KB of
+    """V % 4 != 0 takes the scalar loads (a thread's lanes at the ragged
+    end too, where V is not a multiple of the lanes a thread: 1028, 4100);
+    V = 100 and 3 are less than one block; D = 1536 keeps q in 6 KB of
     shared memory."""
     T = _randn((D, V), D + V, dev, dtype)
     q = _randn((D,), D, dev, dtype)
@@ -529,6 +539,23 @@ def test_k4_matches_plain(dev, D, V, metric, dtype):
     assert pdx_distance_cuda.launches == n0 + 1
     assert got.dtype == torch.float32 and got.shape == (V,)
     torch.testing.assert_close(got, ref.pdx_distance_ref(T, q, metric), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_unaligned_base_takes_scalar_loads(dev, dtype):
+    """A (D, V) view 4 bytes (2 at bf16) past an aligned base, V % 8 == 0:
+    its rows are not 16-byte aligned, so the kernel must not read them as
+    vectors."""
+    D, V = 96, 2048
+    flat = _randn((D * V + 1,), 3, dev, dtype)
+    T = flat[1:].view(D, V)
+    q = _randn((D,), 4, dev)
+    for metric in ("l2", "ip", "l1"):
+        torch.testing.assert_close(pdx_distance_op(T, q, metric),
+                                   ref.pdx_distance_ref(T, q, metric), rtol=1e-5, atol=1e-4)
+    kd, ka = pdx_prune_scan_op(T, q, float("inf"), eps0=2.1)
+    assert bool(ka.all())
+    torch.testing.assert_close(kd, ref.pdx_distance_ref(T, q), rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -594,16 +621,35 @@ def test_k7_orders_near_ties_as_plain_f32(dev, dtype):
     _order_matches(got, ref.batched_distance_ref(T, Q, "l2"), pairs)
 
 
+@functools.lru_cache(maxsize=1)
+def _clustered(D, V):
+    """(V, D) clustered rows and one query, ``make_dataset``'s mixture:
+    lanes of one cluster are scattered over V, as on the flat block."""
+    X, Q = make_dataset(V, D, "clustered", n_queries=1, seed=D + V)
+    return X, Q[0]
+
+
+CLUSTERED_V = 131_072
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("thr_kind", ["k11", "q1", "zero", "inf"])
 @pytest.mark.parametrize("D,V,d_tile,pad", [(96, 130, 64, True), (33, 1030, 16, False),
-                                            (960, 2050, 64, True), (64, 5000, 32, True)])
+                                            (960, 2050, 64, True), (64, 5000, 32, True),
+                                            (128, 4099, 32, True), (320, CLUSTERED_V, 64, True)])
 def test_k6_matches_plain(dev, D, V, d_tile, pad, thr_kind, dtype):
     """K6 through its op against the plain scan: PAD lanes start dead, the
     last d-tile may be clipped, V spreads over several blocks; K1's rule
-    for the masks and dists."""
-    T = _randn((D, V), D * V, dev, dtype)
-    q = _randn((D,), D + 1, dev)
+    for the masks and dists.  V = CLUSTERED_V takes clustered data, whose
+    survivors after d-tile 0 are scattered over many warps and blocks of
+    the sweep, so the tail gathers lanes far apart."""
+    if V == CLUSTERED_V:
+        X, qn = _clustered(D, V)
+        T = torch.from_numpy(np.ascontiguousarray(X.T)).to(dev).to(dtype)
+        q = torch.from_numpy(qn).to(dev)
+    else:
+        T = _randn((D, V), D * V, dev, dtype)
+        q = _randn((D,), D + 1, dev)
     ids = None
     if pad:
         ids = torch.arange(V, dtype=torch.int32, device=dev)
@@ -647,3 +693,111 @@ def test_k6_equals_k1_on_one_partition(dev, thr_kind):
     kd1, ka1 = pdx_prune_scan_multi_op(store.data[1:2], store.ids[1:2], q, thr, eps0=2.1)
     assert torch.equal(ka6, ka1[0])
     torch.testing.assert_close(kd6, kd1[0], rtol=1e-6, atol=1e-5)
+
+
+def _k6_case(D, V, dtype, dev, seed=0):
+    """A (D, V) partition of standard normal rows, a query, PAD lanes at 0,
+    5, V // 2 and the last 7, and the plain full distances."""
+    T = _randn((D, V), seed + D * V, dev, dtype)
+    q = _randn((D,), seed + D + 1, dev)
+    ids = torch.arange(V, dtype=torch.int32, device=dev)
+    ids[[0, 5, V // 2]] = -1
+    ids[-7:] = -1
+    return T, q, ids, ref.pdx_distance_ref(T, q)
+
+
+def _k6_vs_plain(T, q, ids, thr, d_tile, workspace=None):
+    """K6 (the wrapper, on ``workspace`` if given) held to the plain scan by
+    K1's rule -> (dists, alive, the plain walk)."""
+    thr_t = torch.as_tensor(thr, dtype=torch.float32, device=T.device).reshape(1)
+    kd, ka = pdx_prune_scan_cuda(T, ids, q, thr_t, d_tile=d_tile, eps0=2.1, workspace=workspace)
+    pd_, pa, walk = ref.pdx_prune_scan_ref(T, q, thr_t[0], d_tile=d_tile, eps0=2.1, ids=ids,
+                                           trace=True)
+    pa = pa != 0
+    assert not ka[ids < 0].any()
+    mism = ka != pa
+    if mism.any():
+        assert float(walk.margin[mism].max()) < 1e-4
+    both = ka & pa
+    torch.testing.assert_close(kd[both], pd_[both], rtol=1e-4, atol=1e-3)
+    return kd, ka, walk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("thr_kind", ["inf", "q30"])
+def test_k6_tail_warps_refill_from_the_list(dev, dtype, thr_kind):
+    """A list three times what the tail's threads hold at once (V from the
+    launch shape, not a multiple of 4, D = 200: four d-tiles, the last
+    clipped), so every warp refills from the list: at +inf after each
+    lane's last d-tile, at the 30 % quantile as lanes die at every tile."""
+    geo = pdx_prune_scan_geometry(torch.empty((200, 8), device=dev, dtype=dtype), d_tile=64)
+    assert geo["body"] == "list" and geo["tail_blocks"] > 0
+    V = 3 * geo["tail_blocks"] * geo["tail_threads"] + 5
+    T, q, ids, full = _k6_case(200, V, dtype, dev)
+    real = ids >= 0
+    thr = float("inf") if thr_kind == "inf" else torch.quantile(full[real], 0.3)
+    ws = pdx_prune_scan_workspace(V, dev)
+    kd, ka, walk = _k6_vs_plain(T, q, ids, thr, 64, ws)
+    lanes = walk.lanes.tolist()
+    if thr_kind == "inf":
+        assert int(ws[0]) == int(real.sum()) > 2 * geo["tail_blocks"] * geo["tail_threads"]
+        assert bool(ka[real].all())
+        torch.testing.assert_close(kd[real], full[real], rtol=1e-4, atol=1e-3)
+    else:
+        assert lanes[1] > lanes[2] > lanes[3] > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("thr_kind", ["inf", "zero"])
+def test_k6_list_holds_the_lanes_alive_after_tile_0(dev, dtype, thr_kind):
+    """The sweep's list: at +inf every real lane, each once and in lane
+    order; at 0 none (the tail exits at once) — the plain walk's lanes
+    entering d-tile 1."""
+    D, V = 200, 5003
+    T, q, ids, _ = _k6_case(D, V, dtype, dev, seed=1)
+    thr = float("inf") if thr_kind == "inf" else 0.0
+    ws = pdx_prune_scan_workspace(V, dev)
+    ws.fill_(-5)  # its contents on entry do not matter
+    _, ka, walk = _k6_vs_plain(T, q, ids, thr, 64, ws)
+    count = int(ws[0])
+    assert count == int(walk.lanes[1])
+    geo = pdx_prune_scan_geometry(T, d_tile=64)
+    nb, lanes = geo["sweep_blocks"], geo["segment_lanes"]
+    offsets = ws[3:3 + nb + 1].tolist()
+    assert offsets[0] == 0 and offsets[-1] == count
+    segments = ws[3 + nb + 1:].split(lanes)
+    listed = torch.cat([seg[:hi - lo] for seg, lo, hi in zip(segments, offsets, offsets[1:])])
+    if thr_kind == "inf":
+        assert torch.equal(listed.long(), torch.nonzero(ids >= 0).flatten())
+    else:
+        assert count == 0 and not ka.any()
+
+
+@pytest.mark.parametrize("D,d_tile", [(200, 64), (48, 64)])
+def test_k6_counts_one_launch_per_call(dev, D, d_tile):
+    """``.launches`` counts wrapper calls: one for the sweep and tail
+    together (D = 200), one for a sweep alone (D = 48, one d-tile)."""
+    T, q, ids, full = _k6_case(D, 1030, torch.float32, dev)
+    n0 = pdx_prune_scan_cuda.launches
+    for thr in (float("inf"), torch.sort(full).values[10], 0.0):
+        pdx_prune_scan_op(T, q, thr, ids, eps0=2.1, d_tile=d_tile)
+    assert pdx_prune_scan_cuda.launches == n0 + 3
+    geo = pdx_prune_scan_geometry(T, d_tile=d_tile)
+    assert (geo["tail_blocks"] > 0) == (D > d_tile)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_back_to_back_on_one_workspace(dev, dtype):
+    """Two calls at one threshold on one workspace, with a call at +inf
+    between them, queued without a synchronize: equal outputs bit for bit,
+    and held to the plain scan."""
+    T, q, ids, full = _k6_case(960, 20_000, dtype, dev, seed=2)
+    thr = torch.sort(full[ids >= 0]).values[10].reshape(1)
+    ws = pdx_prune_scan_workspace(20_000, dev)
+    inf = torch.full((1,), float("inf"), device=dev)
+    a = pdx_prune_scan_cuda(T, ids, q, thr, d_tile=64, eps0=2.1, workspace=ws)
+    pdx_prune_scan_cuda(T, ids, q, inf, d_tile=64, eps0=2.1, workspace=ws)
+    b = pdx_prune_scan_cuda(T, ids, q, thr, d_tile=64, eps0=2.1, workspace=ws)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    _k6_vs_plain(T, q, ids, thr, 64, ws)

@@ -152,6 +152,44 @@ def test_prune_scan_ref_trace_counts_lanes_entering_each_tile():
     assert torch.equal(d, d2) and torch.equal(a, a2)
 
 
+@pytest.mark.parametrize("dtype,per_sector", [("f32", 8), ("bf16", 16)])
+def test_prune_scan_ref_trace_counts_live_sectors(dtype, per_sector):
+    """``trace=True``'s ``sectors`` (K6's sector-level bound): per d-tile,
+    the 32-byte sectors of a row (runs of 8 f32 or 16 bf16 lanes from lane
+    0, the last one short: V = 203) holding a lane alive entering the
+    tile, against a NumPy walk; PAD lanes never count."""
+    D, V, d_tile = 96, 203, 32
+    T, q, k11 = _scan_case(D, V, 9)
+    thr = k11 * np.float32(0.6)  # most lanes die at the first two tiles
+    ids = np.arange(V, dtype=np.int32)
+    ids[[0, 3, 17, 100]] = -1
+    ids[-5:] = -1
+    Tt = torch.from_numpy(T).to(torch.bfloat16 if dtype == "bf16" else torch.float32)
+    _, _, walk = tref.pdx_prune_scan_ref(Tt, torch.from_numpy(q), thr, d_tile=d_tile,
+                                        eps0=2.1, ids=torch.from_numpy(ids), trace=True)
+    # no lane within 1e-3 of its bound: NumPy's sum order decides every lane alike
+    assert float(walk.margin[ids >= 0].min()) > 1e-3
+    X = Tt.to(torch.float32).numpy()
+    alive = ids >= 0
+    acc = np.zeros(V, np.float32)
+    want_sectors, want_lanes = [], []
+    for lo in range(0, D, d_tile):
+        hi = min(lo + d_tile, D)
+        padded = np.zeros(-(-V // per_sector) * per_sector, dtype=bool)
+        padded[:V] = alive
+        want_sectors.append(int(padded.reshape(-1, per_sector).any(axis=1).sum()))
+        want_lanes.append(int(alive.sum()))
+        acc = np.where(alive, acc + ((X[lo:hi] - q[lo:hi, None]) ** 2).sum(0), acc)
+        s = np.float32(1) + np.float32(2.1) / np.sqrt(np.float32(hi))
+        alive = alive & (acc * (np.float32(D) / np.float32(hi)) <= thr * (s * s))
+    assert walk.lanes.tolist() == want_lanes
+    assert walk.sectors.tolist() == want_sectors
+    # lanes die at each tile; a sector lives while any of its lanes does
+    assert want_lanes[0] > want_lanes[1] > want_lanes[2] > 0
+    assert want_sectors[0] > want_sectors[2] > 0
+    assert want_sectors[1] > want_lanes[1] / per_sector
+
+
 # The reference's three property tests of the prune scan, on the port.
 def test_prune_scan_never_prunes_nearest():
     """Survivors must include the true nearest neighbour at sane eps0."""
