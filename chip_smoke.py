@@ -73,9 +73,28 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      and against K1 on query 0's START partition; K7
      (``ops.batched_distance_op``) for the batch of 64 at f32 and bf16,
      l2 and ip.
+  6. mutable (after 4, on the same engine) — the store made mutable
+     (``from_store``: masters to the host, the frozen mirrors dropped),
+     10,000 ids drawn from ``--seed`` deleted, 10,000 rows of
+     ``make_dataset`` (same kind, ``--seed + 2``) inserted in batches of
+     200, so flushes fill the freed slots bucket by bucket; then, with
+     live write-head rows: the upload and mirror rebuilds timed, and with
+     the counters zeroed just before and read just after, 16 single
+     queries (``fused-scan``, K1) and a batch of 64 (``fused-batch``, K2)
+     at f32 and int8 and 16 queries through ladder A (``cascade-scan``,
+     K1 then K3), held to recall@10 against the live set's ground truth
+     (the floors of 2 and 3), exact returned distances and no deleted id;
+     16 inserted rows (8 sealed, 8 in the head) queried as themselves must
+     come back at rank 0; the write-head merge timed alone.  Then
+     ``compact()`` and the same again.  Every K1, K2 and K3 must launch.
+  7. jit_masked — a flat ADSampling engine over the first 65,536 rows:
+     4 queries with ``prefer_static=True`` plan ``jit-masked`` and return
+     the ``adaptive`` executor's ids; both run plain PyTorch on the card.
   5. the kernels line: one JSON object per kernel and dtype (K4 and K5 by
      metric over the Table 4 sweep, K4 and K6 on the flat block, K7 by
-     dtype and metric).
+     dtype and metric); the K1, K2 and K3 rows on the mutable phase's path
+     also carry ``launches_mutable`` (its counts before and after
+     ``compact``).
 
 Then the card's name and power limit (``nvidia-smi``), and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -150,6 +169,11 @@ WALL_ROUNDS = 8  # rounds of the 16 single queries behind each fused-scan wall
 # (benchmarks/bench_cascade.py), B a full-dimension one
 LADDERS = {"A": ("proj32:int8", "int4", "f32"), "B": ("bf16", "int8", "f32")}
 CASCADE_RECALL_FLOOR = 0.99
+
+# phase mutable: ids deleted, rows inserted (in batches), inserted rows
+# queried as themselves; phase jit_masked: rows of its flat engine, queries
+MUT_DELETE, MUT_INSERT, MUT_BATCH, MUT_SELF = 10_000, 10_000, 200, 16
+MASKED_ROWS, MASKED_QUERIES = 65_536, 4
 
 
 def emit(obj: dict) -> None:
@@ -1057,6 +1081,215 @@ def flat_scan(torch, ref, eng, Xd, Qd, gt) -> tuple[dict, list]:
     return line, rows
 
 
+def timed(torch, fn) -> tuple[object, float]:
+    """(fn(), seconds) on the host clock, the card synchronized on both
+    sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def mutable_round(torch, eng, Q, Qd, Xall, gt, dead, own, own_ids, counters,
+                  tag: str) -> tuple[dict, dict]:
+    """One pass over the mutable store: the device tensors and the mirrors
+    the searches need, rebuilt and timed first; then, with the launch
+    counters zeroed just before and read just after, 16 single queries
+    (``fused-scan``) and a batch of 64 (``fused-batch``) at f32 and int8,
+    16 single queries through cascade ladder A (``cascade-scan``), and the
+    inserted rows ``own`` queried as themselves.  Asserts the executors,
+    recall@10 against ``gt`` (the live set's ground truth), returned
+    distances exact, no deleted id, each own row at rank 0, and every
+    kernel launched.  -> (phase line, launches by kernel row name)."""
+    from repro_torch.core.engine import SearchSpec
+    from repro_torch.core.layout import device_mirror, projection_mirror
+    from repro_torch.core.plan import _merge_write_head
+
+    store = eng.store
+    out = {"phase": "mutable", "round": tag, "tiles_version": store.tiles_version,
+           "version": store.version, "partitions": store.num_partitions,
+           "head_live_rows": store.head_count, "fragmentation": store.fragmentation}
+    _, out["upload_s"] = timed(torch, lambda: store.data)
+    _, out["mirror_int8_s"] = timed(torch, lambda: device_mirror(store, "int8"))
+    _, out["mirror_int4_s"] = timed(torch, lambda: device_mirror(store, "int4"))
+    _, out["projection_mirror_s"] = timed(torch, lambda: projection_mirror(store, 32, "int8"))
+    for c in counters.values():
+        c.launches = 0
+    launches = {}
+
+    def counted(name, kernel, fn):
+        n0 = counters[kernel].launches
+        res = fn()
+        launches[name] = launches.get(name, 0) + counters[kernel].launches - n0
+        return res
+
+    for dt in ("f32", "int8"):
+        spec = SearchSpec(k=K, scan_dtype=dt)
+        singles, t_scan = timed(torch, lambda: counted(
+            f"K1 pdx_prune_scan_multi [{dt}]", "k1",
+            lambda: [eng.search(Q[i], spec) for i in range(N_SINGLE)]))
+        batch, t_batch = timed(torch, lambda: counted(
+            f"K2 batched_distance_quant [{dt}]", "k2", lambda: eng.search(Q, spec)))
+        assert all(r.plan.executor == "fused-scan" for r in singles)
+        assert batch.plan.executor == "fused-batch", batch.plan
+        s_ids = np.stack([r.ids for r in singles])
+        s_d = np.stack([r.dists for r in singles])
+        line = {"fused_scan_recall_at_10": recall(s_ids, gt[:N_SINGLE]),
+                "fused_batch_recall_at_10": recall(batch.ids, gt),
+                "fused_scan_dist_rel_err": dist_error(torch, Xall, Qd[:N_SINGLE], s_ids, s_d),
+                "fused_batch_dist_rel_err": dist_error(torch, Xall, Qd, batch.ids, batch.dists),
+                "fused_scan_ms_per_query": t_scan / N_SINGLE * 1e3,
+                "fused_batch_ms_per_batch_of_64": t_batch * 1e3}
+        out[dt] = line
+        assert not np.isin(s_ids, dead).any() and not np.isin(batch.ids, dead).any(), \
+            f"{tag} {dt}: a deleted id was returned"
+        assert max(line["fused_scan_dist_rel_err"], line["fused_batch_dist_rel_err"]) <= 1e-3
+        f_scan, f_batch = RECALL_FLOORS[dt]
+        assert line["fused_scan_recall_at_10"] >= f_scan, (tag, dt, line)
+        assert line["fused_batch_recall_at_10"] >= f_batch, (tag, dt, line)
+        # the inserted rows as queries: each finds itself first
+        own_s = counted(f"K1 pdx_prune_scan_multi [{dt}]", "k1",
+                        lambda: [eng.search(v, spec).ids[0] for v in own])
+        own_b = counted(f"K2 batched_distance_quant [{dt}]", "k2",
+                        lambda: eng.search(own, spec).ids[:, 0])
+        assert np.array_equal(own_s, own_ids) and np.array_equal(own_b, own_ids), \
+            (tag, dt, own_s, own_b, own_ids)
+        if dt == "f32":  # the write-head merge alone, as execute runs it
+            _, m64 = timed(torch, lambda: _merge_write_head(
+                store, eng.pruner, Qd, spec, batch.ids, batch.dists))
+            _, m1 = timed(torch, lambda: _merge_write_head(
+                store, eng.pruner, Qd[:1], spec, s_ids[:1], s_d[:1]))
+            out["merge_ms_batch_of_64"], out["merge_ms_single"] = m64 * 1e3, m1 * 1e3
+    spec = SearchSpec(k=K, cascade=LADDERS["A"])
+    k3_name = f"K3 pdx_prune_scan_multi_prefetch [{LADDERS['A'][1]}]"
+    n1, n3 = counters["k1"].launches, counters["k3"].launches
+    res, t_c = timed(torch, lambda: [eng.search(Q[i], spec) for i in range(N_SINGLE)])
+    launches[f"K1 pdx_prune_scan_multi [{LADDERS['A'][0]}]"] = counters["k1"].launches - n1
+    launches[k3_name] = counters["k3"].launches - n3
+    assert all(r.plan.executor == "cascade-scan" for r in res)
+    c_ids = np.stack([r.ids for r in res])
+    c_d = np.stack([r.dists for r in res])
+    out["cascade_scan"] = {"ladder": list(LADDERS["A"]),
+                           "recall_at_10": recall(c_ids, gt[:N_SINGLE]),
+                           "dist_rel_err": dist_error(torch, Xall, Qd[:N_SINGLE], c_ids, c_d),
+                           "ms_per_query": t_c / N_SINGLE * 1e3}
+    assert not np.isin(c_ids, dead).any(), f"{tag} cascade: a deleted id was returned"
+    assert out["cascade_scan"]["recall_at_10"] >= CASCADE_RECALL_FLOOR, out["cascade_scan"]
+    assert out["cascade_scan"]["dist_rel_err"] <= 1e-3, out["cascade_scan"]
+    totals = {k: c.launches for k, c in counters.items()}
+    out["launches"] = totals
+    assert all(v > 0 for v in totals.values()), f"{tag}: a kernel never launched {totals}"
+    out["device_mem_gb"] = torch.cuda.memory_allocated() / 1e9
+    out["device_mem_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out, launches
+
+
+def mutable_phase(torch, eng, Xd, Q, Qd, seed: int, counters: dict) -> tuple[list, dict]:
+    """The mutable store on the main path's IVF engine: 10,000 ids chosen at
+    random from ``seed`` deleted, 10,000 new rows (``make_dataset``, the
+    same kind, seed + 2) inserted in batches of 200 (flushes through
+    free-slot fill), then ``mutable_round`` with live write-head rows, then
+    ``compact()`` and ``mutable_round`` again.  The ground truth is that of
+    the live set (the rows minus the deleted plus the inserted), computed
+    on the card by direct f32 differences.  -> (phase lines, launches by
+    kernel row name and round)."""
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.obs import metrics
+
+    n, D = Xd.shape
+    dev = Xd.device
+    lines = []
+    line = {"phase": "mutable", "round": "churn", "n": n, "dim": D,
+            "deleted": MUT_DELETE, "inserted": MUT_INSERT, "insert_batch": MUT_BATCH}
+    torch.cuda.reset_peak_memory_stats()
+    line["device_mem_gb_before"] = torch.cuda.memory_allocated() / 1e9
+    store, line["from_store_s"] = timed(torch, eng._ensure_mutable)
+    line["device_mem_gb_after_from_store"] = torch.cuda.memory_allocated() / 1e9
+    dead = np.random.default_rng(seed).choice(n, size=MUT_DELETE, replace=False)
+    removed, line["delete_s"] = timed(torch, lambda: eng.delete(dead))
+    assert removed == MUT_DELETE, removed
+    new, _ = make_dataset(MUT_INSERT, D, "clustered", n_queries=1, seed=seed + 2)
+    # the store's own meters count the flushes and the repacks they fall back to
+    reg = metrics.get_registry()
+    reg.reset()
+    metrics.set_enabled(True)
+    try:
+        new_ids, line["insert_s"] = timed(torch, lambda: np.concatenate([
+            eng.insert(new[lo:lo + MUT_BATCH]) for lo in range(0, MUT_INSERT, MUT_BATCH)]))
+        line["flushes"] = reg.get("repro_store_mutations_total", op="flush")
+        line["repacks"] = reg.get("repro_store_mutations_total", op="repack")
+    finally:
+        metrics.set_enabled(False)
+        reg.reset()
+    assert np.array_equal(new_ids, np.arange(n, n + MUT_INSERT)), new_ids[:4]
+    line.update(tiles_version=store.tiles_version, version=store.version,
+                head_live_rows=store.head_count, num_vectors=store.num_vectors)
+    assert store.head_count > 0, "the write-head holds no live row at the first search"
+    assert store.num_vectors == n
+    lines.append(line)
+
+    # row i of Xall is the vector of id i; the live set's ground truth
+    Xall = torch.cat([Xd, torch.from_numpy(new).to(dev)])
+    live_ids = np.setdiff1d(np.arange(n + MUT_INSERT), dead)
+    live_t = torch.from_numpy(live_ids).to(dev)
+    gt, t_gt = timed(torch, lambda: live_ids[ground_truth(torch, Xall[live_t], Qd, K)])
+    lines[0]["ground_truth_s"] = t_gt
+    # inserted rows queried as themselves: the first 8 were flushed into
+    # sealed slots, the last 8 are live in the write-head
+    pick = np.r_[0:MUT_SELF // 2, MUT_INSERT - MUT_SELF // 2:MUT_INSERT]
+    own, own_ids = new[pick], new_ids[pick]
+    assert all(store._id_loc[int(i)][0] == "h" for i in own_ids[MUT_SELF // 2:])
+    launches = {}
+    for tag in ("churn", "compacted"):
+        if tag == "compacted":
+            _, t_compact = timed(torch, eng.compact)
+            assert store.head_count == 0
+            assert store.fragmentation <= lines[1]["fragmentation"]
+        line, launches[tag] = mutable_round(torch, eng, Q, Qd, Xall, gt, dead, own, own_ids,
+                                            counters, tag)
+        if tag == "compacted":
+            line["compact_s"] = t_compact
+        lines.append(line)
+    return lines, launches
+
+
+def jit_masked_phase(torch, Xd, Q, seed: int, counters: dict) -> dict:
+    """A flat ADSampling engine over the first 65,536 rows (64 partitions of
+    1024 at the full D): 4 queries with ``prefer_static=True`` planned to
+    ``jit-masked`` and their ids held to the ``adaptive`` executor's (as
+    sets, as ``tests/test_pdxearch.py`` holds them).  ``kernel="torch"``
+    keeps the planner off the fused executors, which a CUDA store picks
+    first; both executors are plain PyTorch, so no kernel launches."""
+    from repro_torch.core.engine import SearchSpec, VectorSearchEngine
+
+    rows = MASKED_ROWS
+    X = Xd[:rows].cpu().numpy()
+    eng, t_build = timed(torch, lambda: VectorSearchEngine.build(
+        X, pruner="adsampling", capacity=1024, seed=seed, device=Xd.device))
+    masked = SearchSpec(k=K, prefer_static=True, kernel="torch")
+    adaptive = SearchSpec(k=K, kernel="torch")
+    eng.search(Q[0], masked)  # warm the allocator, uncounted
+    for c in counters.values():
+        c.launches = 0
+    got, t_m = timed(torch, lambda: [eng.search(Q[i], masked) for i in range(MASKED_QUERIES)])
+    want, t_a = timed(torch, lambda: [eng.search(Q[i], adaptive) for i in range(MASKED_QUERIES)])
+    launched = {k: c.launches for k, c in counters.items()}
+    assert all(r.plan.executor == "jit-masked" for r in got), got[0].plan
+    assert all(r.plan.executor == "adaptive" for r in want), want[0].plan
+    same = [set(g.ids.tolist()) == set(w.ids.tolist()) for g, w in zip(got, want)]
+    close = all(np.allclose(np.sort(g.dists), np.sort(w.dists), rtol=1e-4)
+                for g, w in zip(got, want))
+    line = {"phase": "jit_masked", "rows": rows, "dim": X.shape[1],
+            "partitions": eng.store.num_partitions, "queries": MASKED_QUERIES,
+            "build_s": t_build, "jit_masked_ms_per_query": t_m / MASKED_QUERIES * 1e3,
+            "adaptive_ms_per_query": t_a / MASKED_QUERIES * 1e3,
+            "ids_equal_adaptive": same, "dists_close": close, "launches": launched}
+    assert all(same) and close, line
+    assert not any(launched.values()), launched
+    return line
+
+
 def recall(found, true) -> float:
     found, true = found.reshape(len(true), -1), true
     hits = sum(len(set(f.tolist()) & set(t.tolist())) for f, t in zip(found, true))
@@ -1236,7 +1469,6 @@ def main() -> int:
     paper_rows += rows
     emit({**line, "seconds": time.perf_counter() - t0})
 
-    del Xd
     for dt in ("f32", "int8"):
         emit(where_time_goes(torch, eng, Q, specs[dt], "fused", scan_dtype=dt))
     emit(where_time_goes(torch, eng, Q, SearchSpec(k=K, cascade=LADDERS["A"]),
@@ -1356,6 +1588,25 @@ def main() -> int:
     for (name, stage), call in stage_calls.items():
         kernels.append(stage_kernel_row(torch, ref, call, name, stage))
     del stage_calls
+
+    # ------------------------------- 6. the mutable store, 7. jit-masked
+    # the frozen store's tensors go: the mutable store takes the card
+    del store, m, pm, ids_scan, ids3, ids_k3, live_cols, start
+    counters = {"k1": pdx_prune_scan_multi_cuda, "k2": batched_distance_quant_cuda,
+                "k3": pdx_prune_scan_multi_prefetch_cuda}
+    t0 = time.perf_counter()
+    lines, mut_launches = mutable_phase(torch, eng, Xd, Q, Qd, args.seed, counters)
+    for line in lines:
+        emit(line)
+    emit({"phase": "mutable_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    emit({**jit_masked_phase(torch, Xd, Q, engine_seed, counters),
+          "seconds": time.perf_counter() - t0})
+    del Xd
+    for row in kernels:
+        for tag, counts in mut_launches.items():
+            if row["name"] in counts:
+                row.setdefault("launches_mutable", {})[tag] = counts[row["name"]]
 
     # ----------------------------------------------------- 4. the record
     emit({"kernels": kernels + paper_rows})

@@ -12,6 +12,14 @@ no k-means or rotation of the port's own in between.  Keys:
            for BSA; ``zone_size`` for BOND (its means are ``dim_means``)
   IVF      ``centroids`` (K, D), ``part_offsets`` (K,), ``part_counts``
            (K,), ``nlist`` — present only for an IVF engine
+  mutable  the keys of ``mutable_store_arrays`` — present only when the
+           engine's store is a ``MutablePDXStore``; the store keys are then
+           its host masters, and the IVF bucket boundaries come from it
+
+``mutable_store_arrays`` reads a ``MutablePDXStore``'s whole state — of
+this package or of the reference, whose store keeps the same fields — as
+NumPy arrays, and ``mutable_store_from_arrays`` builds the port's store
+from them, so both packages can start from one churned state.
 """
 from __future__ import annotations
 
@@ -20,7 +28,7 @@ import torch
 
 from .core.device import resolve_device
 from .core.engine import PRUNERS, VectorSearchEngine
-from .core.layout import PDXStore, build_flat_store
+from .core.layout import MutablePDXStore, PDXStore, build_flat_store
 from .core.pruners import (
     make_adsampling,
     make_bond,
@@ -31,7 +39,56 @@ from .core.pruners import (
 from .core.spec import SearchSpec
 from .index.ivf import IVFIndex
 
-__all__ = ["engine_from_arrays"]
+__all__ = ["engine_from_arrays", "mutable_store_arrays",
+           "mutable_store_from_arrays"]
+
+# MutablePDXStore state: public attributes, then private ones (``_`` + key)
+_PUBLIC_FIELDS = ("head_capacity", "num_buckets", "meta_staleness", "version",
+                  "tiles_version")
+_PRIVATE_FIELDS = ("data", "ids", "counts", "dim_means", "dim_vars",
+                   "head_data", "head_ids", "head_assign", "head_n",
+                   "part_bucket", "next_id", "sum", "sumsq", "n_live",
+                   "mutations_since_meta")
+
+
+def mutable_store_arrays(store) -> dict:
+    """A ``MutablePDXStore``'s state as NumPy arrays and Python scalars:
+    the host masters (``data``, ``ids``, ``counts``, ``dim_means``,
+    ``dim_vars``), the write-head, the bucket of each partition, the next
+    id, the running moments and both versions."""
+    out = {k: getattr(store, k) for k in _PUBLIC_FIELDS}
+    out.update({k: np.array(getattr(store, "_" + k), copy=True)
+                for k in _PRIVATE_FIELDS})
+    return out
+
+
+def mutable_store_from_arrays(arrays: dict, *, device) -> MutablePDXStore:
+    """The port's ``MutablePDXStore`` on ``device`` holding exactly the
+    state of ``mutable_store_arrays``."""
+    nb = arrays["num_buckets"]
+    store = MutablePDXStore(
+        arrays["data"], arrays["ids"], arrays["counts"], arrays["dim_means"],
+        arrays["dim_vars"], head_capacity=int(arrays["head_capacity"]),
+        num_buckets=None if nb is None else int(nb),
+        part_bucket=arrays["part_bucket"],
+        meta_staleness=float(arrays["meta_staleness"]), device=device,
+    )
+    store._head_data = np.array(arrays["head_data"], np.float32)
+    store._head_ids = np.array(arrays["head_ids"], np.int32)
+    store._head_assign = np.array(arrays["head_assign"], np.int32)
+    store._head_n = int(arrays["head_n"])
+    store._id_loc.update(
+        (int(i), ("h", int(j)))
+        for j, i in enumerate(store._head_ids.tolist()) if i >= 0
+    )
+    store._next_id = int(arrays["next_id"])
+    store._sum = np.array(arrays["sum"], np.float64)
+    store._sumsq = np.array(arrays["sumsq"], np.float64)
+    store._n_live = int(arrays["n_live"])
+    store._mutations_since_meta = int(arrays["mutations_since_meta"])
+    store.version = int(arrays["version"])
+    store.tiles_version = int(arrays["tiles_version"])
+    return store
 
 
 def _pruner(arrays: dict, dim: int, device):
@@ -60,11 +117,14 @@ def engine_from_arrays(arrays: dict, *, device, spec: SearchSpec | None = None
     def t(key, dtype):
         return torch.from_numpy(np.array(arrays[key], dtype)).to(dev)
 
-    store = PDXStore(
-        data=t("data", np.float32), ids=t("ids", np.int32),
-        counts=t("counts", np.int32), dim_means=t("dim_means", np.float32),
-        dim_vars=t("dim_vars", np.float32),
-    )
+    if "head_ids" in arrays:
+        store = mutable_store_from_arrays(arrays, device=dev)
+    else:
+        store = PDXStore(
+            data=t("data", np.float32), ids=t("ids", np.int32),
+            counts=t("counts", np.int32), dim_means=t("dim_means", np.float32),
+            dim_vars=t("dim_vars", np.float32),
+        )
     ivf = None
     if "centroids" in arrays:
         nlist = int(arrays["nlist"])
@@ -75,8 +135,10 @@ def engine_from_arrays(arrays: dict, *, device, spec: SearchSpec | None = None
                 centroids, capacity=min(1024, max(64, nlist)), device=dev
             ),
             centroids=torch.from_numpy(centroids).to(dev),
-            part_offsets=np.asarray(arrays["part_offsets"]),
-            part_counts=np.asarray(arrays["part_counts"]),
+            part_offsets=(store.part_offsets if isinstance(store, MutablePDXStore)
+                          else np.asarray(arrays["part_offsets"])),
+            part_counts=(store.part_counts if isinstance(store, MutablePDXStore)
+                         else np.asarray(arrays["part_counts"])),
             nlist=nlist,
         )
     return VectorSearchEngine(

@@ -18,6 +18,7 @@ __all__ = [
     "nary_distance",
     "pdx_distance",
     "pdx_accumulate",
+    "pdx_partial",
     "batched_distance_matmul",
 ]
 
@@ -65,6 +66,14 @@ def pdx_accumulate(
     if metric == "l1":
         return acc + torch.sum(torch.abs(T_slice - q_slice[:, None]), dim=0)
     return acc - torch.sum(T_slice * q_slice[:, None], dim=0)
+
+
+def pdx_partial(
+    T: torch.Tensor, q: torch.Tensor, d0: int, d1: int, acc: torch.Tensor,
+    metric: str = "l2",
+) -> torch.Tensor:
+    """Accumulate dimensions [d0, d1) of tile T into acc."""
+    return pdx_accumulate(T[d0:d1], q[d0:d1], acc, metric)
 
 
 def batched_distance_matmul(

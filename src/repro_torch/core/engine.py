@@ -15,9 +15,17 @@ with a ``cascade``, the cascade executors), which run the hand-written
 kernels; on the CPU the same executors run their plain PyTorch versions
 when a spec asks for them.
 
+    ids = eng.insert(V)     # write-head rows, searched exactly at once
+    eng.delete(ids)         # tombstones: slots poisoned and reusable
+    eng.compact()           # repack; BOND/BSA recalibrated on survivors
+
+Mutation upgrades the frozen ``PDXStore`` into a versioned
+``core.layout.MutablePDXStore`` in place on first use, on the same device;
+searches observe ``store.version`` through the plan trace, and the device
+tensors and mirrors are rebuilt once per sealed mutation.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): ``insert``/``delete``/``compact`` (the mutable store), meshes, the
-IVF centroid tree and tiered serving.
+item): meshes, the IVF centroid tree and tiered serving.
 """
 from __future__ import annotations
 
@@ -28,11 +36,11 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..index.ivf import IVFIndex, build_ivf
+from ..index.ivf import TREE_NOT_PORTED, IVFIndex, build_ivf
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from .device import resolve_device
-from .layout import PDXStore, build_flat_store
+from .layout import MutablePDXStore, PDXStore, build_flat_store, pdx_to_nary
 from .pdxearch import SearchStats
 from .plan import ExecutionPlan, _not_ported, execute, plan_search
 from .pruners import (
@@ -87,7 +95,8 @@ class VectorSearchEngine:
     pruner: Pruner
     spec: SearchSpec = SearchSpec()
     ivf: Optional[IVFIndex] = None
-    zone_size: int = 0
+    zone_size: int = 0          # BOND zone grouping (kept for pruner refresh)
+    head_capacity: int = 256    # write-head size on mutable upgrade
 
     @property
     def device(self) -> torch.device:
@@ -245,11 +254,120 @@ class VectorSearchEngine:
         )
 
     # --------------------------------------------------------------- mutation
+    def _ensure_mutable(self) -> MutablePDXStore:
+        """Upgrade the frozen store into a MutablePDXStore on first mutation
+        (in place; the IVF index keeps pointing at the same store object)."""
+        if not isinstance(self.store, MutablePDXStore):
+            kwargs = dict(head_capacity=self.head_capacity)
+            if self.ivf is not None:
+                kwargs.update(
+                    num_buckets=self.ivf.nlist,
+                    part_counts=self.ivf.part_counts,
+                )
+            self.store = MutablePDXStore.from_store(self.store, **kwargs)
+            if self.ivf is not None:
+                self.ivf.store = self.store
+        return self.store
+
+    def _sync_ivf(self) -> None:
+        """Repacks move bucket boundaries; refresh the index's view of them."""
+        if self.ivf is not None and isinstance(self.store, MutablePDXStore):
+            self.ivf.part_offsets = self.store.part_offsets
+            self.ivf.part_counts = self.store.part_counts
+
     def insert(self, X: np.ndarray) -> np.ndarray:
-        raise _not_ported("insert (the mutable store)", "'Mutable store'")
+        """Add vectors; returns their new ids (valid for ``delete`` and in
+        search results).  Rows land in the store's write-head — searched
+        exactly by every executor from this call on — and are drained into
+        sealed PDX tiles by a later flush/``compact()``.  IVF engines assign
+        each row to its nearest centroid at insert time so the repack keeps
+        buckets contiguous."""
+        X = np.atleast_2d(np.ascontiguousarray(np.asarray(X, np.float32)))
+        store = self._ensure_mutable()
+        Xt = self.pruner.preprocess(X) if self.pruner.needs_preprocess else X
+        assignments = self.ivf.assign(Xt) if self.ivf is not None else None
+        new_ids = store.insert(Xt, assignments=assignments)
+        self._sync_ivf()
+        return new_ids
 
     def delete(self, ids) -> int:
-        raise _not_ported("delete (the mutable store)", "'Mutable store'")
+        """Tombstone vectors by id; returns how many were live.  Their slots
+        are poisoned (never rank into a top-k) and become reusable."""
+        store = self._ensure_mutable()
+        removed = store.delete(ids)
+        self._sync_ivf()
+        return removed
 
     def compact(self) -> None:
-        raise _not_ported("compact (the mutable store)", "'Mutable store'")
+        """Repack: drain tombstones + write-head into minimal lane-aligned
+        tiles and refresh store metadata (dim_means/dim_vars).  A BOND
+        pruner is rebuilt from the repacked collection means, and a BSA
+        pruner's PCA is recalibrated from a fresh sample of the survivors,
+        the stored vectors re-projected in place (``replace_live_vectors``).
+        Either way the pruner fingerprint changes."""
+        store = self._ensure_mutable()
+        store.repack()
+        self._sync_ivf()
+        if self.pruner.name == "bond":
+            self.pruner = make_bond(
+                store._dim_means, zone_size=self.zone_size, device=self.device
+            )
+        elif self.pruner.name == "bsa" and self.pruner.aux is not None:
+            self._recalibrate_bsa(store)
+
+    def _recalibrate_bsa(self, store: MutablePDXStore) -> None:
+        """Refit BSA's PCA on the post-churn collection.  The projection is
+        orthogonal, so the original-space vectors are recovered (up to float
+        rounding) as ``X_t @ C.T``; a fresh sample refits the components and
+        residual-energy quantiles, and the store's live rows are
+        re-projected in place.  IVF centroids ride along: bucket assignments
+        are rotation-invariant, so only their coordinates change."""
+        if self.ivf is not None and self.ivf.tree_enabled:
+            raise NotImplementedError(TREE_NOT_PORTED)
+        Xt = pdx_to_nary(store)  # live vectors, old projected space, id order
+        if len(Xt) < 2:
+            return  # no covariance to fit; keep the current calibration
+        C_old = np.asarray(self.pruner.aux["components"], np.float32)
+        X_orig = Xt @ C_old.T
+        sample = X_orig[: min(len(X_orig), 65536)]  # mirror build-time sampling
+        new_pruner = make_bsa(
+            sample, m=self.pruner.aux["m"], seed=self.pruner.aux["seed"],
+            device=self.device,
+        )
+        store.replace_live_vectors(new_pruner.preprocess(X_orig))
+        if self.ivf is not None:
+            cents = new_pruner.preprocess(
+                self.ivf.centroids.cpu().numpy() @ C_old.T
+            )
+            self.ivf.centroids = torch.from_numpy(cents).to(self.device)
+            self.ivf.centroid_store = build_flat_store(
+                cents, capacity=self.ivf.centroid_store.capacity,
+                device=self.device,
+            )
+        self.pruner = new_pruner
+
+    # --------------------------------------------------------- observability
+    def metrics(self) -> dict:
+        """Deterministic snapshot of the process-wide metrics registry
+        (``repro_torch.obs.metrics``) — counters, gauges, histograms.
+        Enable recording with ``obs.metrics.set_enabled(True)`` or
+        ``REPRO_OBS=1``."""
+        return _metrics.get_registry().snapshot()
+
+    def dump_trace(self, path: Optional[str] = None) -> dict:
+        """Recorded ``QueryTrace`` ring as Chrome/Perfetto trace JSON
+        (written to ``path`` when given; loadable at ui.perfetto.dev)."""
+        return _trace.get_tracer().export_chrome(path)
+
+    # ------------------------------------------------------------------ util
+    @property
+    def metric(self) -> str:
+        return self.spec.metric
+
+    @property
+    def num_vectors(self) -> int:
+        return self.store.num_vectors
+
+    @property
+    def dim(self) -> int:
+        return self.store.dim

@@ -1,11 +1,18 @@
-"""PDX (Partition Dimensions Across) layout — frozen part.
+"""PDX (Partition Dimensions Across) layout.
 
-Counterpart of ``repro.core.layout`` (``PDXStore``, the store builders and
-the quantized device mirrors; the mutable store and the tiered bucket
-cache are not ported yet).  A PDX *partition* stores up to ``capacity``
+Counterpart of ``repro.core.layout`` (``PDXStore``, ``MutablePDXStore``,
+the store builders and the quantized device mirrors; the tiered bucket
+cache is not ported yet).  A PDX *partition* stores up to ``capacity``
 vectors dimension-major as a ``(D, capacity)`` tile; a store stacks them
 into ``(P, D, C)``.  Build-time code is NumPy, line for line the
 reference's, and the finished arrays move to the store's device.
+
+* ``PDXStore`` — the frozen build artifact (a dataclass of tensors).
+* ``MutablePDXStore`` — the versioned, mutable serving store: NumPy master
+  tiles on the host, a horizontal write-head that absorbs inserts,
+  tombstoning deletes that poison a slot to ``PAD_VALUE``, free-slot reuse
+  and ``repack``; its tensors are uploaded to its device once per
+  ``tiles_version``.
 
 Device mirrors: the store keeps f32 masters and materializes a
 reduced-precision copy per scan dtype on first use (the scan is bandwidth-
@@ -45,6 +52,7 @@ from .pruners import pca_components
 __all__ = [
     "PDXPartition",
     "PDXStore",
+    "MutablePDXStore",
     "DeviceMirror",
     "ProjectionMirror",
     "SCAN_DTYPES",
@@ -226,9 +234,22 @@ _PCA_SAMPLE_ROWS = 65536
 
 
 def _nary_head(store, n: int) -> np.ndarray:
-    """The first ``n`` rows of ``pdx_to_nary(store)``, gathered on the
-    store's device without materializing the rest (the same values, so a
-    PCA fitted on them equals one fitted on the reference's sample)."""
+    """The first ``n`` rows of ``pdx_to_nary(store)``, gathered without
+    materializing the rest (the same values, so a PCA fitted on them equals
+    one fitted on the reference's sample): on the store's device for a
+    frozen store, from the host masters and the write-head for a mutable
+    one."""
+    if isinstance(store, MutablePDXStore):
+        ids = store._ids.reshape(-1)
+        live = np.flatnonzero(ids >= 0)
+        hids, hvecs = store.head_live()
+        sel = np.argsort(np.concatenate([ids[live], hids]), kind="stable")[:n]
+        sealed = sel < len(live)
+        pos = live[sel[sealed]]
+        out = np.empty((len(sel), store.dim), np.float32)
+        out[sealed] = store._data[pos // store.capacity, :, pos % store.capacity]
+        out[~sealed] = hvecs[sel[~sealed] - len(live)]
+        return out
     ids = store.ids.cpu().numpy().reshape(-1)
     live = np.flatnonzero(ids >= 0)
     pos = live[np.argsort(ids[live], kind="stable")[:n]]
@@ -445,11 +466,663 @@ def build_bucketed_store(
 
 def pdx_to_nary(store) -> np.ndarray:
     """Inverse transposition (round-trip oracle for tests): row ``r`` of the
-    output is the live vector with the ``r``-th smallest id."""
-    data = store.data.cpu().numpy()
-    ids = store.ids.cpu().numpy()
+    output is the live vector with the ``r``-th smallest id.  Live slots may
+    sit anywhere in a tile and ids may be sparse (a mutable store's
+    tombstones and deleted ids); a ``MutablePDXStore``'s unflushed
+    write-head rows are included, and its host masters are read directly
+    (no upload)."""
+    if isinstance(store, MutablePDXStore):
+        data, ids = store._data, store._ids
+    else:
+        data, ids = store.data.cpu().numpy(), store.ids.cpu().numpy()
     live = ids >= 0
-    flat_ids = ids[live]
-    flat_vecs = np.swapaxes(data, 1, 2)[live]
+    all_ids = [ids[live]]
+    all_vecs = [np.swapaxes(data, 1, 2)[live]]
+    if hasattr(store, "head_live"):
+        hids, hvecs = store.head_live()
+        all_ids.append(hids)
+        all_vecs.append(hvecs)
+    flat_ids = np.concatenate(all_ids)
+    flat_vecs = np.concatenate(all_vecs) if flat_ids.size else np.zeros(
+        (0, store.dim), dtype=data.dtype
+    )
     order = np.argsort(flat_ids, kind="stable")
     return np.ascontiguousarray(flat_vecs[order])
+
+
+# ==========================================================================
+# Mutable PDX — the versioned serving store.
+# ==========================================================================
+class MutablePDXStore:
+    """Versioned, mutable PDX store: sealed tiles + write-head + tombstones.
+
+    Presents the same read interface as ``PDXStore`` (``data``/``ids``/
+    ``counts`` tensors on ``device``, ``dim``/``capacity``/
+    ``num_partitions``), so every executor consumes it unchanged; mutation
+    happens on NumPy master copies on the host, and the device tensors are
+    uploaded once per ``tiles_version`` (``_sync_device``), at the first
+    read after a sealed mutation.
+
+    Mutation model
+      * ``insert(V)`` appends rows to a small horizontal *write-head*
+        ``(head_capacity, D)`` buffer.  Write-head rows are scanned exactly
+        (unpruned) by every executor — ``core.plan.execute`` merges them
+        into each top-k — until a flush drains them into sealed tiles.
+      * ``delete(ids)`` tombstones: the slot's id becomes -1 (which is also
+        the free-slot bitmap bit) and its column is poisoned to
+        ``PAD_VALUE`` so no metric can ever rank it into a top-k.
+      * ``flush()`` drains live write-head rows into free sealed slots
+        (bucket-local for bucketed stores, preserving the bucket-contiguous
+        layout); when free slots run out it falls back to ``repack()``.
+      * ``repack()`` rebuilds lane-aligned tiles from scratch out of the
+        surviving rows (bucket-contiguous for IVF).  Partition count shrinks
+        back to the minimum, tombstone holes disappear, and pruner metadata
+        (``dim_means``/``dim_vars``) is refreshed from running moments.
+
+    ``version`` increases on every mutating call; plan traces record it.
+    ``tiles_version`` increases only when the *sealed* tiles change (sealed
+    delete, flush, repack): the device upload and the device and
+    projection mirrors key on it, so a head-only insert never re-uploads
+    the store.  An upload drops the mirrors of older versions, so the card
+    never holds two generations of them.
+
+    Pruner metadata is maintained incrementally: running per-dimension
+    sum / sum-of-squares are updated O(D) per inserted/deleted row, and the
+    public ``dim_means``/``dim_vars`` snapshot is refreshed on repack or
+    whenever the fraction of mutations since the last refresh exceeds
+    ``meta_staleness`` — never on every insert.
+    """
+
+    def __init__(
+        self,
+        data: np.ndarray,
+        ids: np.ndarray,
+        counts: np.ndarray,
+        dim_means: np.ndarray,
+        dim_vars: np.ndarray,
+        *,
+        head_capacity: int = 256,
+        num_buckets: Optional[int] = None,
+        part_bucket: Optional[np.ndarray] = None,
+        meta_staleness: float = 0.25,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        # the mutable masters: writable copies
+        self._data = np.array(data, dtype=np.float32, copy=True, order="C")
+        self._ids = np.array(ids, dtype=np.int32, copy=True, order="C")
+        self._counts = np.asarray(counts, np.int32).copy()
+        # the per-partition free-slot bitmap IS `self._ids < 0`: a slot is
+        # reusable iff its id is the -1 sentinel (see _plan_free_slot_fill)
+        self._dim_means = np.asarray(dim_means, np.float32).copy()
+        self._dim_vars = np.asarray(dim_vars, np.float32).copy()
+        self.meta_staleness = float(meta_staleness)
+        # version: every mutation (plan traces record it).  tiles_version:
+        # only mutations that touch the SEALED tiles (sealed delete, flush,
+        # repack) — head-only inserts leave it alone.
+        self.version = 0
+        self.tiles_version = 0
+
+        P, D, C = self._data.shape
+        if head_capacity < 1:
+            raise ValueError(
+                f"head_capacity must be >= 1, got {head_capacity}"
+            )
+        self.head_capacity = int(head_capacity)
+        self._head_data = np.full(
+            (self.head_capacity, D), PAD_VALUE, dtype=np.float32
+        )
+        self._head_ids = np.full((self.head_capacity,), -1, dtype=np.int32)
+        self._head_assign = np.full((self.head_capacity,), -1, dtype=np.int32)
+        self._head_n = 0  # append pointer (holes stay until flush)
+
+        # bucket structure (IVF): which bucket owns each sealed partition
+        self.num_buckets = num_buckets
+        if num_buckets is not None:
+            if part_bucket is None:
+                raise ValueError("bucketed store needs part_bucket")
+            self._part_bucket = np.asarray(part_bucket, np.int64).copy()
+        else:
+            self._part_bucket = np.full((P,), -1, dtype=np.int64)
+
+        # id -> location map ('s', p, c) sealed | ('h', j) write-head
+        self._id_loc = self._build_id_loc()
+        self._next_id = 1 + max(self._id_loc, default=-1)
+
+        # running per-dimension moments over live rows (float64 for drift)
+        live = self._ids >= 0
+        live_vecs = np.swapaxes(self._data, 1, 2)[live].astype(np.float64)
+        self._sum = live_vecs.sum(axis=0)
+        self._sumsq = (live_vecs**2).sum(axis=0)
+        self._n_live = int(live.sum())
+        self._mutations_since_meta = 0
+
+        self._dev: Optional[tuple] = None
+        self._dev_version = -1
+        self._mirror_cache: dict = {}
+        self._proj_cache: dict = {}
+        # mutation oplog (delta-replay for background maintenance): None =
+        # not recording; a list accumulates ("insert"|"delete", ...) entries
+        # between oplog_start() and oplog_take().
+        self._oplog: Optional[list] = None
+        self._oplog_limit = 8192
+
+    # -------------------------------------------------- mutation oplog
+    def oplog_start(self, limit: int = 8192) -> None:
+        """Begin recording mutations (insert/delete) applied to THIS store.
+
+        A maintenance pass calls this right after cloning: mutations that
+        land while the clone repacks are replayed onto the clone before
+        ``adopt``.  Bounded by ``limit`` rows — past that, replay costs
+        about as much as a fresh clone, so the log overflows and
+        ``oplog_take`` reports it."""
+        self._oplog = []
+        self._oplog_limit = int(limit)
+        self._oplog_rows = 0
+
+    def oplog_take(self) -> Optional[list]:
+        """Stop recording and return the recorded ops in application order,
+        or None if the log overflowed ``limit`` rows (caller should discard
+        its clone).  Entries are ``("insert", V, assignments, ids)`` /
+        ``("delete", ids)`` with defensively copied arrays."""
+        ops, self._oplog = self._oplog, None
+        if ops is not None and self._oplog_rows > self._oplog_limit:
+            return None
+        return ops
+
+    def _oplog_record(self, entry: tuple, rows: int) -> None:
+        if self._oplog is None:
+            return
+        self._oplog_rows += rows
+        if self._oplog_rows <= self._oplog_limit:
+            self._oplog.append(entry)
+
+    def replay(self, ops: list) -> int:
+        """Apply an ``oplog_take`` list to this store (the maintenance
+        clone); returns rows replayed.  Replayed inserts must reproduce the
+        recorded ids — guaranteed because ``clone()`` copies ``_next_id``
+        and id assignment is sequential — and a mismatch raises, because a
+        store with diverged ids must never be adopted."""
+        rows = 0
+        for op in ops:
+            if op[0] == "insert":
+                _, V, assignments, ids = op
+                got = self.insert(V, assignments)
+                if not np.array_equal(got, ids):
+                    raise ValueError(
+                        "oplog replay id divergence: "
+                        f"expected {ids[:4]}..., got {got[:4]}..."
+                    )
+                rows += len(ids)
+            else:
+                rows += self.delete(op[1])
+        return rows
+
+    def _build_id_loc(self) -> dict[int, tuple]:
+        """Vectorized sealed-slot scan (a Python loop over P*C slots would
+        dominate repack latency at 100k+ vectors)."""
+        ps, cs = np.nonzero(self._ids >= 0)
+        return {
+            i: ("s", p, c)
+            for i, p, c in zip(
+                self._ids[ps, cs].tolist(), ps.tolist(), cs.tolist()
+            )
+        }
+
+    # ----------------------------------------------------------- constructors
+    @classmethod
+    def from_store(
+        cls,
+        store: PDXStore,
+        *,
+        head_capacity: int = 256,
+        num_buckets: Optional[int] = None,
+        part_counts: Optional[np.ndarray] = None,
+        meta_staleness: float = 0.25,
+    ) -> "MutablePDXStore":
+        """Unseal a frozen ``PDXStore`` on the frozen store's device.  For a
+        bucketed (IVF) store pass its per-bucket ``part_counts`` so repack
+        keeps bucket contiguity (the layout is bucket-contiguous, so counts
+        fully determine ownership).  The masters are copied to the host and
+        the frozen store's mirrors are dropped, so the card does not hold
+        two generations of them."""
+        part_bucket = None
+        if num_buckets is not None:
+            nparts = np.asarray(part_counts, np.int64)
+            part_bucket = np.repeat(np.arange(num_buckets), nparts)
+            if len(part_bucket) < store.num_partitions:  # pad placeholders
+                part_bucket = np.concatenate([
+                    part_bucket,
+                    np.full(
+                        store.num_partitions - len(part_bucket), -1, np.int64
+                    ),
+                ])
+        out = cls(
+            store.data.cpu().numpy(), store.ids.cpu().numpy(),
+            store.counts.cpu().numpy(), store.dim_means.cpu().numpy(),
+            store.dim_vars.cpu().numpy(),
+            head_capacity=head_capacity, num_buckets=num_buckets,
+            part_bucket=part_bucket, meta_staleness=meta_staleness,
+            device=store.device,
+        )
+        store._mirror_cache.clear()
+        store._proj_cache.clear()
+        return out
+
+    def _bump(self, tiles: bool = False):
+        self.version += 1
+        if tiles:
+            self.tiles_version += 1
+
+    # ------------------------------------------------------ PDXStore interface
+    def _sync_device(self):
+        if self._dev_version != self.tiles_version:
+            _metrics.counter("repro_store_device_uploads_total")
+            version = self.tiles_version
+            # drop the older generation before uploading the new one
+            self._dev = None
+            for cache in (self._mirror_cache, self._proj_cache):
+                for stale in [kk for kk in cache if kk[-1] != version]:
+                    del cache[stale]
+            self._dev = (
+                torch.tensor(self._data, device=self.device),
+                torch.tensor(self._ids, device=self.device),
+                torch.tensor(self._counts, device=self.device),
+            )
+            self._dev_version = version
+
+    def _obs_mutation(self, op: str, rows: int) -> None:
+        """Record one mutation event plus the store-health gauges (live
+        rows, write-head fill, metadata staleness).  One enabled() check
+        when observability is off."""
+        if not _metrics.enabled():
+            return
+        _metrics.counter("repro_store_mutations_total", op=op)
+        _metrics.counter("repro_store_rows_mutated_total", float(rows), op=op)
+        _metrics.gauge("repro_store_live_vectors", float(self._n_live))
+        _metrics.gauge(
+            "repro_store_head_fill",
+            self.head_count / max(self.head_capacity, 1),
+        )
+        _metrics.gauge(
+            "repro_store_meta_staleness",
+            self._mutations_since_meta / max(self._n_live, 1),
+        )
+
+    @property
+    def data(self) -> torch.Tensor:
+        self._sync_device()
+        return self._dev[0]
+
+    @property
+    def ids(self) -> torch.Tensor:
+        self._sync_device()
+        return self._dev[1]
+
+    @property
+    def counts(self) -> torch.Tensor:
+        self._sync_device()
+        return self._dev[2]
+
+    @property
+    def dim_means(self) -> torch.Tensor:
+        return torch.from_numpy(self._dim_means).to(self.device)
+
+    @property
+    def dim_vars(self) -> torch.Tensor:
+        return torch.from_numpy(self._dim_vars).to(self.device)
+
+    @property
+    def num_partitions(self) -> int:
+        return self._data.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self._data.shape[1]
+
+    @property
+    def capacity(self) -> int:
+        return self._data.shape[2]
+
+    @property
+    def num_vectors(self) -> int:
+        """Live vectors: sealed non-tombstoned slots + unflushed head rows."""
+        return int(self._counts.sum()) + int((self._head_ids >= 0).sum())
+
+    def partition(self, p: int) -> PDXPartition:
+        return PDXPartition(
+            data=self.data[p], ids=self.ids[p], count=int(self._counts[p])
+        )
+
+    # -------------------------------------------------------- bucket structure
+    @property
+    def part_offsets(self) -> np.ndarray:
+        """(K,) first partition id of each bucket (bucket-contiguous layout)."""
+        nparts = self.part_counts
+        return np.concatenate([[0], np.cumsum(nparts)[:-1]]).astype(np.int64)
+
+    @property
+    def part_counts(self) -> np.ndarray:
+        """(K,) partitions per bucket; 0 for empty buckets."""
+        if self.num_buckets is None:
+            raise ValueError("flat store has no bucket structure")
+        return np.bincount(
+            self._part_bucket[self._part_bucket >= 0],
+            minlength=self.num_buckets,
+        ).astype(np.int64)
+
+    # -------------------------------------------------------------- write-head
+    @property
+    def head_count(self) -> int:
+        return int((self._head_ids >= 0).sum())
+
+    def head_live(self) -> tuple[np.ndarray, np.ndarray]:
+        """Live write-head rows -> ((m,) ids, (m, D) vectors).  These must be
+        merged *exactly* (no pruning) into every executor's top-k."""
+        mask = self._head_ids >= 0
+        return self._head_ids[mask].copy(), self._head_data[mask].copy()
+
+    def head_snapshot(self) -> tuple[np.ndarray, np.ndarray]:
+        """The FULL write-head buffer -> ((head_capacity,) ids,
+        (head_capacity, D) vectors), dead slots included (id -1, data
+        ``PAD_VALUE``).  Unlike ``head_live`` the shapes never change with
+        the fill level."""
+        return self._head_ids.copy(), self._head_data.copy()
+
+    # --------------------------------------------------------------- mutation
+    def insert(
+        self, V: np.ndarray, assignments: Optional[np.ndarray] = None
+    ) -> np.ndarray:
+        """Absorb rows into the write-head; returns their new global ids.
+
+        ``assignments`` — per-row IVF bucket (centroid assignment done at
+        insert time by the index); required for bucketed stores.  A full
+        write-head flushes itself (free-slot fill, falling back to repack).
+        """
+        V = np.atleast_2d(np.ascontiguousarray(np.asarray(V, np.float32)))
+        if V.shape[1] != self.dim:
+            raise ValueError(f"expected (N, {self.dim}) rows, got {V.shape}")
+        if self.num_buckets is not None:
+            if assignments is None:
+                raise ValueError("bucketed store insert needs assignments")
+            assignments = np.asarray(assignments, np.int32)
+            if assignments.shape != (len(V),):
+                raise ValueError("one bucket assignment per inserted row")
+        new_ids = np.arange(
+            self._next_id, self._next_id + len(V), dtype=np.int32
+        )
+        self._next_id += len(V)
+        pos = 0  # chunked copies: bulk-load cost is slice assignments, not rows
+        while pos < len(V):
+            if self._head_n == self.head_capacity:
+                self.flush()
+            j0, take = self._head_n, min(
+                self.head_capacity - self._head_n, len(V) - pos
+            )
+            self._head_data[j0 : j0 + take] = V[pos : pos + take]
+            self._head_ids[j0 : j0 + take] = new_ids[pos : pos + take]
+            if assignments is not None:
+                self._head_assign[j0 : j0 + take] = assignments[pos : pos + take]
+            self._id_loc.update(
+                (i, ("h", j0 + off))
+                for off, i in enumerate(new_ids[pos : pos + take].tolist())
+            )
+            self._head_n += take
+            pos += take
+        self._sum += V.astype(np.float64).sum(axis=0)
+        self._sumsq += (V.astype(np.float64) ** 2).sum(axis=0)
+        self._n_live += len(V)
+        self._mutations_since_meta += len(V)
+        self._maybe_refresh_meta()
+        self._oplog_record(
+            (
+                "insert", V.copy(),
+                None if assignments is None else assignments.copy(),
+                new_ids.copy(),
+            ),
+            len(V),
+        )
+        self._bump()  # head-only: sealed tiles untouched (unless flush ran)
+        self._obs_mutation("insert", len(V))
+        return new_ids
+
+    def delete(self, ids) -> int:
+        """Tombstone rows by id; returns how many were live.  Sealed slots
+        are poisoned to ``PAD_VALUE`` and their free-bitmap bit set.
+
+        Batched: the id array is resolved to (partition, column) coordinates
+        up front, then every slot is poisoned in one fancy-indexed pass and
+        the running moments are updated with one reduction."""
+        sealed_p, sealed_c, head_j = [], [], []
+        for i in np.atleast_1d(np.asarray(ids, np.int64)):
+            loc = self._id_loc.pop(int(i), None)  # also dedups repeated ids
+            if loc is None:
+                continue
+            if loc[0] == "s":
+                sealed_p.append(loc[1])
+                sealed_c.append(loc[2])
+            else:
+                head_j.append(loc[1])
+        removed = len(sealed_p) + len(head_j)
+        if not removed:
+            return 0
+        if sealed_p:
+            ps = np.asarray(sealed_p, np.int64)
+            cs = np.asarray(sealed_c, np.int64)
+            vecs = self._data[ps, :, cs].astype(np.float64)  # (m, D)
+            self._sum -= vecs.sum(axis=0)
+            self._sumsq -= (vecs**2).sum(axis=0)
+            self._data[ps, :, cs] = PAD_VALUE
+            self._ids[ps, cs] = -1
+            np.subtract.at(self._counts, ps, 1)
+        if head_j:
+            js = np.asarray(head_j, np.int64)
+            vecs = self._head_data[js].astype(np.float64)
+            self._sum -= vecs.sum(axis=0)
+            self._sumsq -= (vecs**2).sum(axis=0)
+            self._head_data[js] = PAD_VALUE
+            self._head_ids[js] = -1
+        self._n_live -= removed
+        self._mutations_since_meta += removed
+        self._maybe_refresh_meta()
+        self._oplog_record(
+            ("delete", np.atleast_1d(np.asarray(ids, np.int64)).copy()),
+            removed,
+        )
+        self._bump(tiles=bool(sealed_p))
+        self._obs_mutation("delete", removed)
+        return removed
+
+    def flush(self) -> None:
+        """Drain live write-head rows into free sealed slots (reusing the
+        free-slot bitmap; bucket-local for bucketed stores).  Falls back to a
+        full ``repack()`` when free slots run out."""
+        rows = np.nonzero(self._head_ids >= 0)[0]
+        if len(rows) == 0:
+            self._reset_head()  # only tombstoned head rows, if any: a no-op
+            return
+        placements = self._plan_free_slot_fill(rows)
+        if placements is None:
+            self.repack()
+            return
+        for j, (p, c) in zip(rows, placements):
+            i = int(self._head_ids[j])
+            self._data[p, :, c] = self._head_data[j]
+            self._ids[p, c] = i
+            self._counts[p] += 1
+            self._id_loc[i] = ("s", p, int(c))
+        self._reset_head()
+        self._bump(tiles=True)
+        self._obs_mutation("flush", len(rows))
+
+    def _plan_free_slot_fill(self, rows) -> Optional[list]:
+        """(p, c) free slot per head row, or None if any row has no slot.
+        Free slots are enumerated once per bucket, not once per row."""
+        free = self._ids < 0  # the free-slot bitmap
+        if self.num_buckets is None:
+            free_p, free_c = np.nonzero(free)
+            if len(free_p) < len(rows):
+                return None
+            return list(zip(free_p[: len(rows)], free_c[: len(rows)]))
+        placements: dict[int, tuple] = {}
+        for b in np.unique(self._head_assign[rows]):
+            mine = rows[self._head_assign[rows] == b]
+            free_p, free_c = np.nonzero(free & (self._part_bucket == b)[:, None])
+            if len(free_p) < len(mine):
+                return None
+            for j, p, c in zip(mine, free_p, free_c):
+                placements[int(j)] = (p, c)
+        return [placements[int(j)] for j in rows]
+
+    def _reset_head(self):
+        self._head_data[:] = PAD_VALUE
+        self._head_ids[:] = -1
+        self._head_assign[:] = -1
+        self._head_n = 0
+
+    def repack(self) -> None:
+        """Drain tombstones and the write-head back into minimal lane-aligned
+        tiles (bucket-contiguous for IVF), then refresh pruner metadata."""
+        C = self.capacity
+        live = self._ids >= 0
+        hmask = self._head_ids >= 0
+        all_ids = np.concatenate([self._ids[live], self._head_ids[hmask]])
+        all_vecs = np.concatenate(
+            [np.swapaxes(self._data, 1, 2)[live], self._head_data[hmask]]
+        )
+        all_bucket = np.concatenate([
+            np.repeat(self._part_bucket, C).reshape(self._ids.shape)[live],
+            self._head_assign[hmask].astype(np.int64),
+        ])
+        order = np.argsort(all_ids, kind="stable")  # deterministic layout
+        all_ids, all_vecs, all_bucket = (
+            all_ids[order], all_vecs[order], all_bucket[order],
+        )
+
+        if self.num_buckets is None:
+            buckets = [-1]
+            groups = [np.arange(len(all_ids))]
+        else:
+            buckets = list(range(self.num_buckets))
+            groups = [np.nonzero(all_bucket == b)[0] for b in buckets]
+        self._data, self._ids, self._counts = _pack_groups(
+            all_vecs, groups, C, row_ids=all_ids
+        )
+        nparts = [-(-len(g) // C) for g in groups]
+        if sum(nparts) == 0:  # nothing survived: the all-pad placeholder tile
+            self._part_bucket = np.asarray([-1], dtype=np.int64)
+        else:
+            self._part_bucket = np.repeat(buckets, nparts).astype(np.int64)
+        self._id_loc = self._build_id_loc()
+        self._reset_head()
+        self._refresh_meta()
+        self._bump(tiles=True)
+        self._obs_mutation("repack", len(all_ids))
+
+    def replace_live_vectors(self, X: np.ndarray) -> None:
+        """Overwrite every live sealed vector, row ``r`` of ``X`` replacing
+        the vector with the ``r``-th smallest id (the ``pdx_to_nary``
+        order).  Ids, bucket assignments, and tile geometry are untouched —
+        the store-level primitive for re-projecting a collection in place
+        (BSA's recalibration on compact).  Requires a drained write-head."""
+        if self.head_count:
+            raise ValueError(
+                "replace_live_vectors needs a drained write-head; "
+                "flush() or repack() first"
+            )
+        X = np.asarray(X, np.float32)
+        ps, cs = np.nonzero(self._ids >= 0)
+        if len(ps) != len(X):
+            raise ValueError(
+                f"{len(X)} replacement rows for {len(ps)} live vectors"
+            )
+        order = np.argsort(self._ids[ps, cs], kind="stable")
+        self._data[ps[order], :, cs[order]] = X
+        self._sum = X.astype(np.float64).sum(axis=0)
+        self._sumsq = (X.astype(np.float64) ** 2).sum(axis=0)
+        self._refresh_meta()
+        self._bump(tiles=True)
+
+    # ------------------------------------------------- incremental metadata
+    def _maybe_refresh_meta(self):
+        if self._mutations_since_meta > self.meta_staleness * max(
+            self._n_live, 1
+        ):
+            self._refresh_meta()
+
+    def _refresh_meta(self):
+        """Snapshot dim_means/dim_vars (BOND / BSA block metadata) from the
+        running moments — O(D), independent of collection size."""
+        n = max(self._n_live, 1)
+        mean = self._sum / n
+        self._dim_means = mean.astype(np.float32)
+        self._dim_vars = np.maximum(self._sumsq / n - mean**2, 0.0).astype(
+            np.float32
+        )
+        self._mutations_since_meta = 0
+
+    # ------------------------------------------- background maintenance
+    @property
+    def fragmentation(self) -> float:
+        """Fraction of sealed slots that are pad/tombstone holes — a
+        maintenance pass's repack trigger."""
+        P, _, C = self._data.shape
+        return 1.0 - float(self._counts.sum()) / float(P * C)
+
+    def clone(self) -> "MutablePDXStore":
+        """Deep, independent copy of all host-side state (device tensors and
+        mirrors excluded — the clone uploads lazily on first read).  A
+        maintenance pass clones, repacks the clone off the serving path, and
+        swaps it back in with ``adopt``."""
+        other = MutablePDXStore.__new__(MutablePDXStore)
+        other.device = self.device
+        other._data = self._data.copy()
+        other._ids = self._ids.copy()
+        other._counts = self._counts.copy()
+        other._dim_means = self._dim_means.copy()
+        other._dim_vars = self._dim_vars.copy()
+        other.meta_staleness = self.meta_staleness
+        other.version = self.version
+        other.tiles_version = self.tiles_version
+        other.head_capacity = self.head_capacity
+        other._head_data = self._head_data.copy()
+        other._head_ids = self._head_ids.copy()
+        other._head_assign = self._head_assign.copy()
+        other._head_n = self._head_n
+        other.num_buckets = self.num_buckets
+        other._part_bucket = self._part_bucket.copy()
+        other._id_loc = dict(self._id_loc)
+        other._next_id = self._next_id
+        other._sum = self._sum.copy()
+        other._sumsq = self._sumsq.copy()
+        other._n_live = self._n_live
+        other._mutations_since_meta = self._mutations_since_meta
+        other._dev = None
+        other._dev_version = -1
+        other._mirror_cache = {}
+        other._proj_cache = {}
+        other._oplog = None  # clones never inherit an active recording
+        other._oplog_limit = self._oplog_limit
+        return other
+
+    def adopt(self, other: "MutablePDXStore", *, expect_version: int) -> bool:
+        """Version-fenced swap: take ``other``'s state iff this store is
+        still at ``expect_version`` (no mutation landed since ``other`` was
+        cloned from it).  Returns False — and changes nothing — when the
+        fence fails.  On success the device tensors are dropped (the
+        adopted tiles upload lazily) and both versions bump past every
+        prior value, so every version-keyed cache invalidates."""
+        if self.version != expect_version:
+            return False
+        for attr in (
+            "_data", "_ids", "_counts", "_dim_means", "_dim_vars",
+            "_head_data", "_head_ids", "_head_assign", "_head_n",
+            "_part_bucket", "_id_loc", "_next_id",
+            "_sum", "_sumsq", "_n_live", "_mutations_since_meta",
+        ):
+            setattr(self, attr, getattr(other, attr))
+        self._dev = None
+        self._dev_version = -1
+        self._bump(tiles=True)
+        self._obs_mutation("adopt", self._n_live)
+        return True

@@ -1,8 +1,8 @@
 """PDXearch — the paper's three-phase dimension-by-dimension pruned search.
 
-Counterpart of ``repro.core.pdxearch`` (the ``adaptive`` executor and the
-batched exact scan; the shape-static masked ``pdxearch_jit`` is not ported
-yet).
+Counterpart of ``repro.core.pdxearch``: the host-orchestrated search of
+the ``adaptive`` executor, the shape-static masked search of the
+``jit-masked`` executor, and the batched exact scan.
 
 * ``pdxearch`` (host-orchestrated): START linear-scans the first
   partition(s) to seed the top-k threshold; WARMUP streams dimension slices
@@ -10,6 +10,12 @@ yet).
   vectors of a partition group; once the surviving fraction drops below
   ``sel_frac`` (paper: 20%), PRUNE compacts survivor columns (capacity
   rounded up by 4x steps) and finishes only those.
+
+* ``pdxearch_jit`` (shape-static masked): START scans partition 0 unpruned,
+  then every later partition runs every boundary step over all its lanes,
+  ``alive &= keep_mask(acc, d1, thr)`` with the threshold of the running
+  top-k.  No compaction and no data-dependent shapes, the reference's
+  jittable form; here a loop over partitions and the static steps.
 
 * ``search_batch_matmul``: exact scan of a (B, D) query batch — the PDX
   tile is already K-major, so the distance matrix is one matmul per tile.
@@ -22,7 +28,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .distance import batched_distance_matmul, pdx_distance
+from .distance import batched_distance_matmul, pdx_accumulate, pdx_distance
 from .layout import PDXStore
 from .pruners import Pruner
 from .topk import TopK, topk_init, topk_merge, topk_threshold
@@ -31,6 +37,7 @@ __all__ = [
     "SearchStats",
     "make_boundaries",
     "pdxearch",
+    "pdxearch_jit",
     "search_batch_matmul",
 ]
 
@@ -246,6 +253,72 @@ def pdxearch(
             cand_d = torch.where(alive, acc, _INF).reshape(-1)
             cand_i = gids.reshape(-1)
         state = topk_merge(state, cand_d, cand_i)
+    return state
+
+
+def _masked_scan(data, ids, q, perm, k: int, metric: str, bounds, keep_mask,
+                 count: bool):
+    """The masked PDXearch over (P, D, C) tiles -> (top-k, values computed
+    or None).  ``count`` also sums, in f32 as the reference does, the alive
+    lanes entering each step times the step's width, START at full D."""
+    P, D, C = data.shape
+    steps = list(zip((0,) + tuple(bounds[:-1]), bounds))
+    # START: partition 0 unpruned
+    state = topk_merge(topk_init(k, device=data.device),
+                       pdx_distance(data[0], q, metric), ids[0])
+    computed = None
+    if count:
+        computed = torch.sum(ids[0] >= 0).to(torch.float32) * float(D)
+    for p in range(1, P):
+        tile, tids = data[p], ids[p]
+        thr = topk_threshold(state)
+        acc = torch.zeros((C,), dtype=torch.float32, device=data.device)
+        alive = tids >= 0
+        for d0, d1 in steps:
+            if count:
+                computed = computed + torch.sum(alive).to(torch.float32) * float(d1 - d0)
+            dd = perm[d0:d1]
+            acc = pdx_accumulate(tile[dd, :], q[dd], acc, metric)
+            alive = alive & keep_mask(acc, d1, thr)
+        state = topk_merge(state, torch.where(alive, acc, _INF), tids)
+    return state, computed
+
+
+def pdxearch_jit(
+    store: PDXStore,
+    q: torch.Tensor,
+    k: int,
+    pruner: Pruner,
+    *,
+    metric: str = "l2",
+    schedule: str = "adaptive",
+    delta_d: int = 32,
+    stats: Optional[SearchStats] = None,
+) -> TopK:
+    """Shape-static masked PDXearch of ``q`` over ``store`` (flat order,
+    START on partition 0).  With ``stats`` it also accounts the values
+    computed: alive lanes entering each boundary step times its width."""
+    dev = store.device
+    qt = pruner.transform_query(
+        torch.as_tensor(q, dtype=torch.float32).to(dev))
+    perm = (
+        pruner.dim_order(qt)
+        if pruner.dim_order is not None
+        else torch.arange(store.dim, device=dev)
+    )
+    bounds = make_boundaries(store.dim, schedule, delta_d)
+    state, computed = _masked_scan(
+        store.data, store.ids, qt, perm, k, metric, bounds, pruner.keep_mask,
+        stats is not None,
+    )
+    if stats is not None:
+        D = store.dim
+        total = float(store.counts.sum()) * D
+        computed = float(computed)
+        stats.values_total += total
+        stats.values_computed += computed
+        stats.values_avoided += total - computed
+        stats.partitions_visited += store.num_partitions
     return state
 
 

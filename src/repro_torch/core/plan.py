@@ -7,6 +7,7 @@ metric/pruner config — and differ only in execution strategy:
 
   adaptive      host-orchestrated PDXearch (paper Section 4); the only
                 executor with per-query IVF routing.
+  jit-masked    shape-static masked PDXearch (flat stores only).
   batch-matmul  exact matmul scan of a (B, D) query batch.
   fused-scan    one launch of the whole-store fused scan (K1) with the
                 ADSampling test fused per d-tile, over the store's device
@@ -35,14 +36,20 @@ single queries; otherwise a fused-eligible spec (``kernel="cuda"``, a
 store on CUDA with ``kernel="auto"``, or any reduced-precision
 ``scan_dtype``) picks a fused executor — single L2 queries the scan,
 batches (and other metrics) the batched kernel; otherwise batches take the
-matmul scan and single queries the adaptive path.  ``kernel="cuda"`` on a
-CPU store raises, and so does ``kernel="torch"`` when a fused or cascade
-executor would run on a CUDA store: the knob steers planning, the tensors'
-device picks the body.
+matmul scan and single queries the adaptive path (or, with
+``spec.prefer_static`` on a flat store, the masked one).  ``kernel="cuda"``
+on a CPU store raises, and so does ``kernel="torch"`` when a fused or
+cascade executor would run on a CUDA store: the knob steers planning, the
+tensors' device picks the body.
+
+Mutable stores (``core.layout.MutablePDXStore``) flow through the same
+planner: the plan trace records ``store.version``, and ``execute`` merges
+the store's unflushed write-head rows *exactly* (never pruned) into every
+executor's top-k, inside a ``merge`` span.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: ``jit-masked`` (``prefer_static``), tiered serving
-(``hbm_slots``) and the mesh-sharded executors.
+ROADMAP item: tiered serving (``hbm_slots``) and the mesh-sharded
+executors.
 """
 from __future__ import annotations
 
@@ -56,7 +63,7 @@ from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from .distance import pdx_distance
 from .layout import PDXStore, device_mirror, projection_mirror
-from .pdxearch import SearchStats, pdxearch, search_batch_matmul
+from .pdxearch import SearchStats, pdxearch, pdxearch_jit, search_batch_matmul
 from .pruners import Pruner
 from .spec import SearchSpec, parse_cascade_stage
 from .topk import (
@@ -81,7 +88,6 @@ __all__ = [
 #: Reference executors that the port does not have yet -> the ROADMAP.md
 #: item (modules queue) that will bring each one.
 UNPORTED_EXECUTORS = {
-    "jit-masked": "'pdxearch_jit and the jit-masked executor'",
     "tiered-scan": "'Tiered cache'",
     "routed_tiered": "'Multi-device search'",
     "block-sharded": "'Multi-device search'",
@@ -107,7 +113,7 @@ class ExecutionPlan:
     n_queries: int
     pruner: str = ""            # pruner fingerprint (stable identity)
     mesh_axes: tuple = ()
-    store_version: int = 0      # frozen stores: 0
+    store_version: int = 0      # MutablePDXStore.version (frozen stores: 0)
 
 
 # -------------------------------------------------------------------- registry
@@ -145,7 +151,7 @@ def pow2_bucket(n: int, cap: Optional[int] = None) -> int:
 
 
 def _on_cuda(store) -> bool:
-    return store.data.device.type == "cuda"
+    return store.device.type == "cuda"
 
 
 # --------------------------------------------------------------------- planner
@@ -164,7 +170,7 @@ def plan_search(
     if spec.kernel == "cuda" and not _on_cuda(store):
         raise ValueError(
             f"kernel='cuda' needs a store on a CUDA device; this store is on "
-            f"{store.data.device} (build with device='cuda', or use "
+            f"{store.device} (build with device='cuda', or use "
             f"kernel='auto')"
         )
     fp = pruner.fingerprint if pruner is not None else ""
@@ -257,10 +263,7 @@ def _host_plan(spec, n_queries, ivf, store, plan, body: str) -> ExecutionPlan:
         return plan("batch-matmul",
                     f"batch of {n_queries} on one device: exact matmul scan")
     if spec.prefer_static and ivf is None:
-        raise _not_ported(
-            "prefer_static (the jit-masked executor)",
-            UNPORTED_EXECUTORS["jit-masked"],
-        )
+        return plan("jit-masked", "prefer_static: shape-static masked PDXearch")
     where = "IVF-routed" if ivf is not None else "flat"
     return plan("adaptive", f"{where} host-orchestrated PDXearch")
 
@@ -277,13 +280,83 @@ def execute(
     mesh=None,
     stats: Optional[SearchStats] = None,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Run ``plan`` for the (B, D) query batch ``Q`` -> (B, k) ids/dists."""
+    """Run ``plan`` for the (B, D) query batch ``Q`` -> (B, k) ids/dists.
+
+    For mutable stores this is also the write-head merge point: whatever
+    executor ran over the sealed tiles, the unflushed write-head rows are
+    scanned exactly (never pruned — they carry no pruner metadata yet) and
+    merged into every query's top-k."""
     if mesh is not None:
         raise _not_ported("searching over a device mesh", "'Multi-device search'")
     fn = _EXECUTORS[plan.executor]
     with _trace.span("scan", executor=plan.executor,
                      scan_dtype=spec.scan_dtype):
-        return fn(store, pruner, Q, spec, ivf=ivf, stats=stats)
+        ids, dists = fn(store, pruner, Q, spec, ivf=ivf, stats=stats)
+    with _trace.span("merge", executor=plan.executor):
+        return _merge_write_head(store, pruner, Q, spec, ids, dists,
+                                 stats=stats)
+
+
+# _head_distances broadcasts at most this many values at a time
+_HEAD_CHUNK_VALUES = 1 << 26
+
+
+def _head_distances(H: torch.Tensor, Qt: torch.Tensor, metric: str) -> torch.Tensor:
+    """(H_cap, D) full head buffer x (B, D) queries -> (B, H_cap) distances:
+    ``nary_distance``'s arithmetic for every query at once, a reduction
+    along each row, over chunks of queries."""
+    step = max(1, _HEAD_CHUNK_VALUES // H.numel())
+    return torch.cat([_head_block(H, Qt[lo:lo + step], metric)
+                      for lo in range(0, Qt.shape[0], step)])
+
+
+def _head_block(H, Qb, metric: str) -> torch.Tensor:
+    if metric == "l2":
+        diff = H[None] - Qb[:, None, :]
+        return torch.sum(diff * diff, dim=2)
+    if metric == "l1":
+        return torch.sum(torch.abs(H[None] - Qb[:, None, :]), dim=2)
+    return -torch.sum(H[None] * Qb[:, None, :], dim=2)
+
+
+def _merge_write_head(
+    store, pruner: Pruner, Q: torch.Tensor, spec: SearchSpec,
+    ids: np.ndarray, dists: np.ndarray,
+    stats: Optional[SearchStats] = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Merge the store's live write-head rows into the (B, k) top-k — exact,
+    unpruned, in the pruner-transformed space the sealed tiles live in.
+
+    The distances are taken over the FULL head buffer on the store's device
+    (dead rows masked to +inf on the host), and the merge is a stable sort
+    over ``[sealed top-k | head]`` in that order, so ties keep the
+    reference's order."""
+    head_snapshot = getattr(store, "head_snapshot", None)
+    if head_snapshot is None:
+        return ids, dists
+    hids, hvecs = head_snapshot()                    # full (H,), (H, D)
+    live = hids >= 0
+    m = int(live.sum())
+    if m == 0:
+        return ids, dists
+    Qt = _transform_batch(pruner, Q)                             # (B, D)
+    H = torch.from_numpy(hvecs).to(Qt.device)
+    hd = _head_distances(H, Qt, spec.metric).cpu().numpy()       # (B, H)
+    hd = np.where(live[None, :], hd, np.inf)
+    if stats is not None:  # the LIVE head rows are scanned in full, unpruned
+        work = float(len(Q) * m * hvecs.shape[1])
+        stats.values_total += work
+        stats.values_computed += work
+    all_d = np.concatenate([dists.astype(np.float32), hd.astype(np.float32)],
+                           axis=1)
+    all_i = np.concatenate(
+        [ids, np.broadcast_to(hids.astype(ids.dtype), hd.shape)], axis=1
+    )
+    order = np.argsort(all_d, axis=1, kind="stable")[:, : spec.k]
+    return (
+        np.take_along_axis(all_i, order, axis=1),
+        np.take_along_axis(all_d, order, axis=1),
+    )
 
 
 def _numpy(res: TopK) -> tuple[np.ndarray, np.ndarray]:
@@ -319,6 +392,24 @@ def _exec_adaptive(store, pruner, Q, spec, *, ivf, stats):
             sel_frac=spec.sel_frac, group=spec.group,
             pid_order=order, start_parts=start_parts, stats=stats,
         ))
+    return _numpy(TopK(dists=torch.stack([r.dists for r in out]),
+                       ids=torch.stack([r.ids for r in out])))
+
+
+@register_executor("jit-masked")
+def _exec_jit_masked(store, pruner, Q, spec, *, ivf, stats):
+    if ivf is not None:
+        raise ValueError(
+            "jit-masked executor has no IVF routing (bucket ranking is "
+            "data-dependent); use the adaptive executor"
+        )
+    out = [
+        pdxearch_jit(
+            store, q, spec.k, pruner, metric=spec.metric,
+            schedule=spec.schedule, delta_d=spec.delta_d, stats=stats,
+        )
+        for q in Q
+    ]
     return _numpy(TopK(dists=torch.stack([r.dists for r in out]),
                        ids=torch.stack([r.ids for r in out])))
 

@@ -4,6 +4,12 @@ Counterpart of ``repro.index.ivf`` with flat routing: centroids are stored
 in PDX layout and ranked by one dimension-major scan (optionally over a
 quantized centroid mirror, ``route_dtype``).  The two-level centroid tree
 is not ported yet; ``build_ivf`` refuses it.
+
+Over a mutable store, inserted rows go to buckets by ``assign`` (nearest
+centroid) and a flush fills free slots inside the bucket's partitions; a
+repack moves bucket boundaries, and the engine refreshes
+``part_offsets``/``part_counts`` from the store after every mutation
+(``VectorSearchEngine._sync_ivf``), so routing and START see them.
 """
 from __future__ import annotations
 
@@ -49,6 +55,14 @@ def _rank_centroids(cdata: torch.Tensor, q: torch.Tensor, nlist: int, metric: st
     return torch.argsort(d.reshape(-1)[:nlist], stable=True)
 
 
+def _nearest_centroid(centroids: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """(K, D), (N, D) -> (N,) nearest-centroid bucket per row (L2, matching
+    the k-means training objective); the centroid assignment on insert."""
+    cross = X @ centroids.T                          # (N, K)
+    cn = torch.sum(centroids * centroids, dim=1)     # (K,)
+    return torch.argmin(cn[None, :] - 2.0 * cross, dim=1).to(torch.int32)
+
+
 @dataclasses.dataclass
 class IVFIndex:
     store: PDXStore                 # bucket-contiguous PDX partitions
@@ -57,6 +71,11 @@ class IVFIndex:
     part_offsets: np.ndarray        # (K,) first partition id of each bucket
     part_counts: np.ndarray         # (K,) partitions per bucket
     nlist: int
+
+    @property
+    def tree_enabled(self) -> bool:
+        """The two-level centroid tree is not ported: routing is flat."""
+        return False
 
     def _ranked_batch(self, Q: torch.Tensor, metric: str, dtype: str) -> torch.Tensor:
         """(B, D) queries -> (B, nlist) ascending bucket orders, scanning the
@@ -93,9 +112,7 @@ class IVFIndex:
         """(N, D) rows -> (N,) bucket assignments (nearest centroid, L2)."""
         X = torch.atleast_2d(torch.as_tensor(X, dtype=torch.float32,
                                              device=self.centroids.device))
-        cross = X @ self.centroids.T
-        cn = torch.sum(self.centroids * self.centroids, dim=1)
-        return torch.argmin(cn[None, :] - 2.0 * cross, dim=1).to(torch.int32).cpu().numpy()
+        return _nearest_centroid(self.centroids, X).cpu().numpy()
 
     def partition_order(self, bucket_order: np.ndarray, nprobe: int) -> np.ndarray:
         sel = bucket_order[:nprobe]

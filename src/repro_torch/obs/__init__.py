@@ -10,7 +10,8 @@ families; spans plan → route → scan → rerank → merge), so dashboards rea
 both packages alike.
 
 ``obs.meters`` holds the part of the reference's byte and work models the
-ported executors need (``tile_widths``, ``fused_tile_counts``); it is
+ported executors need (``tile_widths``, ``fused_tile_counts``,
+``fused_demand_bytes``); it is
 imported on demand because it pulls in the kernel oracles.
 """
 from . import metrics, trace

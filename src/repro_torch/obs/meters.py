@@ -16,7 +16,7 @@ import numpy as np
 
 from ..kernels.ref import pdx_prune_scan_multi_ref
 
-__all__ = ["tile_widths", "fused_tile_counts"]
+__all__ = ["tile_widths", "fused_tile_counts", "fused_demand_bytes"]
 
 
 def tile_widths(D: int, d_tile: int = 64) -> np.ndarray:
@@ -41,3 +41,24 @@ def fused_tile_counts(
     )
     return (walk.lanes.cpu().numpy().astype(np.float32),
             walk.parts.cpu().numpy().astype(np.float32))
+
+
+def fused_demand_bytes(
+    mirror, ids, qt, thr, *, p0: int, eps0: float, d_tile: int = 64
+) -> float:
+    """Demand bytes of one fused-scan query: the START partition streams
+    once at f32 (the exact threshold seed), then a partition's d-tile is
+    needed only while any of its lanes is alive, at mirror width.
+    ``mirror`` is a ``core.layout.DeviceMirror``; ``p0`` the START
+    partition (masked out of the pruned scan, exactly as the executor does).
+    """
+    C = mirror.data.shape[2]
+    D = mirror.dim  # logical D (packed int4 halves the stored axis)
+    ids_scan = ids.clone()
+    ids_scan[p0] = -1
+    _, parts = fused_tile_counts(
+        mirror.data, ids_scan, qt, thr, mirror.scale, mirror.offset,
+        eps0=eps0, d_tile=d_tile, packed=mirror.packed, dim=mirror.dim,
+    )
+    w = tile_widths(D, d_tile)
+    return float(D * C * 4 + (parts * w).sum() * C * mirror.bytes_per_value)

@@ -801,3 +801,75 @@ def test_k6_back_to_back_on_one_workspace(dev, dtype):
     torch.cuda.synchronize()
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
     _k6_vs_plain(T, q, ids, thr, 64, ws)
+
+
+def _churned_pair(dev, seed=5):
+    """A flat ADSampling engine on the card at D = 960, n = 8192 (8
+    partitions of 1024), churned: 600 ids deleted at random (tombstones in
+    the middle of every partition), 300 rows inserted through a write-head
+    of 256 (a flush into the freed slots, 44 rows left live in the head).
+    Its state carried to the CPU (``convert``) is the plain side."""
+    from repro_torch.convert import engine_from_arrays, mutable_store_arrays
+
+    X, Q = make_dataset(8192, 960, "clustered", n_queries=8, seed=seed)
+    gpu = VectorSearchEngine.build(X, pruner="adsampling", capacity=1024, device=dev)
+    rng = np.random.default_rng(seed)
+    dead = rng.choice(8192, size=600, replace=False)
+    assert gpu.delete(dead) == 600
+    new, _ = make_dataset(300, 960, "clustered", n_queries=1, seed=seed + 1)
+    new_ids = gpu.insert(new)
+    store = gpu.store
+    assert isinstance(store, tl.MutablePDXStore) and store.device.type == "cuda"
+    assert store.head_count == 44
+    ids = store.ids.cpu().numpy()
+    assert ((ids[:, :-1] < 0) & (ids[:, 1:] >= 0)).any()  # holes mid-partition
+    arrays = {**mutable_store_arrays(store), "pruner": "adsampling",
+              "eps0": gpu.pruner.aux["eps0"], "rotation": gpu.pruner.aux["rotation"]}
+    cpu = engine_from_arrays(arrays, device="cpu")
+    return gpu, cpu, Q, dead, new, new_ids
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_churned_store_on_the_card_matches_the_cpu(dev, dtype):
+    """fused-scan (K1), fused-batch (K2) and cascade-scan (K1 then K3) over
+    a churned store on the card return the ids its state returns on the
+    CPU through the plain versions, before and after ``compact``; no
+    tombstoned id comes back, inserted rows find themselves at rank 0."""
+    gpu, cpu, Q, dead, new, new_ids = _churned_pair(dev)
+    counters = (pdx_prune_scan_multi_cuda, batched_distance_quant_cuda,
+                pdx_prune_scan_multi_prefetch_cuda)
+    cases = [(Q[0], "fused-scan", SearchSpec(k=10, scan_dtype=dtype), (1, 0, 0)),
+             (Q, "fused-batch", SearchSpec(k=10, scan_dtype=dtype), (0, 1, 0)),
+             (Q[1], "cascade-scan", SearchSpec(k=10, cascade=("proj32:int8", "int4", "f32")),
+              (1, 0, 1))]
+    for phase in ("churned", "compacted"):
+        for q, executor, spec, launches in cases:
+            n0 = [c.launches for c in counters]
+            b = gpu.search(q, spec)
+            assert b.plan.executor == executor
+            assert tuple(c.launches - n for c, n in zip(counters, n0)) == launches
+            a = cpu.search(q, spec.replace(executor=executor))
+            np.testing.assert_array_equal(a.ids, b.ids, err_msg=f"{phase} {executor}")
+            np.testing.assert_allclose(a.dists, b.dists, rtol=1e-4, atol=1e-2)
+            assert not np.isin(b.ids, dead).any()
+        mine = [0, 1, 2, 3, 296, 297, 298, 299]  # sealed by the flush, then head rows
+        own = gpu.search(new[mine], SearchSpec(k=3))
+        assert own.plan.executor == "fused-batch"
+        np.testing.assert_array_equal(own.ids[:, 0], new_ids[mine])
+        gpu.compact()
+        cpu.compact()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_tombstoned_columns_never_return_at_ip(dev, dtype):
+    """Tombstoned columns hold PAD_VALUE = 3e18: at the ip metric they
+    would rank first (-q.x), and through K2's exact split their norm
+    overflows; the positions from the post-mutation ids mask them."""
+    gpu, cpu, Q, dead, _, _ = _churned_pair(dev, seed=6)
+    spec = SearchSpec(k=10, metric="ip", scan_dtype=dtype)
+    b = gpu.search(Q, spec)
+    assert b.plan.executor == "fused-batch"
+    a = cpu.search(Q, spec.replace(executor="fused-batch"))
+    np.testing.assert_array_equal(a.ids, b.ids)
+    assert not np.isin(b.ids, dead).any() and (b.ids >= 0).all()
+    assert np.isfinite(b.dists).all()

@@ -136,7 +136,7 @@ def test_kernel_torch_refuses_kernel_executors_on_a_cuda_store(cpu_engine, monke
 
 
 @pytest.mark.parametrize("spec", [
-    dict(executor="jit-masked"),
+    dict(executor="routed_tiered"),
     dict(executor="tiered-scan"),
     dict(executor="routed_bucket"),
     dict(executor="block-sharded"),
@@ -150,15 +150,32 @@ def test_unported_paths_name_their_roadmap_item(cpu_engine, spec):
 
 def test_unported_engine_calls_name_their_roadmap_item(cpu_engine):
     eng, Q = cpu_engine
-    for call in (lambda: eng.insert(Q), lambda: eng.delete([0]), eng.compact,
-                 lambda: eng.search(Q, mesh=object())):
+    for call in (lambda: eng.search(Q, mesh=object()),
+                 lambda: eng.plan(Q, mesh=object()),
+                 lambda: VectorSearchEngine.build(Q, mesh=object(), device="cpu"),
+                 lambda: VectorSearchEngine.build(Q, index="ivf", nlist=2, tree=True,
+                                                  capacity=64, device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
     flat = VectorSearchEngine.build(Q, pruner="linear", capacity=64, device="cpu")
-    with pytest.raises(NotImplementedError, match="jit-masked"):
-        flat.search(Q[0], SearchSpec(prefer_static=True))
     with pytest.raises(ValueError, match="unknown executor"):
         flat.search(Q[0], SearchSpec(executor="no-such-executor"))
+
+
+def test_only_tiered_and_mesh_executors_remain_unported():
+    """The masked executor is ported: ``UNPORTED_EXECUTORS`` lists only the
+    tiered and mesh-sharded executors, and the planner takes
+    ``prefer_static`` to ``jit-masked`` on a flat store."""
+    from repro_torch.core.plan import UNPORTED_EXECUTORS, executor_names
+
+    assert "jit-masked" not in UNPORTED_EXECUTORS
+    assert "jit-masked" in executor_names()
+    assert set(UNPORTED_EXECUTORS) == {
+        "tiered-scan", "routed_tiered", "block-sharded", "dim-sharded",
+        "batch-block-sharded", "routed_bucket"}
+    X, Q = make_dataset(200, 8, "normal", n_queries=1, seed=0)
+    flat = VectorSearchEngine.build(X, pruner="linear", capacity=64, device="cpu")
+    assert flat.search(Q[0], SearchSpec(prefer_static=True)).plan.executor == "jit-masked"
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_without_fallback():
