@@ -73,6 +73,28 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      and against K1 on query 0's START partition; K7
      (``ops.batched_distance_op``) for the batch of 64 at f32 and bf16,
      l2 and ip.
+  5b. tiered (after 4, on the same engine, before 6) — tiered serving
+     beyond device memory (``SearchSpec.hbm_slots``): 256 queries drawn as
+     ``benchmarks/bench_tiered.py`` draws them (zipf a = 3 over a seeded
+     permutation of the collection's 64 clusters), 16 batches of 16, k =
+     10, nprobe = 8, a pool of P // 4 slots (the store at least 4x the
+     pool; the routed demand floor asserted to fit).  Per scan dtype (f32
+     and int8 held, int4 recorded): a cold pass and a warm pass with K2's
+     counter zeroed before and read after (one launch per (chunk, pass)
+     step, asserted batch by batch), held to ids equal to a pool of all P
+     slots, recall@10 >= 0.99 against the exact top-10 within each query's
+     routed buckets (direct f32 differences on the card), exact returned
+     distances, no id outside the routed buckets, a warm hit rate >= 0.8,
+     and ``sync_uploads`` giving the same ids and misses; recorded: walls
+     per batch, hits, misses, evictions, uploaded slots, bytes sent, the
+     upload wait and overlap, the worker's host-quantize seconds, the first
+     search's set-up, the pool's bytes; for int8 a ``torch.profiler`` view
+     of one cold and one warm batch (host quantize and re-rank seconds
+     beside it), and K2 on the pool's shape (S slots, B = 16) against its
+     plain version at every dtype.  Then ``tiered_tree``: the two-level
+     centroid tree on a copy of the index (super_k = max(8, sqrt(nlist)),
+     nprobe_super = 4): routing cost below nlist, bucket overlap with flat
+     routing >= 0.9, tiered recall against flat-routed tiered >= 0.9.
   6. mutable (after 4, on the same engine) — the store made mutable
      (``from_store``: masters to the host, the frozen mirrors dropped),
      10,000 ids drawn from ``--seed`` deleted, 10,000 rows of
@@ -85,16 +107,20 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      K1 then K3), held to recall@10 against the live set's ground truth
      (the floors of 2 and 3), exact returned distances and no deleted id;
      16 inserted rows (8 sealed, 8 in the head) queried as themselves must
-     come back at rank 0; the write-head merge timed alone.  Then
-     ``compact()`` and the same again.  Every K1, K2 and K3 must launch.
+     come back at rank 0; the write-head merge timed alone; one int8
+     ``tiered-scan`` batch of 16 (a pool of P // 4 slots) held to the
+     tiered floors, no deleted id.  Then ``compact()`` and the same again
+     (the tiered pool must change generation).  Every K1, K2 and K3 must
+     launch.
   7. jit_masked — a flat ADSampling engine over the first 65,536 rows:
      4 queries with ``prefer_static=True`` plan ``jit-masked`` and return
      the ``adaptive`` executor's ids; both run plain PyTorch on the card.
   5. the kernels line: one JSON object per kernel and dtype (K4 and K5 by
      metric over the Table 4 sweep, K4 and K6 on the flat block, K7 by
-     dtype and metric); the K1, K2 and K3 rows on the mutable phase's path
-     also carry ``launches_mutable`` (its counts before and after
-     ``compact``).
+     dtype and metric, K2 on the tiered pool by dtype); the K1, K2 and K3
+     rows on the mutable phase's path also carry ``launches_mutable`` (its
+     counts before and after ``compact``), the K2 rows ``launches_tiered``
+     (phase 5b's cold and warm passes).
 
 Then the card's name and power limit (``nvidia-smi``), and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -174,6 +200,14 @@ CASCADE_RECALL_FLOOR = 0.99
 # queried as themselves; phase jit_masked: rows of its flat engine, queries
 MUT_DELETE, MUT_INSERT, MUT_BATCH, MUT_SELF = 10_000, 10_000, 200, 16
 MASKED_ROWS, MASKED_QUERIES = 65_536, 4
+
+# phase tiered (benchmarks/bench_tiered.py's serving premise): queries, batch,
+# zipf exponent of the hot clusters, probes; f32 and int8 held to the floors,
+# int4 recorded; the two-level tree's descent and its floors
+TIERED_QUERIES, TIERED_BATCH, TIERED_ZIPF, TIERED_NPROBE = 256, 16, 3.0, 8
+TIERED_DTYPES, TIERED_HELD, TIERED_PROFILE_DTYPE = ("f32", "int8", "int4"), ("f32", "int8"), "int8"
+TIERED_RECALL_FLOOR, TIERED_HIT_FLOOR = 0.99, 0.8
+TREE_NPROBE_SUPER, TREE_OVERLAP_FLOOR, TREE_RECALL_FLOOR = 4, 0.9, 0.9
 
 
 def emit(obj: dict) -> None:
@@ -341,32 +375,38 @@ def where_time_goes(torch, eng, Q, spec, prefix: str, **tag) -> dict:
     """Device time by kernel name under ``torch.profiler`` for the path's
     two calls (16 single queries, one batch of 64), beside their host wall
     time: the device busy share and the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     out = {"phase": "where_time_goes", **tag}
     for label, run in (
         (f"{prefix}_scan_16_queries", lambda: [eng.search(Q[i], spec) for i in range(N_SINGLE)]),
         (f"{prefix}_batch_64", lambda: eng.search(Q, spec)),
     ):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # device-side events only: a CPU op's device time repeats that of
-        # the kernels it launched
-        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        rows.sort(key=lambda r: -r[1])
-        busy = sum(r[1] for r in rows)
-        out[label] = {"wall_ms": wall * 1e3, "device_busy_ms": busy,
-                      "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
-                      "top": [{"kernel": k[:80], "ms": ms, "calls": c}
-                              for k, ms, c in rows[:8]]}
+        out[label] = device_profile(torch, run)
     return out
+
+
+def device_profile(torch, run) -> dict:
+    """One call of ``run`` under ``torch.profiler``: its host wall, the
+    device's busy time summed over its kernels and copies, the idle share
+    and the top device events by time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only: a CPU op's device time repeats that of the
+    # kernels it launched
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1 - busy / (wall * 1e3)),
+            "top": [{"kernel": k[:80], "ms": ms, "calls": c} for k, ms, c in rows[:8]]}
 
 
 def kernel_times(torch, fn, reps: int = 5) -> dict:
@@ -530,6 +570,65 @@ def scan_kernel_row(torch, ref, m, ids, qt, thr, eps0, *, prefetch: bool,
     assert summary["parity"], f"{name} disagrees with its plain version"
     assert launches == 0 or geo["body"] == "bulk", f"{name}: the path ran the {geo['body']} body"
     return row
+
+
+def k2_kernel_row(torch, ref, data, Qt, sc, off, packed: bool, dim: int, dt: str,
+                  name: str, launches: int, live_cols) -> dict:
+    """K2 on the (P, D', C) tiles ``data`` for the (B, D) queries ``Qt``
+    against its plain version (the op's CPU body, tile by tile) at K2's
+    tolerance on the live columns, with the kernel's, the whole op's, the
+    plain version's and ``torch.matmul``'s times and the bound.  Emits the
+    phase line, returns the row."""
+    from repro_torch.kernels.batched_matmul import batched_distance_quant_cuda
+    from repro_torch.kernels.ops import _unpack_int4_levels, batched_distance_quant_op
+
+    P, _, C = data.shape
+    D = dim
+    B = Qt.shape[0]
+    kout = batched_distance_quant_op(data, Qt, sc, off, "l2", packed=packed, dim=dim)
+    T32 = ref.dequantize_ref(data, sc, off, dim_axis=1, packed=packed, dim=dim)
+    src = _unpack_int4_levels(data, dim) if packed else data
+
+    def k2_plain():  # the op's CPU body, partition by partition
+        return torch.cat([ref.batched_distance_quant_ref(t, Qt, sc, off) for t in src], dim=1)
+
+    pout = k2_plain()
+    qn = torch.sum(Qt * Qt, dim=1)
+    xn = torch.sum(T32 * T32, dim=1).reshape(-1)
+    tol = 1e-5 * (qn[:, None] + xn[None, :]) + 1e-3
+    diff = (kout - pout).abs()[:, live_cols]
+    err2 = float(diff.max())
+    ok2 = bool((diff <= tol[:, live_cols]).all())
+    # the kernel reads the tiles as stored (int4: packed bytes)
+    ms2 = cuda_ms(torch, lambda: batched_distance_quant_cuda(
+        data, Qt, qn, sc, off, metric="l2", dim=dim if packed else None))
+    # the whole op: qn included
+    op2 = cuda_ms(torch, lambda: batched_distance_quant_op(
+        data, Qt, sc, off, "l2", packed=packed, dim=dim))
+    plain2 = cuda_ms(torch, k2_plain)
+    lib2 = cuda_ms(torch, lambda: torch.matmul(Qt, T32))
+    # the search needs the live columns only: their tile values at the
+    # tiles' width, the queries, (B, live) distances out; the product at
+    # the split's rate, the column norms, the epilogue and the dequant FMA
+    # where quantized on the SIMT cores
+    n_live = int(live_cols.sum())
+    bpv = {"f32": 4, "bf16": 2, "int8": 1, "int4": 0.5}[dt]
+    quantized = sc is not None
+    k2_bytes = (n_live * D * bpv + Qt.numel() * 4 + B * n_live * 4
+                + (2 * D * 4 if quantized else 0))
+    k2_flops = n_live * 2.0 * B * D
+    k2_simt = n_live * (2.0 * D + 3.0 * B + (2.0 * D if quantized else 0.0))
+    b2, by2 = bound_ms(k2_bytes, k2_flops, product_peak(True, dt == "f32"), k2_simt)
+    row2 = {"name": name, "route": "cuda", "source": K2_SOURCE, "replaces": K2_REPLACES,
+            "launches": launches, "max_abs_err": err2,
+            "ms": ms2, "plain_ms": plain2, "bound_ms": b2, "bound_by": by2,
+            "library_ms": lib2, "parity": ok2, "op_ms": op2}
+    emit({"phase": "kernel_vs_plain", **row2,
+          "library_call": "torch.matmul(Q, dequantized f32 tiles), cross term only",
+          "bound_bytes": k2_bytes, "bound_flops": k2_flops, "bound_simt_flops": k2_simt,
+          "live_columns": n_live, "columns_written": P * C, "tiles": P, "queries": B})
+    assert ok2, f"{name} disagrees with its plain version"
+    return row2
 
 
 def stage_kernel_row(torch, ref, call: dict, ladder: str, stage: str) -> dict:
@@ -1177,6 +1276,27 @@ def mutable_round(torch, eng, Q, Qd, Xall, gt, dead, own, own_ids, counters,
     assert not np.isin(c_ids, dead).any(), f"{tag} cascade: a deleted id was returned"
     assert out["cascade_scan"]["recall_at_10"] >= CASCADE_RECALL_FLOOR, out["cascade_scan"]
     assert out["cascade_scan"]["dist_rel_err"] <= 1e-3, out["cascade_scan"]
+    # one int8 tiered batch over the mutable store, a pool of P // 4 slots
+    S = store.num_partitions // 4
+    spec = SearchSpec(k=K, nprobe=TIERED_NPROBE, hbm_slots=S, scan_dtype="int8")
+    n2 = counters["k2"].launches
+    res, t_t = timed(torch, lambda: eng.search(Q[:TIERED_BATCH], spec))
+    launches["K2 batched_distance_quant [int8, tiered pool]"] = counters["k2"].launches - n2
+    assert res.plan.executor == "tiered-scan", res.plan
+    Qb = Qd[:TIERED_BATCH]
+    sel = eng.ivf.route_batch(eng.pruner.transform_batch(Qb), TIERED_NPROBE)
+    truth, allowed = routed_truth(torch, eng.ivf, store.ids.cpu().numpy(), Xall, Qb, sel,
+                                  extra=store.head_live()[0])
+    outside = sum(len(set(g.tolist()) - a) for g, a in zip(res.ids, allowed))
+    out["tiered"] = {"hbm_slots": S, "generation": store._tiered_cache[(S, "int8", 1)].generation,
+                     "recall_at_10_routed": recall(res.ids, truth),
+                     "dist_rel_err": dist_error(torch, Xall, Qb, res.ids, res.dists),
+                     "ids_outside_routed_buckets": outside, "wall_ms": t_t * 1e3}
+    store._tiered_cache = {}
+    store.__dict__.pop("_host_rows_cache", None)
+    assert not np.isin(res.ids, dead).any(), f"{tag} tiered: a deleted id was returned"
+    assert out["tiered"]["recall_at_10_routed"] >= TIERED_RECALL_FLOOR, out["tiered"]
+    assert out["tiered"]["dist_rel_err"] <= 1e-3 and outside == 0, out["tiered"]
     totals = {k: c.launches for k, c in counters.items()}
     out["launches"] = totals
     assert all(v > 0 for v in totals.values()), f"{tag}: a kernel never launched {totals}"
@@ -1250,6 +1370,8 @@ def mutable_phase(torch, eng, Xd, Q, Qd, seed: int, counters: dict) -> tuple[lis
                                             counters, tag)
         if tag == "compacted":
             line["compact_s"] = t_compact
+            assert line["tiered"]["generation"] != lines[-1]["tiered"]["generation"], \
+                "the tiered pool kept its generation across compact()"
         lines.append(line)
     return lines, launches
 
@@ -1290,6 +1412,291 @@ def jit_masked_phase(torch, Xd, Q, seed: int, counters: dict) -> dict:
     return line
 
 
+def tiered_queries(seed: int, D: int, n_clusters: int = 64) -> np.ndarray:
+    """``benchmarks/bench_tiered.py:_clustered``'s query stream over the
+    clusters of ``make_dataset(kind="clustered", seed=seed)``: that call's
+    first two draws are its cluster centres and widths; zipf(a) ranks over
+    a seeded permutation of the clusters pick the hot ones, and each query
+    is a hot cluster's centre plus that cluster's noise."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_clusters, D)) * 4.0
+    widths = rng.uniform(0.3, 1.2, size=(n_clusters, 1))
+    qrng = np.random.default_rng(seed + 3)
+    ranks = qrng.zipf(TIERED_ZIPF, size=TIERED_QUERIES)
+    hot = qrng.permutation(n_clusters)[np.minimum(ranks - 1, n_clusters - 1)]
+    Q = centers[hot] + qrng.standard_normal((TIERED_QUERIES, D)) * widths[hot]
+    return Q.astype(np.float32)
+
+
+def routed_truth(torch, ivf, ids_host, Xall, Qd, sel, extra=None):
+    """(exact top-K ids within each query's routed buckets, by direct f32
+    differences on the card; the routed id set of each query).  ``extra``
+    ids (a write-head's live rows) join every query's set."""
+    truth, allowed = [], []
+    for qi, row in enumerate(sel):
+        parts = ivf.partition_order(np.asarray(row), len(row))
+        cand = ids_host[parts].reshape(-1)
+        cand = cand[cand >= 0]
+        if extra is not None:
+            cand = np.concatenate([cand, extra])
+        allowed.append(set(cand.tolist()))
+        c = torch.from_numpy(cand.astype(np.int64)).to(Xall.device)
+        diff = Xall[c] - Qd[qi][None, :]
+        d = torch.sum(diff * diff, dim=1)
+        top = torch.topk(d, min(K, len(cand)), largest=False).indices.cpu().numpy()
+        truth.append(cand[top])
+    return np.stack(truth), allowed
+
+
+class CallTimer:
+    """Wraps a callable, adding up the host seconds spent in it."""
+
+    def __init__(self, fn):
+        self.fn, self.seconds, self.calls = fn, 0.0, 0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*args, **kwargs)
+        finally:
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+
+
+def tiered_steps(plan, sel, cnts, region_slots: int) -> int:
+    """(chunk, pass) steps the tiered executor runs for one batch."""
+    chunks = plan._tiered_chunks(sel, cnts, lambda b: 0, region_slots)
+    return sum(len(plan._chunk_passes(sel[c], cnts, lambda b: 0, region_slots))
+               for c in chunks)
+
+
+def tiered_pass(torch, eng, batches, sels, spec, reg, k2) -> dict:
+    """The batches through ``engine.search`` under ``spec`` (tiered-scan):
+    each batch's wall, K2 launched once per (chunk, pass) step, and the
+    cache's counters over the pass (the registry is on).  -> the pass's
+    record, ids and dists included."""
+    from repro_torch.core import plan
+
+    bc = plan._get_bucket_cache(eng.store, spec, ivf=eng.ivf)
+    cnts = np.asarray(eng.ivf.part_counts)
+    keys = ("hit", "miss", "evict")
+    before = {e: reg.get("repro_tiered_cache_events_total", event=e) for e in keys}
+    bytes0 = reg.get("repro_tiered_prefetch_bytes_total", dtype=spec.scan_dtype)
+    walls, ids, dists, launched = [], [], [], 0
+    for Qb, sel in zip(batches, sels):
+        steps = tiered_steps(plan, sel, cnts, bc.region_slots)
+        n0 = k2.launches
+        t0 = time.perf_counter()
+        res = eng.search(Qb, spec)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        assert res.plan.executor == "tiered-scan", res.plan
+        assert k2.launches - n0 == steps, (k2.launches - n0, steps)
+        launched += steps
+        ids.append(res.ids)
+        dists.append(res.dists)
+    ev = {e: reg.get("repro_tiered_cache_events_total", event=e) - before[e] for e in keys}
+    looked = ev["hit"] + ev["miss"]
+    h2d = reg.get("repro_tiered_prefetch_bytes_total", dtype=spec.scan_dtype) - bytes0
+    # the counter holds the bytes that crossed: quantized where the worker
+    # staged, f32 on the blocking path
+    per_value = 4.0 if bc.sync_uploads or not bc.stage_on_host else bc.bytes_per_value
+    return {"wall_ms_per_batch": walls, "wall_ms_median": statistics.median(walls),
+            "hits": ev["hit"], "misses": ev["miss"], "evictions": ev["evict"],
+            "uploaded_slots": h2d / (bc.dim * eng.store.capacity * per_value),
+            "hit_rate": ev["hit"] / looked if looked else 1.0,
+            "h2d_bytes": h2d, "k2_launches": launched,
+            "ids": np.concatenate(ids), "dists": np.concatenate(dists)}
+
+
+def tiered_phase(torch, ref, eng, Xd, seed: int, k2) -> tuple[list, list, dict]:
+    """Tiered serving on the main path's IVF engine: 256 queries drawn as
+    ``tiered_queries`` in 16 batches of 16 through ``tiered-scan`` with
+    ``hbm_slots`` = P // 4 (the store at least 4x the pool), k = 10,
+    nprobe = 8, per scan dtype a cold pass then a warm pass (K2 counted,
+    once per step), held at f32 and int8 (recorded at int4) to: ids equal
+    to a pool of all P slots, recall@10 against the exact top-10 within
+    each query's routed buckets, exact returned distances, no id outside
+    the routed buckets, a warm hit rate, and ``sync_uploads`` giving the
+    same ids and misses.  Then the two-level tree on a copy of the index.
+    Emits a phase line per dtype and the tree's, each before its asserts.
+    -> (K2 rows on the pool's shape, K2 launches by dtype)."""
+    import dataclasses
+
+    from repro_torch.core import layout, plan
+    from repro_torch.core.engine import SearchSpec
+    from repro_torch.index.kmeans import build_centroid_tree
+    from repro_torch.obs import metrics
+
+    store, ivf = eng.store, eng.ivf
+    P, D, C = store.data.shape
+    S = P // 4
+    cnts = np.asarray(ivf.part_counts)
+    floor = int(np.sort(cnts)[-TIERED_NPROBE:].sum())
+    assert S >= floor, (S, floor)  # any query's routed demand fits the pool
+    Q = tiered_queries(seed, D)
+    Qd = torch.from_numpy(Q).to(Xd.device)
+    Qt = eng.pruner.transform_batch(Qd)
+    sel = ivf.route_batch(Qt, TIERED_NPROBE)
+    batches = [Q[lo:lo + TIERED_BATCH] for lo in range(0, TIERED_QUERIES, TIERED_BATCH)]
+    sels = [sel[lo:lo + TIERED_BATCH] for lo in range(0, TIERED_QUERIES, TIERED_BATCH)]
+    ids_host = store.ids.cpu().numpy()
+    truth, allowed = routed_truth(torch, ivf, ids_host, Xd, Qd, sel)
+    rows, launches = {}, {}
+    reg = metrics.get_registry()
+    reg.reset()
+    metrics.set_enabled(True)
+    rerank = CallTimer(plan._tiered_rerank)
+    plan._tiered_rerank = rerank
+    try:
+        # the first search's set-up, timed step by step: the host pull of the
+        # masters, the sorted host rows of the re-rank
+        _, t_pull = timed(torch, lambda: layout._host_masters(store))
+        _, t_rows = timed(torch, lambda: plan._host_master_rows(store))
+        for dt in TIERED_DTYPES:
+            reg.reset()  # the upload-wait histogram of this dtype's passes
+            spec = SearchSpec(k=K, nprobe=TIERED_NPROBE, hbm_slots=S, scan_dtype=dt)
+            line = {"phase": "tiered", "scan_dtype": dt, "n": Xd.shape[0], "dim": D,
+                    "partitions": P, "hbm_slots": S, "nprobe": TIERED_NPROBE,
+                    "queries": TIERED_QUERIES, "batch": TIERED_BATCH,
+                    "routed_demand_floor_slots": floor,
+                    "host_pull_s": t_pull, "host_rows_s": t_rows}
+            bc = plan._get_bucket_cache(store, spec, ivf=ivf)
+            quant = CallTimer(bc._host_quantize)
+            bc._host_quantize = quant
+            params = CallTimer(layout._host_quant_params)
+            layout._host_quant_params = params
+            try:  # the quant params, then the pool's allocation
+                _, line["revalidate_s"] = timed(torch, bc._revalidate)
+            finally:
+                layout._host_quant_params = params.fn
+            line["quant_params_s"] = params.seconds
+            pool = bc._pool
+            line["pool_bytes"] = pool.numel() * pool.element_size()
+            line["device_mem_gb"] = torch.cuda.memory_allocated() / 1e9
+            k2.launches = 0
+            cold = tiered_pass(torch, eng, batches, sels, spec, reg, k2)
+            line["host_quantize_s_cold"], line["host_quantize_extents_cold"] = (
+                quant.seconds, quant.calls)
+            warm = tiered_pass(torch, eng, batches, sels, spec, reg, k2)
+            launches[dt] = k2.launches
+            assert launches[dt] == cold["k2_launches"] + warm["k2_launches"]
+            # K2 on the pool's shape (S slots, a batch of 16) against its plain
+            # version, on the pool as the warm pass left it
+            pool, ids_dev, _, sc, off = bc.arrays()
+            rows[dt] = k2_kernel_row(
+                torch, ref, pool, Qt[:TIERED_BATCH].contiguous(),
+                sc if bc.quantized else None, off if bc.quantized else None,
+                bc.packed, D, dt, f"K2 batched_distance_quant [{dt}, tiered pool]",
+                launches[dt], (ids_dev >= 0).reshape(-1))
+            del pool, ids_dev, sc, off
+            hist = reg.snapshot()["histograms"].get("repro_cache_upload_wait_us", {})
+            line["upload_wait_us"] = {k: {"count": v["count"], "sum": v["sum"]}
+                                      for k, v in hist.items()}
+            line["upload_overlap_ratio"] = reg.get("repro_cache_upload_overlap_ratio")
+            got, dists = warm["ids"], warm["dists"]
+            assert np.array_equal(cold["ids"], got), f"{dt}: cold and warm ids differ"
+            line["recall_at_10_routed"] = recall(got, truth)
+            line["dist_rel_err"] = dist_error(torch, Xd, Qd, got, dists)
+            outside = sum(len(set(g.tolist()) - a) for g, a in zip(got, allowed))
+            line["ids_outside_routed_buckets"] = outside
+            # a pool of every slot: the fully resident cache
+            full = spec.replace(hbm_slots=P)
+            res_full = tiered_pass(torch, eng, batches, sels, full, reg, k2)
+            line["ids_equal_full_pool"] = bool(np.array_equal(res_full["ids"], got))
+            del store._tiered_cache[(P, dt, 1)], res_full
+            # the blocking upload path on a fresh pool: same ids, same misses
+            del store._tiered_cache[(S, dt, 1)]
+            bc_sync = plan._get_bucket_cache(store, spec, ivf=ivf)
+            bc_sync.sync_uploads = True
+            bc_sync._revalidate()  # set-up, out of the timed pass
+            sync = tiered_pass(torch, eng, batches, sels, spec, reg, k2)
+            line["sync_ids_equal"] = bool(np.array_equal(sync["ids"], cold["ids"]))
+            line["sync_misses_equal"] = sync["misses"] == cold["misses"]
+            del store._tiered_cache[(S, dt, 1)]
+            for name, rec in (("cold", cold), ("warm", warm), ("sync_cold", sync)):
+                line[name] = {k: v for k, v in rec.items() if k not in ("ids", "dists")}
+            if dt == TIERED_PROFILE_DTYPE:
+                # where a cold and a warm batch spend their time, on a fresh pool
+                bc = plan._get_bucket_cache(store, spec, ivf=ivf)
+                bc._revalidate()  # set-up, out of the profiled batch
+                for tag in ("cold", "warm"):
+                    quant = CallTimer(bc._host_quantize)
+                    bc._host_quantize = quant
+                    r0 = rerank.seconds
+                    prof = device_profile(torch, lambda: eng.search(batches[0], spec))
+                    prof.update(host_quantize_s=quant.seconds,
+                                host_rerank_s=rerank.seconds - r0)
+                    line[f"profile_{tag}_batch"] = prof
+            store._tiered_cache.clear()
+            emit(line)
+            if dt in TIERED_HELD:
+                assert line["recall_at_10_routed"] >= TIERED_RECALL_FLOOR, line
+                assert warm["hit_rate"] >= TIERED_HIT_FLOOR, line["warm"]
+                assert line["ids_equal_full_pool"], f"{dt}: ids differ from a full pool"
+                assert line["sync_ids_equal"] and line["sync_misses_equal"], line
+            assert line["dist_rel_err"] <= 1e-3, line
+            assert outside == 0, f"{dt}: {outside} ids outside the routed buckets"
+
+        # the two-level tree, on copies of the index (other phases keep flat
+        # routing): the bench rule's tree, and the same super-centroids with
+        # the balance cap lifted (every centroid under its nearest super)
+        nlist = ivf.nlist
+        tree = dataclasses.replace(ivf)
+        _, t_tree = timed(torch, lambda: tree.attach_tree(
+            max(8, int(np.sqrt(nlist))), TREE_NPROBE_SUPER))
+        SK, M = tree.super_children.shape
+        free = dataclasses.replace(ivf)
+        sc_free, ch_free = build_centroid_tree(ivf.centroids.cpu().numpy(), SK,
+                                               balance=float(nlist), device=Xd.device)
+        free.super_centroids = torch.from_numpy(sc_free).to(Xd.device)
+        free.super_children = torch.from_numpy(ch_free).to(Xd.device)
+        free.nprobe_super = TREE_NPROBE_SUPER
+        spec = SearchSpec(k=K, nprobe=TIERED_NPROBE, hbm_slots=S, scan_dtype="int8")
+        flat = tiered_pass(torch, eng, batches, sels, spec, reg, k2)
+        tline = {"phase": "tiered_tree", "nlist": nlist, "super_k": SK, "max_children": M,
+                 "nprobe_super": tree.nprobe_super, "routing_cost": tree.routing_cost(),
+                 "max_children_uncapped": int(ch_free.shape[1]),
+                 "routing_cost_uncapped": free.routing_cost(), "attach_s": t_tree,
+                 "wall_ms_median_flat": flat["wall_ms_median"]}
+        for tag, idx in (("", tree), ("_uncapped", free)):
+            sel_t = idx.route_batch(Qt, TIERED_NPROBE)
+            sels_t = [sel_t[lo:lo + TIERED_BATCH]
+                      for lo in range(0, TIERED_QUERIES, TIERED_BATCH)]
+            res = tiered_pass(torch, dataclasses.replace(eng, ivf=idx), batches, sels_t,
+                              spec, reg, k2)
+            truth_t, allowed_t = routed_truth(torch, idx, ids_host, Xd, Qd, sel_t)
+            tline.update({
+                f"bucket_overlap_with_flat{tag}": float(np.mean(
+                    [len(set(a.tolist()) & set(b.tolist())) / TIERED_NPROBE
+                     for a, b in zip(sel_t, sel)])),
+                f"tiered_recall_vs_flat{tag}": recall(res["ids"], flat["ids"]),
+                f"recall_at_10_routed{tag}": recall(res["ids"], truth_t),
+                f"ids_outside_routed_buckets{tag}": sum(
+                    len(set(g.tolist()) - a) for g, a in zip(res["ids"], allowed_t)),
+                f"wall_ms_median_tree{tag}": res["wall_ms_median"]})
+        store._tiered_cache.clear()
+        emit(tline)
+        assert tree.routing_cost() == SK + TREE_NPROBE_SUPER * M < nlist, tline
+        # the executor answers exactly within whatever buckets the tree routes
+        for tag in ("", "_uncapped"):
+            assert tline[f"recall_at_10_routed{tag}"] >= TIERED_RECALL_FLOOR, tline
+            assert tline[f"ids_outside_routed_buckets{tag}"] == 0, tline
+        # the descent finds flat routing's buckets where the reference's
+        # balance cap leaves each centroid under its nearest super; with the
+        # cap the overlap is the reference's and is recorded (ROADMAP
+        # section 3: the cap moves a whole cluster's lists out of reach)
+        assert tline["bucket_overlap_with_flat_uncapped"] >= TREE_OVERLAP_FLOOR, tline
+        assert tline["tiered_recall_vs_flat_uncapped"] >= TREE_RECALL_FLOOR, tline
+    finally:
+        plan._tiered_rerank = rerank.fn
+        metrics.set_enabled(False)
+        reg.reset()
+        store._tiered_cache = {}
+        for name in ("_host_masters_cache", "_host_rows_cache"):
+            store.__dict__.pop(name, None)
+    return list(rows.values()), launches
+
+
 def recall(found, true) -> float:
     found, true = found.reshape(len(true), -1), true
     hits = sum(len(set(f.tolist()) & set(t.tolist())) for f, t in zip(found, true))
@@ -1321,9 +1728,7 @@ def main() -> int:
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels.batched_matmul import batched_distance_quant_cuda
-    from repro_torch.kernels.ops import (
-        _unpack_int4_levels, batched_distance_quant_op, pdx_prune_scan_multi_op,
-    )
+    from repro_torch.kernels.ops import pdx_prune_scan_multi_op
     from repro_torch.kernels.pdx_scan import (
         pdx_prune_scan_multi_cuda, pdx_prune_scan_multi_prefetch_cuda,
     )
@@ -1487,7 +1892,6 @@ def main() -> int:
     ids_scan[p0] = -1
     Qt = pruner.transform_batch(Qd)
     live_cols = (store.ids >= 0).reshape(-1)
-    n_live = int(store.counts.sum())
     kernels = []
     for dt in DTYPES:
         m = device_mirror(store, dt)
@@ -1501,53 +1905,10 @@ def main() -> int:
                                        launches_by_executor=by_executor))
 
         # K2 ------------------------------------------------------------
-        kout = batched_distance_quant_op(m.data, Qt, sc, off, "l2",
-                                         packed=m.packed, dim=m.dim)
-        T32 = ref.dequantize_ref(m.data, sc, off, dim_axis=1, packed=m.packed,
-                                 dim=m.dim)
-
-        src = _unpack_int4_levels(m.data, m.dim) if m.packed else m.data
-
-        def k2_plain():  # the op's CPU body, partition by partition
-            return torch.cat([ref.batched_distance_quant_ref(t, Qt, sc, off)
-                              for t in src], dim=1)
-
-        pout = k2_plain()
-        qn = torch.sum(Qt * Qt, dim=1)
-        xn = torch.sum(T32 * T32, dim=1).reshape(-1)
-        tol = 1e-5 * (qn[:, None] + xn[None, :]) + 1e-3
-        diff = (kout - pout).abs()[:, live_cols]
-        err2 = float(diff.max())
-        ok2 = bool((diff <= tol[:, live_cols]).all())
-        # the kernel reads the mirror as stored (int4: packed bytes)
-        ms2 = cuda_ms(torch, lambda: batched_distance_quant_cuda(
-            m.data, Qt, qn, sc, off, metric="l2", dim=m.dim if m.packed else None))
-        # the whole op: qn included
-        op2 = cuda_ms(torch, lambda: batched_distance_quant_op(
-            m.data, Qt, sc, off, "l2", packed=m.packed, dim=m.dim))
-        plain2 = cuda_ms(torch, k2_plain)
-        lib2 = cuda_ms(torch, lambda: torch.matmul(Qt, T32))
-        # the search needs the live columns only: their tile values at the
-        # mirror's width, the queries, (B, live) distances out; the product
-        # at the split's rate, the column norms, the epilogue and the
-        # dequant FMA where quantized on the SIMT cores
-        k2_bytes = (n_live * D * m.bytes_per_value + Qt.numel() * 4
-                    + N_BATCH * n_live * 4 + (2 * D * 4 if m.quantized else 0))
-        k2_flops = n_live * 2.0 * N_BATCH * D
-        k2_simt = n_live * (2.0 * D + 3.0 * N_BATCH + (2.0 * D if m.quantized else 0.0))
-        b2, by2 = bound_ms(k2_bytes, k2_flops, product_peak(True, dt == "f32"), k2_simt)
-        row2 = {"name": f"K2 batched_distance_quant [{dt}]", "route": "cuda",
-                "source": K2_SOURCE, "replaces": K2_REPLACES,
-                "launches": per_dtype[dt]["k2"], "max_abs_err": err2,
-                "ms": ms2, "plain_ms": plain2, "bound_ms": b2, "bound_by": by2,
-                "library_ms": lib2, "parity": ok2, "op_ms": op2}
-        emit({"phase": "kernel_vs_plain", **row2,
-              "library_call": "torch.matmul(Q, dequantized f32 tiles), cross term only",
-              "bound_bytes": k2_bytes, "bound_flops": k2_flops, "bound_simt_flops": k2_simt,
-              "live_columns": n_live, "columns_written": P * C})
-        assert ok2, f"K2 {dt} disagrees with its plain version"
+        row2 = k2_kernel_row(torch, ref, m.data, Qt, sc, off, m.packed, m.dim, dt,
+                             f"K2 batched_distance_quant [{dt}]", per_dtype[dt]["k2"],
+                             live_cols)
         kernels.append(row2)
-        del T32, pout, kout, src
 
     # K3 ----------------------------------------------------------------
     # its ids are the survivors of a real previous stage: ladder A's
@@ -1588,6 +1949,18 @@ def main() -> int:
     for (name, stage), call in stage_calls.items():
         kernels.append(stage_kernel_row(torch, ref, call, name, stage))
     del stage_calls
+
+    # ----------------------------------------------------- 5b. tiered
+    t0 = time.perf_counter()
+    pool_rows, tiered_launches = tiered_phase(torch, ref, eng, Xd, args.seed,
+                                              batched_distance_quant_cuda)
+    emit({"phase": "tiered_done", "k2_launches": tiered_launches,
+          "seconds": time.perf_counter() - t0})
+    k2_rows = {f"K2 batched_distance_quant [{dt}]": dt for dt in DTYPES}
+    for row in kernels:
+        if row["name"] in k2_rows:
+            row["launches_tiered"] = tiered_launches.get(k2_rows[row["name"]], 0)
+    kernels += pool_rows
 
     # ------------------------------- 6. the mutable store, 7. jit-masked
     # the frozen store's tensors go: the mutable store takes the card

@@ -11,7 +11,9 @@ no k-means or rotation of the port's own in between.  Keys:
            ADSampling; ``components`` (D, D), ``eigval`` (D,) and ``bsa_m``
            for BSA; ``zone_size`` for BOND (its means are ``dim_means``)
   IVF      ``centroids`` (K, D), ``part_offsets`` (K,), ``part_counts``
-           (K,), ``nlist`` — present only for an IVF engine
+           (K,), ``nlist`` — present only for an IVF engine; with a
+           two-level centroid tree also ``super_centroids`` (SK, D),
+           ``super_children`` (SK, M) and ``nprobe_super``
   mutable  the keys of ``mutable_store_arrays`` — present only when the
            engine's store is a ``MutablePDXStore``; the store keys are then
            its host masters, and the IVF bucket boundaries come from it
@@ -141,6 +143,10 @@ def engine_from_arrays(arrays: dict, *, device, spec: SearchSpec | None = None
                          else np.asarray(arrays["part_counts"])),
             nlist=nlist,
         )
+        if arrays.get("super_centroids") is not None:
+            ivf.super_centroids = t("super_centroids", np.float32)
+            ivf.super_children = t("super_children", np.int32)
+            ivf.nprobe_super = int(arrays["nprobe_super"])
     return VectorSearchEngine(
         store=store, pruner=_pruner(arrays, store.dim, dev),
         spec=spec if spec is not None else SearchSpec(), ivf=ivf,

@@ -24,8 +24,15 @@ Mutation upgrades the frozen ``PDXStore`` into a versioned
 searches observe ``store.version`` through the plan trace, and the device
 tensors and mirrors are rebuilt once per sealed mutation.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-item): meshes, the IVF centroid tree and tiered serving.
+Tiered serving: ``search(Q, SearchSpec(hbm_slots=S))`` on an IVF engine
+keeps the f32 masters on the host and a pool of ``S`` tile slots on the
+device as a bucket-granular cache (``core.layout.BucketCache``, the
+``tiered-scan`` executor).  ``build(index="ivf", tree=True)`` (or
+``tree="auto"`` at nlist >= 4096) routes through the two-level centroid
+tree.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
+meshes.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from ..index.ivf import TREE_NOT_PORTED, IVFIndex, build_ivf
+from ..index.ivf import IVFIndex, build_ivf
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from .device import resolve_device
@@ -132,6 +139,8 @@ class VectorSearchEngine:
         cascade: Optional[tuple] = None,
         route_dtype: str = "f32",
         tree="auto",
+        super_k: Optional[int] = None,
+        nprobe_super: Optional[int] = None,
         device=None,
     ) -> "VectorSearchEngine":
         dev = resolve_device(device)
@@ -148,7 +157,8 @@ class VectorSearchEngine:
             nlist = nlist or max(int(np.sqrt(len(X))), 1)
             ivf = build_ivf(
                 Xt, nlist, capacity=capacity, kmeans_iters=kmeans_iters,
-                seed=seed, precomputed=precomputed_ivf, tree=tree, device=dev,
+                seed=seed, precomputed=precomputed_ivf, tree=tree,
+                super_k=super_k, nprobe_super=nprobe_super, device=dev,
             )
             store = ivf.store
         elif index == "flat":
@@ -321,9 +331,8 @@ class VectorSearchEngine:
         rounding) as ``X_t @ C.T``; a fresh sample refits the components and
         residual-energy quantiles, and the store's live rows are
         re-projected in place.  IVF centroids ride along: bucket assignments
-        are rotation-invariant, so only their coordinates change."""
-        if self.ivf is not None and self.ivf.tree_enabled:
-            raise NotImplementedError(TREE_NOT_PORTED)
+        are rotation-invariant, so only their coordinates change, and a
+        two-level tree is re-clustered in the rotated space."""
         Xt = pdx_to_nary(store)  # live vectors, old projected space, id order
         if len(Xt) < 2:
             return  # no covariance to fit; keep the current calibration
@@ -344,6 +353,14 @@ class VectorSearchEngine:
                 cents, capacity=self.ivf.centroid_store.capacity,
                 device=self.device,
             )
+            if self.ivf.tree_enabled:
+                # the tree clusters *centroids*: re-cluster it in the
+                # rotated space, keeping the configured fan-out
+                self.ivf.attach_tree(
+                    int(self.ivf.super_children.shape[0]),
+                    self.ivf.nprobe_super,
+                    seed=self.pruner.aux["seed"],
+                )
         self.pruner = new_pruner
 
     # --------------------------------------------------------- observability

@@ -1,8 +1,8 @@
 """PDX (Partition Dimensions Across) layout.
 
 Counterpart of ``repro.core.layout`` (``PDXStore``, ``MutablePDXStore``,
-the store builders and the quantized device mirrors; the tiered bucket
-cache is not ported yet).  A PDX *partition* stores up to ``capacity``
+the store builders, the quantized device mirrors and the tiered
+``BucketCache``).  A PDX *partition* stores up to ``capacity``
 vectors dimension-major as a ``(D, capacity)`` tile; a store stacks them
 into ``(P, D, C)``.  Build-time code is NumPy, line for line the
 reference's, and the finished arrays move to the store's device.
@@ -13,6 +13,9 @@ reference's, and the finished arrays move to the store's device.
   tombstoning deletes that poison a slot to ``PAD_VALUE``, free-slot reuse
   and ``repack``; its tensors are uploaded to its device once per
   ``tiles_version``.
+* ``BucketCache`` — a fixed pool of tile slots on the device holding the
+  quantized extents of recently routed IVF buckets, fed from the host
+  masters (tiered serving beyond device memory).
 
 Device mirrors: the store keeps f32 masters and materializes a
 reduced-precision copy per scan dtype on first use (the scan is bandwidth-
@@ -39,7 +42,13 @@ stage of a multi-resolution cascade.
 """
 from __future__ import annotations
 
+import collections
+import concurrent.futures
 import dataclasses
+import functools
+import os
+import threading
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -53,6 +62,7 @@ __all__ = [
     "PDXPartition",
     "PDXStore",
     "MutablePDXStore",
+    "BucketCache",
     "DeviceMirror",
     "ProjectionMirror",
     "SCAN_DTYPES",
@@ -115,9 +125,12 @@ def _observed_scale(data, ids, means, levels: int) -> torch.Tensor:
         dev = torch.abs(data[lo:lo + step] - means[None, :, None])
         dev = torch.where(live[lo:lo + step], dev, 0.0)
         absmax = torch.maximum(absmax, torch.amax(dev, dim=(0, 2)))
-    # divide by a full tensor: a scalar divisor becomes a product with its
-    # reciprocal on CUDA, which rounds differently from the reference
-    return torch.clamp(absmax, min=1e-6) / torch.full_like(absmax, levels)
+    # the reference's jitted ``/ levels`` is strength-reduced by XLA to a
+    # product with the f32 reciprocal, which rounds differently from a true
+    # division in some dimensions; a product with a full tensor of that
+    # reciprocal rounds the same on the CPU and on CUDA
+    return torch.clamp(absmax, min=1e-6) * torch.full_like(
+        absmax, float(np.float32(1.0 / levels)))
 
 
 def _chunk_parts(data) -> int:
@@ -488,6 +501,694 @@ def pdx_to_nary(store) -> np.ndarray:
     )
     order = np.argsort(flat_ids, kind="stable")
     return np.ascontiguousarray(flat_vecs[order])
+
+
+# ==========================================================================
+# Tiered bucket cache — the working set beyond device memory.
+#
+# ``device_mirror`` materializes the WHOLE store at the scan dtype, which
+# caps collection size at device memory.  ``BucketCache`` keeps the f32
+# masters authoritative in host RAM and manages a fixed pool of tile-sized
+# device slots as a bucket-granular cache: routing tells it which IVF
+# buckets a batch will scan (``ensure``), cold buckets are LRU-evicted, and
+# the requested buckets' tile extents are quantized host-side and uploaded.
+# Quantization parameters are computed ONCE per store generation over all
+# live masters with the reference's NumPy arithmetic (``_host_quant_params``),
+# so a cached bucket's tiles never depend on what else is resident:
+# eviction/readmission can never change a candidate set.  ``generation``
+# tags every entry with the store's ``tiles_version``; any sealed-tile
+# mutation invalidates the whole pool exactly like the mirror cache.
+#
+# The reference updates its pool functionally (``pool.at[slots].set``), so a
+# scan in flight keeps the tiles it captured.  Here the pool is updated in
+# place, and stream order gives the same guarantee: on a CUDA store the
+# staged tiles land in buffers of their own (host-quantized into reused
+# pinned buffers, copied on the cache's side stream, an event recorded),
+# and ``wait`` makes the compute stream wait on that event before it writes
+# the slots with ``index_copy_`` on the compute stream itself — after every
+# scan enqueued before it.  The side stream never writes the pool.
+# ==========================================================================
+_POOL_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+                "int8": torch.int8, "int4": torch.uint8}
+
+
+def _quantize_extent_int8(x, scale, offset):
+    """(m, D, C) f32 tile extent -> int8 levels at the GIVEN per-dim affine
+    (the cache's per-generation params): the sub/div/round/clip sequence
+    of ``BucketCache._host_quantize``, so the two are equal bit for bit."""
+    q = torch.round((x - offset[None, :, None]) / scale[None, :, None])
+    return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+def _quantize_extent_int4(x, scale, offset):
+    q = torch.clamp(
+        torch.round((x - offset[None, :, None]) / scale[None, :, None]), -7, 7
+    ).to(torch.int32)
+    if q.shape[1] % 2:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 1))
+    qb = (q + 8).to(torch.uint8)
+    return qb[:, 0::2, :] | (qb[:, 1::2, :] << 4)
+
+
+def _locked(fn):
+    """Serialize a ``BucketCache`` entry point on the instance RLock."""
+    @functools.wraps(fn)
+    def inner(self, *args, **kwargs):
+        with self._lock:
+            return fn(self, *args, **kwargs)
+    return inner
+
+
+# Single shared staging worker for async uploads: ``issue`` hands it the
+# f32 extent, it quantizes and starts the device transfer off the query
+# thread (NumPy ufuncs release the GIL, so staging overlaps the scan the
+# query thread is driving).  One worker keeps upload ordering FIFO and
+# matches the depth-1 ticket discipline.
+_stager: Optional[concurrent.futures.ThreadPoolExecutor] = None
+_stager_lock = threading.Lock()
+
+
+def _stage_pool() -> concurrent.futures.ThreadPoolExecutor:
+    global _stager
+    if _stager is None:
+        with _stager_lock:
+            if _stager is None:
+                _stager = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="bucket-cache-stager"
+                )
+    return _stager
+
+
+class _UploadTicket:
+    """In-flight async upload batch from ``BucketCache.issue``: the
+    admission stats, the staged extents (a Future from the staging worker
+    per missed extent, or an already staged ``_Staged``), the issue
+    timestamp, and the request (for a stale-generation redo).
+    ``BucketCache.wait`` installs it into the pool.  At most one ticket is
+    pending: ``issue`` drains any outstanding ticket first."""
+
+    __slots__ = (
+        "stats", "pending", "buckets", "parts", "t_issue", "generation",
+        "done",
+    )
+
+    def __init__(self, stats, pending, buckets, parts, t_issue, generation):
+        self.stats = stats
+        self.pending = pending    # [Future | _Staged]
+        self.buckets = buckets
+        self.parts = parts
+        self.t_issue = t_issue
+        self.generation = generation
+        self.done = False
+
+
+class _Staged:
+    """One extent on its way into the pool: the tile, its ids and its slot
+    numbers as device tensors, the event that marks their copies landed on
+    the side stream (None off CUDA), and the pinned buffers to give back
+    once it has."""
+
+    __slots__ = ("tile", "ids", "slots", "event", "bufs")
+
+    def __init__(self, tile, ids, slots, event=None, bufs=()):
+        self.tile, self.ids, self.slots = tile, ids, slots
+        self.event, self.bufs = event, bufs
+
+
+class _PinnedStaging:
+    """Reused page-locked host buffers for a cache's uploads, one free list
+    per (dtype, power-of-two size): a buffer is taken for one extent and
+    given back once the copy that read it has landed, so pinned memory is
+    allocated per size class, not per extent."""
+
+    def __init__(self):
+        self._free: dict = collections.defaultdict(list)
+        self._lock = threading.Lock()
+
+    def put(self, src: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(pinned view holding a copy of ``src``, its buffer)."""
+        n = src.numel()
+        key = (src.dtype, 1 << max(n - 1, 0).bit_length())
+        with self._lock:
+            free = self._free[key]
+            buf = free.pop() if free else None
+        if buf is None:
+            buf = torch.empty(key[1], dtype=src.dtype, pin_memory=True)
+        view = buf[:n].view(src.shape)
+        view.copy_(src)
+        return view, buf
+
+    def give(self, bufs) -> None:
+        with self._lock:
+            for buf in bufs:
+                self._free[(buf.dtype, buf.numel())].append(buf)
+
+
+def _host_masters(store) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host (data, ids, means) of the store's sealed tiles: a
+    ``MutablePDXStore``'s NumPy masters, or, for a frozen store, one host
+    copy per ``tiles_version``, kept on the store and shared by every
+    ``BucketCache`` and the tiered re-rank (a CUDA store would otherwise
+    copy itself to the host at every upload)."""
+    data = getattr(store, "_data", None)
+    if data is not None:
+        return data, store._ids, store._dim_means
+    ver = getattr(store, "tiles_version", 0)
+    cached = getattr(store, "_host_masters_cache", None)
+    if cached is None or cached[0] != ver:
+        cached = (ver, store.data.cpu().numpy(), store.ids.cpu().numpy(),
+                  store.dim_means.cpu().numpy().astype(np.float32))
+        store._host_masters_cache = cached
+    return cached[1], cached[2], cached[3]
+
+
+def _host_quant_params(
+    data: np.ndarray, ids: np.ndarray, means: np.ndarray, dtype: str
+) -> tuple[np.ndarray, np.ndarray]:
+    """Per-dimension (scale, offset) over the live host masters, float32
+    arithmetic, the reference's line for line: offset = dim means, scale =
+    live-masked absmax times the f32 reciprocal of 127 (int8) or 7
+    (int4)."""
+    D = data.shape[1]
+    if dtype in ("f32", "bf16"):
+        return np.ones((D,), np.float32), np.zeros((D,), np.float32)
+    means = np.asarray(means, np.float32)
+    live = (ids >= 0)[:, None, :]
+    # in slices of partitions (a maximum is exact in any grouping), so the
+    # temporaries stay a bounded slice of the host masters
+    absmax = np.zeros((D,), np.float32)
+    step = max(1, _QUANT_CHUNK_VALUES // (4 * D * data.shape[2]))
+    for lo in range(0, data.shape[0], step):
+        dev = np.subtract(data[lo:lo + step], means[None, :, None], dtype=np.float32)
+        np.abs(dev, out=dev)
+        absmax = np.maximum(absmax, np.max(
+            dev, axis=(0, 2), where=live[lo:lo + step], initial=np.float32(0.0)))
+    # the reference multiplies by the f32 reciprocal (XLA strength-reduces
+    # its quantizers' ``/ denom``); so does this, to hold its scales
+    rdenom = np.float32(1.0 / (127.0 if dtype == "int8" else 7.0))
+    scale = np.maximum(absmax, np.float32(1e-6)) * rdenom
+    return scale.astype(np.float32), means
+
+
+def _store_quant_params(store, dtype: str) -> tuple[np.ndarray, np.ndarray]:
+    """``_host_quant_params`` of the store's host masters at ``dtype``, kept
+    on the store per ``tiles_version``: every cache of one store and dtype
+    shares one pass over the masters."""
+    ver = getattr(store, "tiles_version", 0)
+    cache = store.__dict__.setdefault("_quant_params_cache", {})
+    hit = cache.get(dtype)
+    if hit is None or hit[0] != ver:
+        data, ids, means = _host_masters(store)
+        hit = cache[dtype] = (ver, *_host_quant_params(data, ids, means, dtype))
+    return hit[1], hit[2]
+
+
+class BucketCache:
+    """Fixed slot-pool device cache of bucket tile extents (see the block
+    comment above).
+
+    ``capacity_slots`` tiles are allocated once per generation on the
+    store's device; each resident IVF bucket owns a run of slots inside the
+    pool (any slot order — the scan masks by ``slot_bucket``, it never
+    assumes pool adjacency).  ``n_regions`` > 1 splits the pool into equal
+    contiguous regions with independent free lists and LRU chains.
+
+    Staging, by the store's device: on CUDA the staging worker
+    host-quantizes (only the quantized bytes cross the bus); on the CPU it
+    does so where a second core exists (``os.cpu_count() > 1``), and
+    otherwise issue quantizes on the device (``stage_on_host = False``).
+    ``sync_uploads = True`` restores the blocking path: the f32 extent
+    crosses, quantizes on the device, and ``issue`` waits for it.  All
+    three give the same pool bit for bit."""
+
+    def __init__(
+        self,
+        store,
+        *,
+        capacity_slots: int,
+        dtype: str = "int8",
+        n_regions: int = 1,
+        bucket_region: Optional[np.ndarray] = None,
+        part_offsets: Optional[np.ndarray] = None,
+        part_counts: Optional[np.ndarray] = None,
+    ):
+        if dtype not in SCAN_DTYPES:
+            raise ValueError(
+                f"scan dtype must be one of {SCAN_DTYPES}, got {dtype!r}"
+            )
+        if capacity_slots < 1:
+            raise ValueError(f"capacity_slots must be >= 1, got {capacity_slots}")
+        if n_regions < 1:
+            raise ValueError(f"n_regions must be >= 1, got {n_regions}")
+        self.store = store
+        self.dtype = dtype
+        self.device = store.device
+        self.n_regions = int(n_regions)
+        self.region_slots = max(capacity_slots // self.n_regions, 1)
+        self.capacity_slots = self.region_slots * self.n_regions
+        if bucket_region is None:
+            self._bucket_region = None  # every bucket -> region 0
+        else:
+            self._bucket_region = np.asarray(bucket_region, np.int64)
+        # frozen stores carry no bucket structure of their own; the builder
+        # (IVF) passes the extent table explicitly.
+        self._static_extent = None
+        if part_offsets is not None:
+            self._static_extent = (
+                np.asarray(part_offsets, np.int64),
+                np.asarray(part_counts, np.int64),
+            )
+        self.generation = -1
+        # True restores the blocking upload path (f32 over the bus,
+        # quantized on the device, ``issue`` waits for it)
+        self.sync_uploads = False
+        self.stage_on_host = (
+            self.device.type == "cuda" or (os.cpu_count() or 1) > 1
+        )
+        self._side = (torch.cuda.Stream(device=self.device)
+                      if self.device.type == "cuda" else None)
+        self._pinned = _PinnedStaging()
+        # populated by _revalidate (needs store geometry):
+        self._pool = None            # (S, D', C) device, pool dtype
+        self._ids_dev = None         # (S, C) int32 device
+        self._slot_bucket = None     # (S,) int64 host, -1 = free/invalid
+        self._slot_bucket_dev = None
+        self._slot_ids = None        # (S, C) int32 host mirror of _ids_dev
+        self._scale = None           # (D,) f32 device
+        self._offset = None
+        self._scale_np = None
+        self._offset_np = None
+        self._resident: list = []    # per region: OrderedDict key -> slots
+        self._free: list = []        # per region: list of free slot indices
+        self._inflight: Optional[_UploadTicket] = None  # depth-1 pipeline
+        # every public entry point takes this; reentrant because ensure
+        # nests issue+wait and a stale-generation wait re-enters ensure
+        self._lock = threading.RLock()
+
+    # ------------------------------------------------------------ geometry
+    @property
+    def dim(self) -> int:
+        return self.store.dim
+
+    @property
+    def packed(self) -> bool:
+        return self.dtype == "int4"
+
+    @property
+    def quantized(self) -> bool:
+        return self.dtype in ("int8", "int4")
+
+    @property
+    def bytes_per_value(self) -> float:
+        return _BYTES_PER_VALUE[self.dtype]
+
+    @property
+    def resident_slots(self) -> int:
+        return self.capacity_slots - sum(len(f) for f in self._free)
+
+    def resident_buckets(self) -> list[int]:
+        return [k if isinstance(k, int) else k[0]
+                for reg in self._resident for k in reg]
+
+    def _region_of(self, b: int) -> int:
+        if self._bucket_region is None:
+            return 0
+        return int(self._bucket_region[b])
+
+    def _masters(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Host-side (data, ids, means) — host RAM is the authoritative
+        tier (``_host_masters``)."""
+        return _host_masters(self.store)
+
+    def _bucket_extent(self) -> tuple[np.ndarray, np.ndarray]:
+        """Current (part_offsets, part_counts) — re-read per call for
+        mutable stores: repack moves bucket -> partition ownership."""
+        if getattr(self.store, "num_buckets", None) is not None:
+            return (
+                np.asarray(self.store.part_offsets, np.int64),
+                np.asarray(self.store.part_counts, np.int64),
+            )
+        if self._static_extent is None:
+            raise ValueError(
+                "store has no bucket structure; pass part_offsets/"
+                "part_counts to BucketCache"
+            )
+        return self._static_extent
+
+    # -------------------------------------------------------- invalidation
+    def _revalidate(self) -> None:
+        gen = getattr(self.store, "tiles_version", 0)
+        if gen == self.generation:
+            return
+        if self.generation >= 0 and _metrics.enabled():
+            _metrics.counter(
+                "repro_tiered_cache_events_total", event="invalidate"
+            )
+        data, ids, means = self._masters()
+        P, D, C = data.shape
+        Dp = (D + 1) // 2 if self.packed else D
+        S = self.capacity_slots
+        dev = self.device
+        self._pool = None  # the old generation goes before the new one comes
+        self._pool = torch.zeros((S, Dp, C), dtype=_POOL_DTYPES[self.dtype],
+                                 device=dev)
+        self._ids_dev = torch.full((S, C), -1, dtype=torch.int32, device=dev)
+        self._slot_ids = np.full((S, C), -1, np.int32)
+        self._slot_bucket = np.full((S,), -1, np.int64)
+        self._slot_bucket_dev = torch.tensor(self._slot_bucket, device=dev)
+        sc, off = _store_quant_params(self.store, self.dtype)
+        self._scale_np, self._offset_np = sc, off
+        self._scale = torch.tensor(sc, device=dev)
+        self._offset = torch.tensor(off, device=dev)
+        if self._side is not None:
+            # the side stream's device quantize reads scale/offset
+            torch.cuda.current_stream(dev).synchronize()
+        self._resident = [
+            collections.OrderedDict() for _ in range(self.n_regions)
+        ]
+        self._free = [
+            list(range(r * self.region_slots, (r + 1) * self.region_slots))
+            for r in range(self.n_regions)
+        ]
+        self.generation = gen
+
+    # ------------------------------------------------------------- staging
+    def _host_quantize(self, x: np.ndarray, scale=None, offset=None) -> torch.Tensor:
+        """(m, D, C) f32 host extent -> pool-dtype CPU tensor.  NumPy
+        arithmetic, the reference's line for line (sub/div/rint/clip are
+        exactly rounded IEEE ops, equal to ``_device_quantize``'s bit for
+        bit), so only 1-2 bytes per dimension cross the bus.
+        ``scale``/``offset`` pin the quant params when the staging worker
+        runs after the issue that captured them."""
+        sc = self._scale_np if scale is None else scale
+        off = self._offset_np if offset is None else offset
+        if self.dtype == "int8":
+            q = np.subtract(x, off[None, :, None], dtype=np.float32)
+            np.divide(q, sc[None, :, None], out=q)
+            np.rint(q, out=q)
+            np.clip(q, -127, 127, out=q)
+            return torch.from_numpy(q.astype(np.int8))
+        if self.dtype == "int4":
+            q = np.subtract(x, off[None, :, None], dtype=np.float32)
+            np.divide(q, sc[None, :, None], out=q)
+            np.rint(q, out=q)
+            np.clip(q, -7, 7, out=q)
+            q = q.astype(np.int32)
+            if q.shape[1] % 2:
+                q = np.pad(q, ((0, 0), (0, 1), (0, 0)))
+            qb = (q + 8).astype(np.uint8)
+            return torch.from_numpy(qb[:, 0::2, :] | (qb[:, 1::2, :] << 4))
+        x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+        # f32 -> bf16 rounds to nearest even, as the reference's cast does
+        return x.to(torch.bfloat16) if self.dtype == "bf16" else x
+
+    def _device_quantize(self, ext: torch.Tensor) -> torch.Tensor:
+        """Pool-dtype tile from an f32 extent on the device — the torch
+        twins of ``_host_quantize`` (equal bit for bit)."""
+        if self.dtype == "int8":
+            return _quantize_extent_int8(ext, self._scale, self._offset)
+        if self.dtype == "int4":
+            return _quantize_extent_int4(ext, self._scale, self._offset)
+        if self.dtype == "bf16":
+            return ext.to(torch.bfloat16)
+        return ext
+
+    def _stage(self, slots: np.ndarray, ext: np.ndarray, ext_ids: np.ndarray,
+               scale, offset, host_quant: bool) -> _Staged:
+        """One extent's tile (host- or device-quantized), ids and slot
+        numbers as tensors on the store's device.  On CUDA the copies run
+        on the cache's side stream from reused pinned buffers and an event
+        marks them landed; this may run on the staging worker, which sets
+        the device and the side stream itself."""
+        payload = (self._host_quantize(ext, scale, offset) if host_quant
+                   else torch.from_numpy(ext))
+        ids_t = torch.from_numpy(ext_ids)
+        slots_t = torch.from_numpy(slots)
+        if self._side is None:
+            tile = payload if host_quant else self._device_quantize(payload)
+            return _Staged(tile, ids_t, slots_t)
+        with torch.cuda.device(self.device), torch.cuda.stream(self._side):
+            moved, bufs = [], []
+            for src in (payload, ids_t, slots_t):
+                view, buf = self._pinned.put(src)
+                moved.append(view.to(self.device, non_blocking=True))
+                bufs.append(buf)
+            tile, ids_d, slots_d = moved
+            if not host_quant:
+                tile = self._device_quantize(tile)
+            event = torch.cuda.Event()
+            event.record(self._side)
+        return _Staged(tile, ids_d, slots_d, event, bufs)
+
+    @staticmethod
+    def _sub_extent(off, cnt, part):
+        """Row window of sub-extent ``part = (part_i, n_parts)`` of a
+        bucket extent — ceil-divided so every part fits a region."""
+        if part is None:
+            return off, cnt
+        pi, n_parts = part
+        per = -(-cnt // n_parts)
+        return off + pi * per, max(min(per, cnt - pi * per), 0)
+
+    # ------------------------------------------------------------- serving
+    @_locked
+    def resident_ok(self, buckets, parts: Optional[dict] = None) -> bool:
+        """True when every (sub-)extent of the request is still resident —
+        the run loop's guard against a concurrent batch's ``issue`` having
+        evicted tiles between this pass's prefetch and its scan."""
+        if getattr(self.store, "tiles_version", 0) != self.generation:
+            return False
+        _, cnts = self._bucket_extent()
+        for b in np.asarray(buckets, np.int64).reshape(-1):
+            b = int(b)
+            if b < 0 or b >= len(cnts) or int(cnts[b]) == 0:
+                continue
+            part = (parts or {}).get(b)
+            key = b if part is None else (b,) + tuple(part)
+            if key not in self._resident[self._region_of(b)]:
+                return False
+        return True
+
+    @_locked
+    def issue(self, buckets, parts: Optional[dict] = None) -> _UploadTicket:
+        """Asynchronous half of ``ensure``: run the LRU admission
+        bookkeeping and hand every missing extent to the staging worker,
+        which quantizes it and starts its copy to the device — returning a
+        ticket whose ``wait`` installs the copies into the pool.  Staging
+        and copies overlap whatever the query thread and device are
+        executing (the previous step's scan in the tiered loop).  Depth-1:
+        issuing while another ticket is in flight waits that one first.
+
+        ``parts`` maps bucket -> ``(part_index, n_parts)`` to admit one
+        region-sized sub-extent of a bucket too large for its region; the
+        tiered executor scans each sub-extent in its own pass and merges
+        top-k, so a single query whose routed demand exceeds the slot pool
+        succeeds instead of raising."""
+        if self._inflight is not None:
+            self.wait(self._inflight)
+        self._revalidate()
+        offs, cnts = self._bucket_extent()
+        data, ids, _ = self._masters()
+        hits = misses = evicted = uploaded = 0
+        pending: list = []
+        seen = set()
+        for b in np.asarray(buckets, np.int64).reshape(-1):
+            b = int(b)
+            part = (parts or {}).get(b)
+            key = b if part is None else (b,) + tuple(part)
+            if b < 0 or key in seen:
+                continue
+            seen.add(key)
+            cnt = int(cnts[b]) if b < len(cnts) else 0
+            off, cnt = self._sub_extent(int(offs[b]) if cnt else 0, cnt, part)
+            if cnt == 0:
+                continue
+            r = self._region_of(b)
+            res = self._resident[r]
+            if key in res:
+                hits += 1
+                res.move_to_end(key)
+                continue
+            misses += 1
+            if cnt > self.region_slots:
+                raise ValueError(
+                    f"bucket {b} spans {cnt} tiles > region capacity "
+                    f"{self.region_slots}; split it via parts= or raise "
+                    "hbm_slots"
+                )
+            while len(self._free[r]) < cnt:
+                # Evict the coldest entry NOT requested by this batch —
+                # everything in ``seen`` is pinned for the upcoming scan.
+                victim = next((o for o in res if o not in seen), None)
+                if victim is None:
+                    raise ValueError(
+                        f"batch demands more tiles than region {r} holds "
+                        f"({self.region_slots} slots); raise hbm_slots or "
+                        "split the batch"
+                    )
+                old_slots = res.pop(victim)
+                self._free[r].extend(old_slots.tolist())
+                self._slot_bucket[old_slots] = -1
+                evicted += 1
+            slots = np.asarray(
+                [self._free[r].pop() for _ in range(cnt)], np.int64
+            )
+            ext_ids = np.ascontiguousarray(ids[off : off + cnt], np.int32)
+            ext = np.ascontiguousarray(data[off : off + cnt], np.float32)
+            if self.sync_uploads:
+                # the blocking path: the full-width f32 extent crosses the
+                # bus, quantizes on the device, and the host stalls until
+                # it lands — the same tiles, 2-8x the bytes, no overlap
+                staged = self._stage(slots, ext, ext_ids, None, None, False)
+                if staged.event is not None:
+                    staged.event.synchronize()
+                pending.append(staged)
+            elif self.stage_on_host:
+                # quantize + copy on the staging worker: the NumPy pass runs
+                # off the query thread, and only quantized bytes cross
+                pending.append(_stage_pool().submit(
+                    self._stage, slots, ext, ext_ids, self._scale_np,
+                    self._offset_np, True,
+                ))
+            else:
+                # one core: the device quantizes, dispatched asynchronously
+                pending.append(self._stage(slots, ext, ext_ids, None, None, False))
+            res[key] = slots
+            self._slot_ids[slots] = ext_ids
+            self._slot_bucket[slots] = b
+            uploaded += cnt
+            if _metrics.enabled():
+                # bytes that cross: the quantized staging bytes on the
+                # host-staged path, the f32 extent otherwise
+                staged_host = not self.sync_uploads and self.stage_on_host
+                _metrics.counter(
+                    "repro_tiered_prefetch_bytes_total",
+                    float(cnt * self.dim * data.shape[2])
+                    * (self.bytes_per_value if staged_host else 4.0),
+                    dtype=self.dtype,
+                )
+        ticket = _UploadTicket(
+            stats={"hits": hits, "misses": misses,
+                   "evicted": evicted, "uploaded_slots": uploaded},
+            pending=pending, buckets=np.asarray(buckets, np.int64),
+            parts=parts, t_issue=time.perf_counter(),
+            generation=self.generation,
+        )
+        self._inflight = ticket
+        return ticket
+
+    @_locked
+    def wait(self, ticket: Optional[_UploadTicket]) -> dict:
+        """Blocking half of ``ensure``: install the ticket's staged extents
+        into the pool (on CUDA the compute stream waits on each extent's
+        event, then ``index_copy_`` writes its slots in stream order after
+        every scan already enqueued), block until the copies land, and
+        meter how long the host actually waited against the whole
+        issue->complete window (``repro_cache_upload_wait_us`` /
+        ``..._overlap_ratio``)."""
+        if ticket is None:
+            return {"hits": 0, "misses": 0, "evicted": 0,
+                    "uploaded_slots": 0}
+        if ticket.done:
+            return ticket.stats
+        ticket.done = True
+        if self._inflight is ticket:
+            self._inflight = None
+        if getattr(self.store, "tiles_version", 0) != ticket.generation:
+            # the store mutated mid-flight: the pool is (about to be)
+            # rebuilt; drop the stale copies and re-admit synchronously
+            for st in ticket.pending:
+                st = st.result() if isinstance(st, concurrent.futures.Future) else st
+                if st.event is not None:
+                    st.event.synchronize()
+                self._pinned.give(st.bufs)
+            return self.ensure(ticket.buckets, parts=ticket.parts)
+        t0 = time.perf_counter()
+        if ticket.pending:
+            resolved = []
+            cur = (torch.cuda.current_stream(self.device)
+                   if self._side is not None else None)
+            for st in ticket.pending:
+                if isinstance(st, concurrent.futures.Future):
+                    st = st.result()
+                if st.event is not None:
+                    cur.wait_event(st.event)
+                    for t in (st.tile, st.ids, st.slots):
+                        t.record_stream(cur)
+                self._pool.index_copy_(0, st.slots, st.tile)
+                self._ids_dev.index_copy_(0, st.slots, st.ids)
+                resolved.append(st)
+            for st in resolved:
+                if st.event is not None:
+                    st.event.synchronize()
+                    self._pinned.give(st.bufs)
+            done = time.perf_counter()
+            from ..obs.meters import cache_upload_wait
+
+            cache_upload_wait(
+                (done - t0) * 1e6, (done - ticket.t_issue) * 1e6
+            )
+        stats = ticket.stats
+        if stats["evicted"] or stats["uploaded_slots"]:
+            self._slot_bucket_dev = torch.tensor(self._slot_bucket,
+                                                 device=self.device)
+        if _metrics.enabled():
+            for key, event in (("hits", "hit"), ("misses", "miss"),
+                               ("evicted", "evict")):
+                if stats[key]:
+                    _metrics.counter(
+                        "repro_tiered_cache_events_total",
+                        float(stats[key]), event=event,
+                    )
+            _metrics.gauge(
+                "repro_tiered_cache_resident_slots",
+                float(self.resident_slots),
+            )
+        return stats
+
+    @_locked
+    def ensure(self, buckets, parts: Optional[dict] = None) -> dict:
+        """Admit every requested bucket (the routed set of the NEXT batch),
+        evicting cold LRU entries per region as needed.  Returns
+        ``{"hits", "misses", "evicted", "uploaded_slots"}``: the
+        synchronous composition of ``issue`` + ``wait``.
+
+        Raises ValueError only when one bucket alone exceeds a region AND
+        no ``parts`` sub-extent split was requested (the tiered executor
+        always splits, so oversized routed demand succeeds there)."""
+        return self.wait(self.issue(buckets, parts=parts))
+
+    @_locked
+    def arrays(self):
+        """The device-side cache state for a scan: ``(pool, slot_ids,
+        slot_bucket, scale, offset)``.  An in-flight upload ticket is
+        installed first, so it reflects everything admitted so far.  The
+        pool and ids are updated in place by later ``wait`` calls, in
+        stream order after any scan enqueued before them; ``slot_bucket``
+        is replaced, never written."""
+        if self._inflight is not None:
+            self.wait(self._inflight)
+        self._revalidate()
+        return (
+            self._pool, self._ids_dev, self._slot_bucket_dev,
+            self._scale, self._offset,
+        )
+
+    @_locked
+    def snapshot(self) -> tuple:
+        """Atomic ``(arrays(), slot_ids copy)`` pair — the run loop's scan
+        inputs and its id-resolution table must come from the same instant
+        or a concurrent ``issue`` could remap ids between the two reads."""
+        return self.arrays(), np.array(self.slot_ids_host(), copy=True)
+
+    @_locked
+    def slot_ids_host(self) -> np.ndarray:
+        """(S, C) host copy of the pool's vector ids (candidate positions
+        from a pool scan resolve to global ids through this)."""
+        if self._inflight is not None:
+            self.wait(self._inflight)
+        self._revalidate()
+        return self._slot_ids
 
 
 # ==========================================================================

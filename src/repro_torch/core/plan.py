@@ -23,6 +23,11 @@ metric/pruner config — and differ only in execution strategy:
   cascade-batch the same cascade once per batch: each stage gathers the
                 union of the batch's survivors and runs its d-tile ladder
                 through K2; ids and distances equal cascade-scan's bitwise.
+  tiered-scan   serving beyond device memory (``spec.hbm_slots`` on an IVF
+                engine): route the batch, admit its buckets into a pool of
+                device tile slots (``core.layout.BucketCache``), scan the
+                pool with K2, each query masked to its routed buckets, and
+                re-rank exactly against the host masters.
 
 The fused executors re-rank the top ``rerank_mult * k`` candidates
 against the f32 master tiles whenever ``scan_dtype != "f32"``, so returned
@@ -30,17 +35,18 @@ distances stay exact.  Their kernels run on CUDA tensors; on CPU tensors
 the same ops run the kernels' plain PyTorch versions (``kernels.ops``
 dispatches by device).
 
-Planner rules, in order: a forced ``spec.executor`` wins; otherwise a spec
-with a ``cascade`` picks cascade-batch for batches and cascade-scan for
+Planner rules, in order: a forced ``spec.executor`` wins; otherwise
+``hbm_slots`` on an IVF engine picks tiered-scan; otherwise a spec with a
+``cascade`` picks cascade-batch for batches and cascade-scan for
 single queries; otherwise a fused-eligible spec (``kernel="cuda"``, a
 store on CUDA with ``kernel="auto"``, or any reduced-precision
 ``scan_dtype``) picks a fused executor — single L2 queries the scan,
 batches (and other metrics) the batched kernel; otherwise batches take the
 matmul scan and single queries the adaptive path (or, with
 ``spec.prefer_static`` on a flat store, the masked one).  ``kernel="cuda"``
-on a CPU store raises, and so does ``kernel="torch"`` when a fused or
-cascade executor would run on a CUDA store: the knob steers planning, the
-tensors' device picks the body.
+on a CPU store raises, and so does ``kernel="torch"`` when a fused,
+cascade or tiered executor would run on a CUDA store: the knob steers
+planning, the tensors' device picks the body.
 
 Mutable stores (``core.layout.MutablePDXStore``) flow through the same
 planner: the plan trace records ``store.version``, and ``execute`` merges
@@ -48,8 +54,7 @@ the store's unflushed write-head rows *exactly* (never pruned) into every
 executor's top-k, inside a ``merge`` span.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: tiered serving (``hbm_slots``) and the mesh-sharded
-executors.
+ROADMAP item: the mesh-sharded executors (``routed_tiered`` among them).
 """
 from __future__ import annotations
 
@@ -62,7 +67,13 @@ import torch
 from ..obs import metrics as _metrics
 from ..obs import trace as _trace
 from .distance import pdx_distance
-from .layout import PDXStore, device_mirror, projection_mirror
+from .layout import (
+    BucketCache,
+    PDXStore,
+    _host_masters,
+    device_mirror,
+    projection_mirror,
+)
 from .pdxearch import SearchStats, pdxearch, pdxearch_jit, search_batch_matmul
 from .pruners import Pruner
 from .spec import SearchSpec, parse_cascade_stage
@@ -88,7 +99,6 @@ __all__ = [
 #: Reference executors that the port does not have yet -> the ROADMAP.md
 #: item (modules queue) that will bring each one.
 UNPORTED_EXECUTORS = {
-    "tiered-scan": "'Tiered cache'",
     "routed_tiered": "'Multi-device search'",
     "block-sharded": "'Multi-device search'",
     "dim-sharded": "'Multi-device search'",
@@ -123,9 +133,9 @@ _EXECUTORS: dict[str, Callable] = {}
 
 _FUSED = ("fused-scan", "fused-batch")
 _CASCADE = ("cascade-scan", "cascade-batch")
-# executors that run the hand-written kernels on a CUDA store and scan the
-# reduced-precision device mirrors
-_KERNEL_EXECUTORS = _FUSED + _CASCADE
+# executors that run the hand-written kernels on a CUDA store and scan
+# reduced-precision device tiles (the mirrors, or the tiered slot pool)
+_KERNEL_EXECUTORS = _FUSED + _CASCADE + ("tiered-scan",)
 
 
 def register_executor(name: str):
@@ -182,9 +192,10 @@ def plan_search(
                 and _on_cuda(store)):
             raise ValueError(
                 f"kernel='torch' with executor {executor!r} on a CUDA store: "
-                "the fused and cascade executors run the CUDA kernels on the "
-                "card (use kernel='auto' or 'cuda', or neither a cascade nor "
-                "a reduced scan_dtype nor a forced fused executor)"
+                "the fused, cascade and tiered executors run the CUDA kernels "
+                "on the card (use kernel='auto' or 'cuda', or neither "
+                "hbm_slots nor a cascade nor a reduced scan_dtype nor a "
+                "forced fused executor)"
             )
         if spec.kernel == "cuda" and executor not in _KERNEL_EXECUTORS:
             reason += " (kernel='cuda' noted: this executor runs plain torch)"
@@ -192,6 +203,11 @@ def plan_search(
             reason += (
                 f" (scan_dtype={spec.scan_dtype!r} ignored: this executor "
                 "scans the f32 masters)"
+            )
+        if spec.hbm_slots is not None and executor != "tiered-scan":
+            reason += (
+                " (hbm_slots ignored: tiered serving needs an IVF index "
+                "and this executor scans a fully-resident store/mirror)"
             )
         if spec.cascade is not None and executor not in _CASCADE:
             reason += (
@@ -230,7 +246,12 @@ def _wants_fused(spec: SearchSpec, store) -> bool:
 
 def _host_plan(spec, n_queries, ivf, store, plan, body: str) -> ExecutionPlan:
     if spec.hbm_slots is not None and ivf is not None:
-        raise _not_ported("tiered serving (hbm_slots)", "'Tiered cache'")
+        return plan(
+            "tiered-scan",
+            f"hbm_slots={spec.hbm_slots}: bucket-granular device cache over "
+            f"the routed set (scan_dtype={spec.scan_dtype}, nprobe="
+            f"{spec.nprobe}, kernel={body}), exact host-RAM re-rank",
+        )
     if spec.cascade is not None:
         where = "IVF-routed START, " if ivf is not None else ""
         stages = "→".join(spec.cascade)
@@ -453,36 +474,52 @@ def _rerank_k(spec: SearchSpec, store) -> int:
 _FUSED_BATCH_OUT_BYTES = 1 << 30
 
 
-def _fused_batch_scan(mirror, ids, Qt, rk: int, metric: str) -> TopK:
-    """Scan every mirror tile with the batched kernel -> per-query top-``rk``
-    flat positions (PAD lanes carry position -1)."""
+def _tile_scan(tiles, pos, Qt, sc, off, rk: int, metric: str, packed: bool,
+               dim: int, allowed=None) -> TopK:
+    """Scan every (S, D', C) tile with the batched kernel -> per-query
+    top-``rk`` flat positions from ``pos`` (S, C) (dead lanes carry -1).
+    ``allowed`` (B, S) restricts each query to some tiles: the lanes of the
+    others enter the merge at +inf, after the state's -1 pads, so they can
+    never be selected.  The loop of ``_fused_batch_scan`` and, masked, of
+    ``_tiered_pool_scan`` (the reference's ``_tiered_scan_body``)."""
     from ..kernels.batched_matmul import MAX_PARTITIONS
     from ..kernels.ops import batched_distance_quant_op
     from ..kernels.ref import dequantize_ref
 
-    P, _, C = mirror.data.shape
+    S, _, C = tiles.shape
     B = Qt.shape[0]
-    sc = mirror.scale if mirror.quantized else None
-    off = mirror.offset if mirror.quantized else None
-    pos = torch.arange(P * C, dtype=torch.int32, device=ids.device).reshape(P, C)
-    pos = torch.where(ids >= 0, pos, -1)
     state = topk_init(rk, (B,), Qt.device)
     step = max(1, min(MAX_PARTITIONS, _FUSED_BATCH_OUT_BYTES // (B * C * 4)))
-    for lo in range(0, P, step):
-        tiles = mirror.data[lo:lo + step]
+    for lo in range(0, S, step):
+        t = tiles[lo:lo + step]
         if metric == "l1":  # no matmul form: dequantize + per-query scan
-            t32 = dequantize_ref(tiles, sc, off, dim_axis=1,
-                                 packed=mirror.packed, dim=mirror.dim)
+            t32 = dequantize_ref(t, sc, off, dim_axis=1, packed=packed, dim=dim)
             dmat = torch.stack([
                 torch.sum(torch.abs(t32 - q[None, :, None]), dim=1).reshape(-1)
                 for q in Qt
             ])
         else:
             dmat = batched_distance_quant_op(
-                tiles, Qt, sc, off, metric, packed=mirror.packed, dim=mirror.dim,
+                t, Qt, sc, off, metric, packed=packed, dim=dim,
             )
+        if allowed is not None:
+            keep = allowed[:, lo:lo + step].repeat_interleave(C, dim=1)
+            dmat = torch.where(keep, dmat, float("inf"))
         state = topk_merge(state, dmat, pos[lo:lo + step].reshape(-1))
     return state
+
+
+def _fused_batch_scan(mirror, ids, Qt, rk: int, metric: str) -> TopK:
+    """Scan every mirror tile with the batched kernel -> per-query top-``rk``
+    flat positions (PAD lanes carry position -1)."""
+    P, _, C = mirror.data.shape
+    pos = torch.arange(P * C, dtype=torch.int32, device=ids.device).reshape(P, C)
+    pos = torch.where(ids >= 0, pos, -1)
+    return _tile_scan(
+        mirror.data, pos, Qt, mirror.scale if mirror.quantized else None,
+        mirror.offset if mirror.quantized else None, rk, metric,
+        mirror.packed, mirror.dim,
+    )
 
 
 def _positions_to_ids(store_ids, cand: TopK) -> TopK:
@@ -952,3 +989,413 @@ def _exec_cascade_batch(store, pruner, Q, spec, *, ivf, stats):
         stats.partitions_visited += P * B
     return _numpy(TopK(dists=torch.stack([r.dists for r in out]),
                        ids=torch.stack([r.ids for r in out])))
+
+
+# ------------------------------------------------- tiered executor
+# Serving beyond device memory: the host-RAM f32 masters stay
+# authoritative, the device holds only a fixed slot pool
+# (``core.layout.BucketCache``) of the quantized tile extents of recently
+# routed IVF buckets.  A batch flows: route (two-level centroid tree when
+# attached) -> admit the routed buckets (LRU-evicting cold ones) -> masked
+# pool scan at ``spec.scan_dtype`` width (K2 on the card) -> exact re-rank
+# against the host masters.  Each (chunk, pass) step issues the NEXT
+# step's uploads while its own scan runs.
+
+def _get_bucket_cache(store, spec, *, ivf, n_regions=1, bucket_region=None):
+    """The store's ``BucketCache`` for this spec's (capacity, dtype,
+    regions), kept on the store: pool allocation and quant-param passes
+    cost once per configuration, not once per batch.  Generation
+    invalidation is the cache's own job (``tiles_version``)."""
+    key = (spec.hbm_slots, spec.scan_dtype, int(n_regions))
+    caches = getattr(store, "_tiered_cache", None)
+    if caches is None:
+        caches = {}
+        store._tiered_cache = caches
+    bc = caches.get(key)
+    if bc is None:
+        po = pc = None
+        if getattr(store, "num_buckets", None) is None:
+            po = np.asarray(ivf.part_offsets)
+            pc = np.asarray(ivf.part_counts)
+        bc = BucketCache(
+            store, capacity_slots=spec.hbm_slots, dtype=spec.scan_dtype,
+            n_regions=n_regions, bucket_region=bucket_region,
+            part_offsets=po, part_counts=pc,
+        )
+        caches[key] = bc
+    elif bucket_region is not None:
+        bc._bucket_region = np.asarray(bucket_region, np.int64)
+    return bc
+
+
+def _tiered_pool_scan(
+    pool, slot_ids, slot_bucket, sel, Qt, scale, offset, rk: int, metric: str,
+    quantized: bool, packed: bool = False, dim: Optional[int] = None,
+) -> TopK:
+    """Single-device tiered scan -> per-query top-``rk`` flat POOL positions
+    (s * C + c; dead and free lanes carry -1).  Positions resolve to global
+    ids on the host through ``BucketCache.slot_ids_host``: the exact
+    re-rank never touches a device copy of the store."""
+    S, _, C = pool.shape
+    sc = scale if quantized else None
+    off = offset if quantized else None
+    # -1 marks BOTH unrouted sel pads (tree routing) and free pool slots;
+    # remap sel pads to -2 so they can never select a free slot's tiles
+    sel_safe = torch.where(sel >= 0, sel, -2)
+    allowed = (sel_safe[:, :, None] == slot_bucket[None, None, :]).any(dim=1)
+    pos = torch.arange(S * C, dtype=torch.int32, device=pool.device).reshape(S, C)
+    pos = torch.where(slot_ids >= 0, pos, -1)
+    return _tile_scan(pool, pos, Qt, sc, off, rk, metric, packed, dim,
+                      allowed=allowed)
+
+
+def _host_master_rows(store) -> tuple[np.ndarray, np.ndarray]:
+    """Sorted-by-id flat view of the live host-RAM f32 master rows, cached
+    per ``tiles_version`` — the authoritative tier the tiered executor
+    re-ranks against (write-head rows merge separately and sealed tiles only
+    change with tiles_version, so the sort amortizes over serving).  Built
+    from the host masters ``BucketCache`` uses, so a store on the card is
+    copied to the host once per version."""
+    ver = getattr(store, "tiles_version", 0)
+    cached = getattr(store, "_host_rows_cache", None)
+    if cached is not None and cached[0] == ver:
+        return cached[1], cached[2]
+    data, ids, _ = _host_masters(store)
+    live = np.asarray(ids) >= 0
+    # the live columns in (partition, lane) order, as rows: the reference's
+    # transposed flat view with its live rows kept, without the full copy
+    rows = np.swapaxes(np.asarray(data, np.float32), 1, 2)[live]
+    flat_ids = np.asarray(ids)[live]
+    order = np.argsort(flat_ids, kind="stable")
+    out = (ver, flat_ids[order], rows[order])
+    store._host_rows_cache = out
+    return out[1], out[2]
+
+
+def _tiered_rerank(
+    store, cache, cand: TopK, Qt_np: np.ndarray, k: int, metric: str,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Exact re-rank of pool-scan candidates against the HOST masters:
+    positions -> cached global ids -> master rows (binary search on the
+    sorted-id view) -> exact f32 metric -> top-k, NumPy's stable sort."""
+    slot_ids = cache.slot_ids_host().reshape(-1)
+    sorted_ids, rows = _host_master_rows(store)
+    pos = cand.ids.cpu().numpy()
+    B = pos.shape[0]
+    out_i = np.full((B, k), -1, np.int64)
+    out_d = np.full((B, k), np.inf, np.float32)
+    for b in range(B):
+        p = pos[b]
+        gids = np.where(p >= 0, slot_ids[np.maximum(p, 0)], -1)
+        gids = gids[gids >= 0]
+        if gids.size == 0:
+            continue
+        loc = np.searchsorted(sorted_ids, gids)  # cached ids are all live
+        x = rows[loc]
+        q = Qt_np[b]
+        if metric == "l2":
+            d = ((x - q) ** 2).sum(axis=1)
+        elif metric == "l1":
+            d = np.abs(x - q).sum(axis=1)
+        else:
+            d = -(x @ q)
+        order = np.argsort(d, kind="stable")[: k]
+        out_i[b, : len(order)] = gids[order]
+        out_d[b, : len(order)] = d[order].astype(np.float32)
+    return out_i, out_d
+
+
+def _tiered_chunks(
+    sel: np.ndarray, cnts: np.ndarray, region_of, region_slots: int,
+) -> list[list[int]]:
+    """Greedy query chunking so each chunk's union bucket demand fits the
+    pool (per region): batches whose routed set overflows the cache run as
+    several admit+scan rounds instead of failing.  A chunk is cut when
+    admitting the next query's buckets would overflow any region."""
+    B = sel.shape[0]
+    chunks: list[list[int]] = []
+    cur: list[int] = []
+    seen: set[int] = set()
+    demand: dict[int, int] = {}
+    for b in range(B):
+        row = [int(x) for x in sel[b]
+               if x >= 0 and int(cnts[int(x)]) > 0]
+        new = [x for x in dict.fromkeys(row) if x not in seen]
+        add: dict[int, int] = {}
+        for x in new:
+            r = region_of(x)
+            add[r] = add.get(r, 0) + int(cnts[x])
+        fits = all(
+            demand.get(r, 0) + a <= region_slots for r, a in add.items()
+        )
+        if cur and not fits:
+            chunks.append(cur)
+            cur, seen, demand = [], set(), {}
+            new = list(dict.fromkeys(row))
+            add = {}
+            for x in new:
+                r = region_of(x)
+                add[r] = add.get(r, 0) + int(cnts[x])
+        cur.append(b)
+        seen.update(new)
+        for r, a in add.items():
+            demand[r] = demand.get(r, 0) + a
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
+def _chunk_passes(
+    chunk_sel: np.ndarray, cnts: np.ndarray, region_of, region_slots: int,
+) -> list[tuple[list[int], Optional[dict]]]:
+    """Pass schedule for one chunk's routed bucket union: a list of
+    ``(bucket_list, parts)`` upload requests, each fitting every cache
+    region.  The common case — demand fits — is one full pass.  A bucket
+    whose extent alone exceeds a region is cut into region-sized
+    sub-extents (``parts[b] = (part_i, n_parts)``, ceil-divided), and the
+    items pack greedily into sequential passes; the run loop scans each
+    pass and merges top-k."""
+    uniq: list[int] = []
+    for row in chunk_sel:
+        for x in row:
+            x = int(x)
+            if x >= 0 and x < len(cnts) and int(cnts[x]) > 0:
+                uniq.append(x)
+    uniq = list(dict.fromkeys(uniq))
+    demand: dict[int, int] = {}
+    for b in uniq:
+        r = region_of(b)
+        demand[r] = demand.get(r, 0) + int(cnts[b])
+    if all(d <= region_slots for d in demand.values()):
+        return [(uniq, None)]
+    items: list[tuple[int, Optional[tuple], int]] = []
+    for b in uniq:
+        c = int(cnts[b])
+        if c > region_slots:
+            n_parts = -(-c // region_slots)
+            per = -(-c // n_parts)
+            for pi in range(n_parts):
+                items.append((b, (pi, n_parts), min(per, c - pi * per)))
+        else:
+            items.append((b, None, c))
+    passes: list[tuple[list[int], Optional[dict]]] = []
+    cur: list[int] = []
+    parts: dict[int, tuple] = {}
+    used: dict[int, int] = {}
+    for b, part, size in items:
+        r = region_of(b)
+        if cur and used.get(r, 0) + size > region_slots:
+            passes.append((cur, parts or None))
+            cur, parts, used = [], {}, {}
+        cur.append(b)
+        if part is not None:
+            parts[b] = part
+        used[r] = used.get(r, 0) + size
+    if cur:
+        passes.append((cur, parts or None))
+    return passes
+
+
+def _merge_topk_rows(
+    i1: np.ndarray, d1: np.ndarray, i2: np.ndarray, d2: np.ndarray, k: int,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Row-wise top-k merge of two (B, k) id/dist result blocks with id
+    dedup — later passes of a split chunk rescan still-resident buckets
+    (and leftover sub-extents), so the same vector can surface twice; the
+    exact re-rank makes duplicate distances identical, keep one."""
+    B = i1.shape[0]
+    out_i = np.full((B, k), -1, np.int64)
+    out_d = np.full((B, k), np.inf, np.float32)
+    for b in range(B):
+        ids = np.concatenate([i1[b], i2[b]])
+        ds = np.concatenate([d1[b], d2[b]]).astype(np.float32)
+        live = ids >= 0
+        ids, ds = ids[live], ds[live]
+        if ids.size == 0:
+            continue
+        order = np.lexsort((ds, ids))
+        ids, ds = ids[order], ds[order]
+        keep = np.ones(ids.size, bool)
+        keep[1:] = ids[1:] != ids[:-1]
+        ids, ds = ids[keep], ds[keep]
+        order = np.argsort(ds, kind="stable")[:k]
+        out_i[b, : order.size] = ids[order]
+        out_d[b, : order.size] = ds[order]
+    return out_i, out_d
+
+
+@dataclasses.dataclass
+class _TieredLaunch:
+    """Host-side product of ``_prepare_tiered_host``: the routed set, the
+    chunk schedule with each chunk's pass schedule, and the FIRST pass's
+    in-flight upload ticket (issuing it at prepare time is the prefetch).
+    Later passes issue inside ``_run_tiered_device``, one ahead of the
+    scan."""
+
+    cache: BucketCache
+    Qt: torch.Tensor
+    Qt_np: np.ndarray
+    sel: np.ndarray
+    chunks: list
+    passes: list
+    ticket: object
+    rk: int
+
+
+def _tiered_rk(spec: SearchSpec, cache: BucketCache, C: int) -> int:
+    if spec.scan_dtype == "f32":
+        return spec.k
+    return min(spec.rerank_mult * spec.k, cache.capacity_slots * C)
+
+
+def _prepare_tiered_host(store, pruner, Q, spec, *, ivf) -> _TieredLaunch:
+    """Host half of the tiered executor: batch transform, bucket routing,
+    chunk planning, and the first pass's ``issue`` (the prefetch)."""
+    if ivf is None:
+        raise ValueError(
+            "tiered-scan executor needs an IVF index (spec.hbm_slots caches "
+            "at bucket granularity, which only routing defines)"
+        )
+    cache = _get_bucket_cache(store, spec, ivf=ivf)
+    Qt = _transform_batch(pruner, Q.to(torch.float32))
+    with _trace.span("route", nprobe=spec.nprobe, tiered=True):
+        sel = np.asarray(
+            ivf.route_batch(Qt, spec.nprobe, spec.metric, spec.route_dtype)
+        )
+    _, cnts = cache._bucket_extent()
+    chunks = _tiered_chunks(sel, cnts, cache._region_of, cache.region_slots)
+    passes = [
+        _chunk_passes(sel[chunk], cnts, cache._region_of, cache.region_slots)
+        for chunk in chunks
+    ]
+    blist, parts = passes[0][0]
+    with _trace.span("prefetch", buckets=len(blist)):
+        ticket = cache.issue(np.asarray(blist, np.int64), parts=parts)
+    return _TieredLaunch(
+        cache=cache, Qt=Qt, Qt_np=Qt.cpu().numpy(), sel=sel, chunks=chunks,
+        passes=passes, ticket=ticket,
+        rk=_tiered_rk(spec, cache, store.capacity),
+    )
+
+
+def _tiered_stats(stats, store, cache, sel, ivf) -> None:
+    """Selected-bucket work accounting, matching the routed convention:
+    every live value in a probed bucket is computed, everything outside is
+    avoided by routing."""
+    if stats is None:
+        return
+    counts = store.counts.cpu().numpy()
+    offs, cnts = cache._bucket_extent()
+    nb = len(cnts)
+    bucket_rows = np.array(
+        [counts[offs[b]: offs[b] + cnts[b]].sum() for b in range(nb)],
+        dtype=np.float64,
+    )
+    valid = sel >= 0
+    safe = np.where(valid, sel, 0)
+    work = float(np.where(valid, bucket_rows[safe], 0.0).sum()) * store.dim
+    stats.values_total += work
+    stats.values_computed += work
+    stats.partitions_visited += int(np.where(valid, cnts[safe], 0).sum())
+
+
+def _tiered_steps(launch: _TieredLaunch) -> list[tuple[int, int]]:
+    """Flattened (chunk, pass) schedule of a tiered launch."""
+    return [
+        (ci, pi)
+        for ci in range(len(launch.chunks))
+        for pi in range(len(launch.passes[ci]))
+    ]
+
+
+def _tiered_step_ready(cache, launch, ticket, ci, pi):
+    """Settle the step's prefetch ticket and hand back a consistent scan
+    snapshot.  The ticket normally covers exactly this pass; when another
+    batch's ``issue`` took slots in between, re-admit synchronously —
+    correctness never rides on the overlap."""
+    cache.wait(ticket)
+    blist, parts = launch.passes[ci][pi]
+    if not cache.resident_ok(np.asarray(blist, np.int64), parts=parts):
+        cache.ensure(np.asarray(blist, np.int64), parts=parts)
+    return cache.snapshot()
+
+
+def _tiered_step_issue_next(cache, launch, steps, si):
+    """Start the NEXT step's uploads (host quantize + async copy) while the
+    step just enqueued is still scanning on the device."""
+    if si + 1 >= len(steps):
+        return None
+    nci, npi = steps[si + 1]
+    blist, parts = launch.passes[nci][npi]
+    return cache.issue(np.asarray(blist, np.int64), parts=parts)
+
+
+def _run_tiered_device(launch: _TieredLaunch, store, spec, *, ivf, stats):
+    """Device half: per (chunk, pass) step, settle the step's prefetch
+    ticket -> masked pool scan -> issue the NEXT step's uploads under the
+    scan -> exact host re-rank; multi-pass chunks (routed demand beyond
+    the slot pool) merge their per-pass top-k, chunk results land back in
+    batch order."""
+    cache, sel = launch.cache, launch.sel
+    B = sel.shape[0]
+    out_i = np.full((B, spec.k), -1, np.int64)
+    out_d = np.full((B, spec.k), np.inf, np.float32)
+    C = store.capacity
+    dev = launch.Qt.device
+    steps = _tiered_steps(launch)
+    ticket = launch.ticket
+    for si, (ci, pi) in enumerate(steps):
+        chunk = launch.chunks[ci]
+        arrays, slot_ids = _tiered_step_ready(cache, launch, ticket, ci, pi)
+        pool, ids_dev, slot_bucket, scale, offset = arrays
+        rows = torch.as_tensor(chunk, device=dev)
+        cand = _tiered_pool_scan(
+            pool, ids_dev, slot_bucket, torch.from_numpy(sel[chunk]).to(dev),
+            launch.Qt[rows], scale, offset, launch.rk, spec.metric,
+            cache.quantized, packed=cache.packed, dim=cache.dim,
+        )
+        # the scan is in flight: overlap the next step's staging + copy
+        ticket = _tiered_step_issue_next(cache, launch, steps, si)
+        ids_c, dists_c = _tiered_rerank(
+            store, _TieredSnapshot(slot_ids), cand, launch.Qt_np[chunk],
+            spec.k, spec.metric,
+        )
+        if pi == 0:
+            out_i[chunk] = ids_c
+            out_d[chunk] = dists_c
+        else:
+            out_i[chunk], out_d[chunk] = _merge_topk_rows(
+                out_i[chunk], out_d[chunk], ids_c, dists_c, spec.k
+            )
+        if _metrics.enabled():
+            S = cache.capacity_slots
+            _metrics.counter(
+                "repro_device_bytes_total",
+                float(S) * cache.dim * C * cache.bytes_per_value,
+                executor="tiered-scan", component="scan", dtype=cache.dtype,
+            )
+    cache.wait(ticket)
+    _tiered_stats(stats, store, cache, sel, ivf)
+    return out_i, out_d
+
+
+class _TieredSnapshot:
+    """Adapter handing ``_tiered_rerank`` a frozen ``slot_ids_host`` copy
+    (a later step's admission must not remap an earlier step's candidate
+    positions mid-resolution)."""
+
+    def __init__(self, slot_ids: np.ndarray):
+        self._slot_ids = np.array(slot_ids, copy=True)
+
+    def slot_ids_host(self) -> np.ndarray:
+        return self._slot_ids
+
+
+@register_executor("tiered-scan")
+def _exec_tiered_scan(store, pruner, Q, spec, *, ivf, stats):
+    """Tiered search beyond device memory: route -> admit (bucket-granular
+    LRU device cache) -> masked quantized pool scan -> exact host-RAM
+    re-rank.  The blocking composition of ``_prepare_tiered_host`` +
+    ``_run_tiered_device``."""
+    launch = _prepare_tiered_host(store, pruner, Q, spec, ivf=ivf)
+    return _run_tiered_device(launch, store, spec, ivf=ivf, stats=stats)

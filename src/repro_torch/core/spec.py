@@ -115,9 +115,14 @@ class SearchSpec:
                     default; "int8"/"int4" scan a quantized centroid
                     mirror).  Near-tie bucket *order* may differ from f32
                     routing at partial nprobe.
-      hbm_slots   — tiered serving over a bucket cache; not ported yet
-                    (the planner raises NotImplementedError on an IVF
-                    engine).
+      hbm_slots   — tiered serving: cap the device-resident working set at
+                    this many tile slots and manage them as a bucket-
+                    granular LRU cache (``core.layout.BucketCache``) fed by
+                    IVF routing, instead of mirroring the whole store on the
+                    device.  Requires an IVF index; ``scan_dtype`` picks the
+                    cached tiles' precision and the exact f32 re-rank runs
+                    against the host-RAM masters.  None (default) keeps the
+                    fully-resident mirror behavior.
 
     Execution hints (planner inputs, never change *results* beyond the
     pruner's own approximation)
@@ -125,7 +130,7 @@ class SearchSpec:
                           ``core.plan.executor_names()``); None lets
                           the planner choose.
       prefer_static     — prefer the shape-static masked path
-                          (``jit-masked``; not ported yet).
+                          (``jit-masked``) on a flat store.
       batch_collectives — mesh knob; inert here.
     """
 

@@ -1,9 +1,12 @@
 """IVF index over PDX-resident buckets (paper Figure 2: buckets ≡ blocks).
 
-Counterpart of ``repro.index.ivf`` with flat routing: centroids are stored
-in PDX layout and ranked by one dimension-major scan (optionally over a
-quantized centroid mirror, ``route_dtype``).  The two-level centroid tree
-is not ported yet; ``build_ivf`` refuses it.
+Counterpart of ``repro.index.ivf``: centroids are stored in PDX layout and
+ranked by one dimension-major scan (optionally over a quantized centroid
+mirror, ``route_dtype``), or, with the two-level centroid tree attached
+(``attach_tree``; ``build_ivf(tree=True)``, or ``tree="auto"`` at nlist >=
+``TREE_AUTO_NLIST``), by ranking the super-centroids and then only the
+children of the best ``nprobe_super`` of them.  Tree orders carry -1
+right-pads, which every consumer skips.
 
 Over a mutable store, inserted rows go to buckets by ``assign`` (nearest
 centroid) and a flush fills free slots inside the bucket's partitions; a
@@ -20,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.distance import nary_distance
 from ..core.layout import (
     PDXStore,
     build_bucketed_store,
@@ -28,18 +32,13 @@ from ..core.layout import (
 )
 from ..kernels.ref import dequantize_ref
 from ..obs import metrics as _metrics
-from .kmeans import kmeans
+from .kmeans import build_centroid_tree, kmeans
 
 __all__ = ["IVFIndex", "build_ivf", "TREE_AUTO_NLIST"]
 
-#: ``build_ivf(tree="auto")`` would switch to the two-level centroid tree at
-#: this nlist (the reference's threshold); the port has no tree yet.
+#: ``build_ivf(tree="auto")`` switches the flat centroid scan to the
+#: two-level tree at this nlist.
 TREE_AUTO_NLIST = 4096
-
-TREE_NOT_PORTED = (
-    "the two-level IVF centroid tree (build_centroid_tree/attach_tree) is "
-    "not ported to repro_torch yet: ROADMAP.md, modules queue, 'IVF tree'"
-)
 
 
 def _rank_centroids(cdata: torch.Tensor, q: torch.Tensor, nlist: int, metric: str):
@@ -53,6 +52,40 @@ def _rank_centroids(cdata: torch.Tensor, q: torch.Tensor, nlist: int, metric: st
     else:
         d = -torch.sum(cdata * q[None, :, None], dim=1)
     return torch.argsort(d.reshape(-1)[:nlist], stable=True)
+
+
+def _rank_centroids_tree(
+    centroids: torch.Tensor,   # (K, D) horizontal f32
+    supers: torch.Tensor,      # (SK, D) super-centroids
+    children: torch.Tensor,    # (SK, M) int32 child lists, -1 right-pad
+    Q: torch.Tensor,           # (B, D)
+    nlist: int,
+    metric: str,
+    nprobe_super: int,
+) -> torch.Tensor:
+    """Two-level bucket ranking: rank SK super-centroids, keep the best
+    ``nprobe_super``, then rank only *their* children.  Visits
+    ``SK + nprobe_super * M`` centroids per query instead of nlist.
+
+    Returns (B, nlist) int32 bucket orders, best first, right-padded with
+    -1.  Both selections are stable ascending sorts: the reference's
+    ``lax.top_k`` puts the lower index first among equal values, and its
+    ``argsort`` is stable."""
+    out = torch.full((Q.shape[0], nlist), -1, dtype=torch.int32, device=Q.device)
+    for b, q in enumerate(Q):
+        ds = nary_distance(supers, q, metric)                     # (SK,)
+        top = torch.sort(ds, stable=True).indices[:nprobe_super]  # best supers
+        cand = children[top].reshape(-1)                          # (nps*M,)
+        valid = cand >= 0
+        dc = nary_distance(centroids[torch.where(valid, cand, 0).long()], q, metric)
+        dc = torch.where(valid, dc, float("inf"))                 # pads last
+        dsort, order = torch.sort(dc, stable=True)
+        ranked = torch.where(torch.isfinite(dsort), cand[order], -1)
+        # children partition [0, nlist): ranked holds <= nlist valid ids,
+        # and the sort packs them first, so truncation only drops pads
+        n = min(int(ranked.shape[0]), nlist)
+        out[b, :n] = ranked[:n].to(torch.int32)
+    return out
 
 
 def _nearest_centroid(centroids: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -71,15 +104,65 @@ class IVFIndex:
     part_offsets: np.ndarray        # (K,) first partition id of each bucket
     part_counts: np.ndarray         # (K,) partitions per bucket
     nlist: int
+    # Two-level routing tree (None -> flat scan): (SK, D) super-centroids,
+    # the (SK, M) -1-padded child table of ``kmeans.build_centroid_tree``,
+    # and how many supers a query descends into.
+    super_centroids: Optional[torch.Tensor] = None
+    super_children: Optional[torch.Tensor] = None
+    nprobe_super: int = 0
 
     @property
     def tree_enabled(self) -> bool:
-        """The two-level centroid tree is not ported: routing is flat."""
-        return False
+        return self.super_centroids is not None
+
+    def routing_cost(self) -> int:
+        """Centroids ranked per query: nlist for the flat scan, the
+        sub-linear ``SK + nprobe_super * M`` bound for the tree."""
+        if not self.tree_enabled:
+            return self.nlist
+        SK, M = self.super_children.shape
+        return int(SK + self.nprobe_super * M)
+
+    def attach_tree(
+        self,
+        super_k: Optional[int] = None,
+        nprobe_super: Optional[int] = None,
+        *,
+        seed: int = 0,
+    ) -> None:
+        """(Re)build the two-level tree over the CURRENT centroids, on their
+        device — also the recalibration hook: after BSA re-projects the
+        centroids the tree is re-clustered in the rotated space."""
+        if super_k is None:
+            super_k = max(2, int(np.ceil(np.sqrt(self.nlist))))
+        dev = self.centroids.device
+        sc, children = build_centroid_tree(
+            self.centroids.cpu().numpy(), super_k, seed=seed, device=dev
+        )
+        self.super_centroids = torch.from_numpy(sc).to(dev)
+        self.super_children = torch.from_numpy(children).to(dev)
+        if nprobe_super is None:
+            nprobe_super = max(2, sc.shape[0] // 4)
+        self.nprobe_super = int(min(max(nprobe_super, 1), sc.shape[0]))
 
     def _ranked_batch(self, Q: torch.Tensor, metric: str, dtype: str) -> torch.Tensor:
         """(B, D) queries -> (B, nlist) ascending bucket orders, scanning the
-        centroid tiles at ``dtype`` width."""
+        centroid tiles at ``dtype`` width.  With a tree attached the orders
+        come from the two-level descent over f32 centroids (whatever
+        ``dtype``) and carry -1 right-pads."""
+        if self.tree_enabled:
+            order = _rank_centroids_tree(
+                self.centroids, self.super_centroids, self.super_children,
+                Q, self.nlist, metric, self.nprobe_super,
+            )
+            if _metrics.enabled():
+                _metrics.counter(
+                    "repro_device_bytes_total",
+                    float(Q.shape[0]) * self.routing_cost()
+                    * self.centroids.shape[1] * 4.0,
+                    executor="route", component="scan", dtype="f32",
+                )
+            return order
         if dtype == "f32":
             cdata = self.centroid_store.data
             bpv = 4.0
@@ -121,7 +204,7 @@ class IVFIndex:
                 self.part_offsets[b], self.part_offsets[b] + self.part_counts[b]
             )
             for b in sel
-            if b >= 0
+            if b >= 0  # tree orders right-pad with -1
         ]
         return np.concatenate(parts) if parts else np.zeros(0, np.int64)
 
@@ -152,6 +235,35 @@ class IVFIndex:
                 break
         return order, start_parts
 
+    def search(
+        self,
+        q,
+        k: int,
+        pruner,
+        *,
+        nprobe: int = 8,
+        metric: str = "l2",
+        schedule: str = "adaptive",
+        delta_d: int = 32,
+        sel_frac: float = 0.2,
+        group: int = 8,
+        stats=None,
+    ):
+        """Compatibility wrapper around ``route`` + ``pdxearch`` -> a
+        ``TopK``.  Engine code goes through ``core.plan``, which calls
+        ``route`` and owns the executor choice; this stays for direct index
+        users."""
+        from ..core.pdxearch import pdxearch
+
+        q = torch.as_tensor(q, dtype=torch.float32).to(self.store.device)
+        qt = pruner.transform_query(q)
+        order, start_parts = self.route(qt, nprobe, metric)
+        return pdxearch(
+            self.store, q, k, pruner, metric=metric, schedule=schedule,
+            delta_d=delta_d, sel_frac=sel_frac, group=group,
+            pid_order=order, start_parts=start_parts, stats=stats,
+        )
+
 
 def build_ivf(
     X: np.ndarray,
@@ -162,14 +274,19 @@ def build_ivf(
     seed: int = 0,
     precomputed: Optional[tuple[np.ndarray, np.ndarray]] = None,
     tree: bool | str = "auto",
+    super_k: Optional[int] = None,
+    nprobe_super: Optional[int] = None,
     device=None,
 ) -> IVFIndex:
     """Train k-means on ``device`` (or take precomputed (centroids,
     assignments) so competitors share identical buckets, as the paper does)
     and pack buckets into PDX partitions on ``device`` (None: the CUDA
-    card, raising without one)."""
-    if tree is True or (tree == "auto" and nlist >= TREE_AUTO_NLIST):
-        raise NotImplementedError(TREE_NOT_PORTED)
+    card, raising without one).
+
+    ``tree``: ``True`` builds the two-level centroid tree, ``False`` keeps
+    the flat scan, ``"auto"`` builds it once nlist reaches
+    ``TREE_AUTO_NLIST``.  ``super_k`` defaults to ~sqrt(nlist),
+    ``nprobe_super`` to super_k // 4."""
     device = resolve_device(device)
     X = np.asarray(X, np.float32)
     if precomputed is not None:
@@ -182,7 +299,7 @@ def build_ivf(
         X, assignments, nlist, capacity, device=device
     )
     centroids = np.ascontiguousarray(centroids, np.float32)
-    return IVFIndex(
+    ivf = IVFIndex(
         store=store,
         centroid_store=build_flat_store(
             centroids, capacity=min(1024, max(64, nlist)), device=device
@@ -192,3 +309,6 @@ def build_ivf(
         part_counts=nparts,
         nlist=nlist,
     )
+    if tree is True or (tree == "auto" and nlist >= TREE_AUTO_NLIST):
+        ivf.attach_tree(super_k, nprobe_super, seed=seed)
+    return ivf

@@ -7,6 +7,9 @@ returns, per tile, how many lanes and partitions were still alive when the
 tile was reached: lanes x tile width is the ``SearchStats``
 ``values_computed`` account, partitions x tile width x capacity x mirror
 byte width the demand-bytes model.
+
+``cache_upload_wait`` meters one settle of the tiered bucket cache's
+asynchronous uploads (``core.layout.BucketCache.wait``).
 """
 from __future__ import annotations
 
@@ -15,8 +18,10 @@ from typing import Optional
 import numpy as np
 
 from ..kernels.ref import pdx_prune_scan_multi_ref
+from . import metrics
 
-__all__ = ["tile_widths", "fused_tile_counts", "fused_demand_bytes"]
+__all__ = ["tile_widths", "fused_tile_counts", "fused_demand_bytes",
+           "cache_upload_wait"]
 
 
 def tile_widths(D: int, d_tile: int = 64) -> np.ndarray:
@@ -62,3 +67,21 @@ def fused_demand_bytes(
     )
     w = tile_widths(D, d_tile)
     return float(D * C * 4 + (parts * w).sum() * C * mirror.bytes_per_value)
+
+
+def cache_upload_wait(wait_us: float, total_us: float) -> None:
+    """Record one async bucket-cache upload completion: the
+    ``repro_cache_upload_wait_us`` histogram holds how long the host
+    actually blocked on the in-flight host-to-device copies at
+    ``BucketCache.wait``, and the ``repro_cache_upload_overlap_ratio``
+    gauge the fraction of the issue->complete window hidden behind compute
+    (1.0 = the copy finished entirely under the overlapped scan, 0.0 =
+    fully synchronous)."""
+    if not metrics.enabled():
+        return
+    metrics.observe("repro_cache_upload_wait_us", float(wait_us))
+    if total_us > 0:
+        metrics.gauge(
+            "repro_cache_upload_overlap_ratio",
+            max(0.0, 1.0 - float(wait_us) / float(total_us)),
+        )

@@ -172,9 +172,15 @@ def test_ivf_routing_matches_reference(route_dtype):
 
 
 def test_ivf_tree_is_refused_until_ported():
+    """The two-level tree is ported: ``tree=True`` builds it (and refuses
+    nothing), with the reference's defaults for its fan-out."""
     X, _ = jsyn.make_dataset(200, 8, "normal", n_queries=1, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build_ivf(X, 4, capacity=64, tree=True, device="cpu")
+    ti = t_build_ivf(X, 4, capacity=64, tree=True, device="cpu")
+    ji = j_build_ivf(X, 4, capacity=64, tree=True)
+    assert ti.tree_enabled and ji.tree_enabled
+    assert tuple(ti.super_children.shape)[0] == tuple(ji.super_children.shape)[0]
+    assert ti.nprobe_super == ji.nprobe_super
+    assert sorted(ti.super_children[ti.super_children >= 0].tolist()) == [0, 1, 2, 3]
 
 
 @pytest.mark.parametrize("dtype", ["f32", "int4"])

@@ -873,3 +873,142 @@ def test_tombstoned_columns_never_return_at_ip(dev, dtype):
     np.testing.assert_array_equal(a.ids, b.ids)
     assert not np.isin(b.ids, dead).any() and (b.ids >= 0).all()
     assert np.isfinite(b.dists).all()
+
+
+# ------------------------------------------------------------ tiered serving
+def _ivf_stores(dev, n=6000, D=96, nlist=12, capacity=256, seed=11):
+    """One IVF build's store as a CPU PDXStore and a CUDA PDXStore holding
+    the same arrays, with its bucket extents."""
+    from repro_torch.index.ivf import build_ivf
+
+    X, Q = make_dataset(n, D, "clustered", n_queries=8, seed=seed)
+    ivf = build_ivf(X, nlist, capacity=capacity, device="cpu")
+    s = ivf.store
+    gpu = tl.PDXStore(*(getattr(s, k).to(dev) for k in
+                        ("data", "ids", "counts", "dim_means", "dim_vars")))
+    return s, gpu, ivf, Q
+
+
+def _cache(store, ivf, dtype, path, cap):
+    bc = tl.BucketCache(store, capacity_slots=cap, dtype=dtype,
+                        part_offsets=ivf.part_offsets, part_counts=ivf.part_counts)
+    bc.stage_on_host = path == "worker"
+    bc.sync_uploads = path == "legacy"
+    return bc
+
+
+@pytest.mark.parametrize("path", ["worker", "device", "legacy"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tiered_pool_on_the_card_equals_the_cpu_cache(dev, dtype, path):
+    """One sequence of ensure/issue/wait leaves the CUDA cache's pool, id
+    table and slot tables equal bit for bit to the CPU cache's (pinned
+    staging, the side stream, the device quantizer on the card)."""
+    cpu_s, gpu_s, ivf, _ = _ivf_stores(dev)
+    cap = int(ivf.part_counts.max() * 3 + 1)
+    caches = [_cache(s, ivf, dtype, path, cap) for s in (cpu_s, gpu_s)]
+    stats = []
+    for bc in caches:
+        seq = [bc.ensure(np.array([0, 1, 2]))]
+        t = bc.issue(np.array([3, 1]))
+        seq.append(bc.wait(bc.issue(np.array([4]))))
+        seq += [t.stats, bc.ensure(np.array([5, 0, 6])), bc.ensure(np.array([7, 2]))]
+        stats.append(seq)
+    assert stats[0] == stats[1] and any(s["evicted"] for s in stats[0])
+    (cp, cid, csb, csc, coff), (gp, gid, gsb, gsc, goff) = (c.arrays() for c in caches)
+    assert gp.device.type == "cuda"
+    for a, b in ((cp, gp), (cid, gid), (csb, gsb), (csc, gsc), (coff, goff)):
+        assert torch.equal(a.view(torch.uint8) if a.dtype == torch.bfloat16 else a,
+                           (b.view(torch.uint8) if b.dtype == torch.bfloat16 else b).cpu())
+    np.testing.assert_array_equal(caches[0].slot_ids_host(), caches[1].slot_ids_host())
+    # the device quantizer on the card equals the host's bit for bit
+    ext = np.ascontiguousarray(cpu_s.data[:5].numpy())
+    host = caches[1]._host_quantize(ext)
+    devq = caches[1]._device_quantize(torch.from_numpy(ext).to(dev)).cpu()
+    if host.dtype == torch.bfloat16:
+        host, devq = host.view(torch.int16), devq.view(torch.int16)
+    assert torch.equal(host, devq)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_tiered_upload_never_changes_an_enqueued_scan(dev, dtype):
+    """The in-place hazard: a pool scan of bucket ``a`` enqueued behind a
+    long spin of the card, then ``issue`` + ``wait`` of a bucket ``b`` of
+    the same size in a pool that holds one, so ``b`` takes every slot the
+    scan reads.  ``wait`` writes the pool in stream order after the scan,
+    so the scan returns what it returns with no upload in between, while
+    the pool afterwards holds ``b``."""
+    from repro_torch.core.plan import _tiered_pool_scan
+
+    _, gpu_s, ivf, Q = _ivf_stores(dev)
+    cnts = ivf.part_counts
+    a, b = next((x, y) for x in range(len(cnts)) for y in range(x + 1, len(cnts))
+                if cnts[x] == cnts[y] > 0)
+    bc = _cache(gpu_s, ivf, dtype, "worker", int(cnts[a]))
+    bc.ensure(np.array([a]))
+    slots = bc._resident[0][a]
+    sel = torch.full((4, 1), a, device=dev)
+    Qd = torch.from_numpy(Q[:4]).to(dev)
+
+    def scan():
+        pool, ids, sb, sc, off = bc.arrays()
+        return _tiered_pool_scan(pool, ids, sb, sel, Qd, sc, off, 10, "l2",
+                                 bc.quantized, packed=bc.packed, dim=bc.dim)
+
+    want = scan()
+    torch.cuda.synchronize()
+    assert (want.ids >= 0).all()
+    torch.cuda._sleep(200_000_000)  # about 0.1 s of the card ahead of the scan
+    got = scan()
+    st = bc.wait(bc.issue(np.array([b])))
+    assert st["evicted"] == 1 and st["uploaded_slots"] == len(slots)
+    assert np.array_equal(np.sort(bc._resident[0][b]), np.sort(slots))
+    torch.cuda.synchronize()
+    assert torch.equal(got.ids, want.ids) and torch.equal(got.dists, want.dists)
+    off_b = int(ivf.part_offsets[b])
+    ids_b = gpu_s.ids[off_b:off_b + len(slots)]
+    order = np.argsort(bc._resident[0][b])
+    assert torch.equal(bc.arrays()[1][torch.from_numpy(np.sort(bc._resident[0][b])).to(dev)],
+                       ids_b[torch.from_numpy(order).to(dev)])
+
+
+def test_kernel_torch_with_hbm_slots_on_a_cuda_store_raises(dev):
+    X, Q = make_dataset(3000, 48, "clustered", n_queries=4, seed=3)
+    gpu = VectorSearchEngine.build(X, index="ivf", nlist=8, pruner="adsampling",
+                                   capacity=256, device=dev)
+    with pytest.raises(ValueError, match="kernel='torch'"):
+        gpu.search(Q, SearchSpec(k=5, hbm_slots=8, kernel="torch"))
+    assert gpu.plan(Q, SearchSpec(k=5, hbm_slots=8)).executor == "tiered-scan"
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tiered_scan_on_the_card_matches_the_cpu(dev, dtype):
+    """tiered-scan on the card launches K2 once per (chunk, pass) step and
+    returns the ids the CPU engine (the plain K2) returns on the same
+    build, at a pool small enough to chunk and evict; a swap is allowed
+    only between neighbours whose exact distances lie within 1e-5
+    relative (f32 scans K2's split product, 5.7e-5 off exact)."""
+    from repro_torch.core import plan as tplan
+
+    X, Q = make_dataset(6000, 96, "clustered", n_queries=16, seed=12)
+    kw = dict(index="ivf", nlist=12, pruner="adsampling", capacity=256, seed=1)
+    cpu = VectorSearchEngine.build(X, device="cpu", **kw)
+    gpu = VectorSearchEngine.build(X, device=dev, **kw)
+    assert torch.equal(gpu.store.ids.cpu(), cpu.store.ids)
+    cnts = gpu.ivf.part_counts
+    slots = int(np.sort(cnts)[-3:].sum())
+    spec = SearchSpec(k=10, nprobe=3, hbm_slots=slots, scan_dtype=dtype)
+    Qt = gpu.pruner.transform_batch(torch.from_numpy(Q).to(dev))
+    sel = gpu.ivf.route_batch(Qt, 3)
+    chunks = tplan._tiered_chunks(sel, cnts, lambda b: 0, slots)
+    steps = sum(len(tplan._chunk_passes(sel[c], cnts, lambda b: 0, slots)) for c in chunks)
+    for _ in range(2):  # cold, then warm
+        n0 = batched_distance_quant_cuda.launches
+        b = gpu.search(Q, spec)
+        assert b.plan.executor == "tiered-scan"
+        assert batched_distance_quant_cuda.launches - n0 == steps
+    a = cpu.search(Q, spec)
+    np.testing.assert_allclose(b.dists, a.dists, rtol=1e-5, atol=1e-4)
+    for ai, ad, bi in zip(a.ids, a.dists, b.ids):
+        for j in np.nonzero(ai != bi)[0]:
+            near = np.abs(ad - ad[j]) <= 1e-5 * np.abs(ad[j])
+            assert bi[j] in ai[near], (ai, bi, ad)

@@ -82,6 +82,7 @@ def test_build_without_device_raises_when_cuda_is_absent(monkeypatch):
 @pytest.mark.parametrize("builder", [
     "build_flat_store", "build_bucketed_store", "build_ivf", "kmeans",
     "make_adsampling", "make_bsa", "make_bond", "engine_from_arrays",
+    "build_centroid_tree", "build_ivf_tree",
 ])
 def test_every_builder_without_device_raises_when_cuda_is_absent(monkeypatch, builder):
     """Leaving ``device`` out means the card: each builder raises without
@@ -99,6 +100,8 @@ def test_every_builder_without_device_raises_when_cuda_is_absent(monkeypatch, bu
         "make_bond": lambda: pruners.make_bond(X.mean(0)),
         "engine_from_arrays": lambda: convert.engine_from_arrays(
             {"pruner": "linear"}, device=None),
+        "build_centroid_tree": lambda: kmeans.build_centroid_tree(X[:16], 4),
+        "build_ivf_tree": lambda: ivf.build_ivf(X, 4, capacity=16, tree=True),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[builder]()
@@ -137,10 +140,10 @@ def test_kernel_torch_refuses_kernel_executors_on_a_cuda_store(cpu_engine, monke
 
 @pytest.mark.parametrize("spec", [
     dict(executor="routed_tiered"),
-    dict(executor="tiered-scan"),
+    dict(executor="dim-sharded"),
     dict(executor="routed_bucket"),
     dict(executor="block-sharded"),
-    dict(hbm_slots=4),
+    dict(executor="batch-block-sharded"),
 ])
 def test_unported_paths_name_their_roadmap_item(cpu_engine, spec):
     eng, Q = cpu_engine
@@ -154,7 +157,8 @@ def test_unported_engine_calls_name_their_roadmap_item(cpu_engine):
                  lambda: eng.plan(Q, mesh=object()),
                  lambda: VectorSearchEngine.build(Q, mesh=object(), device="cpu"),
                  lambda: VectorSearchEngine.build(Q, index="ivf", nlist=2, tree=True,
-                                                  capacity=64, device="cpu")):
+                                                  capacity=64, mesh=object(),
+                                                  device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
     flat = VectorSearchEngine.build(Q, pruner="linear", capacity=64, device="cpu")
@@ -163,19 +167,44 @@ def test_unported_engine_calls_name_their_roadmap_item(cpu_engine):
 
 
 def test_only_tiered_and_mesh_executors_remain_unported():
-    """The masked executor is ported: ``UNPORTED_EXECUTORS`` lists only the
-    tiered and mesh-sharded executors, and the planner takes
+    """The masked and the single-device tiered executors are ported:
+    ``UNPORTED_EXECUTORS`` lists only the mesh-sharded executors (the mesh's
+    tiered one, ``routed_tiered``, among them), and the planner takes
     ``prefer_static`` to ``jit-masked`` on a flat store."""
     from repro_torch.core.plan import UNPORTED_EXECUTORS, executor_names
 
-    assert "jit-masked" not in UNPORTED_EXECUTORS
-    assert "jit-masked" in executor_names()
+    for name in ("jit-masked", "tiered-scan"):
+        assert name not in UNPORTED_EXECUTORS
+        assert name in executor_names()
     assert set(UNPORTED_EXECUTORS) == {
-        "tiered-scan", "routed_tiered", "block-sharded", "dim-sharded",
+        "routed_tiered", "block-sharded", "dim-sharded",
         "batch-block-sharded", "routed_bucket"}
     X, Q = make_dataset(200, 8, "normal", n_queries=1, seed=0)
     flat = VectorSearchEngine.build(X, pruner="linear", capacity=64, device="cpu")
     assert flat.search(Q[0], SearchSpec(prefer_static=True)).plan.executor == "jit-masked"
+
+
+def test_tiered_entry_points_follow_the_store_and_the_kernel_knob(cpu_engine, monkeypatch):
+    """``hbm_slots`` on an IVF engine plans ``tiered-scan``; its slot pool
+    and tree live on the store's device; ``kernel="cuda"`` on a CPU store
+    raises, and so does ``kernel="torch"`` on a CUDA store (the tiered
+    executor runs K2 on the card, never the plain version)."""
+    from repro_torch.core import plan
+
+    eng, Q = cpu_engine
+    res = eng.search(Q, SearchSpec(k=3, nprobe=2, hbm_slots=4, scan_dtype="int8"))
+    assert res.plan.executor == "tiered-scan"
+    cache = next(iter(eng.store._tiered_cache.values()))
+    assert cache.device == eng.device and cache.arrays()[0].device == eng.device
+    eng.ivf.attach_tree(2, 1)
+    assert eng.ivf.super_centroids.device == eng.device
+    eng.ivf.super_centroids = eng.ivf.super_children = None
+    with pytest.raises(ValueError, match="kernel='cuda'"):
+        eng.search(Q, SearchSpec(kernel="cuda", hbm_slots=4))
+    monkeypatch.setattr(plan, "_on_cuda", lambda store: True)
+    with pytest.raises(ValueError, match="kernel='torch'"):
+        eng.plan(Q, SearchSpec(kernel="torch", hbm_slots=4))
+    assert eng.plan(Q, SearchSpec(hbm_slots=4)).executor == "tiered-scan"
 
 
 def test_kernel_wrappers_refuse_cpu_tensors_without_fallback():
