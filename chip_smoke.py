@@ -95,6 +95,36 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      centroid tree on a copy of the index (super_k = max(8, sqrt(nlist)),
      nprobe_super = 4): routing cost below nlist, bucket overlap with flat
      routing >= 0.9, tiered recall against flat-routed tiered >= 0.9.
+  5c. serve (after 5b, on the same frozen engine, before 6) — the serving
+     tier (``repro_torch.serve.VectorServer``, ``benchmarks/bench_serve.py``'s
+     premise at full scale): 64 blocking single-query ``engine.search``
+     calls per dtype (the serial rate); then one server (max_batch 64,
+     flush window 2 ms) warmed at f32 and int8 (``warmup``), and per dtype,
+     with the launch counters zeroed just before: a closed-loop burst of the
+     main path's 64 queries (one bucket-64 batch, ids equal to
+     ``engine.search`` of the batch), one single query (a bucket of one,
+     ids equal to its blocking search), and 2,048 queries drawn like the
+     main path's (``serve_queries``) in an open loop of lognormal gaps at 3x
+     the serial rate; held: every future resolves, recall@10 against the
+     card's ground truth >= 0.95 on bucket-1 queries and >= 0.99 on the
+     rest, exact distances, no set-up after warmup (``obs.setups``), K1 ==
+     the bucket-1 batches and K2 == the larger buckets' launches; recorded:
+     QPS, p50/p99, QPS over serial and p99 over p50 (bench_serve's 2x and
+     5x gates, not held), batches, fill, queue wait, plan and run time per
+     bucket, the caching allocator's new segments after warmup, and the
+     device's idle share over one profiled second of a second open loop.
+     The served cascade (ladder A): ``warmup(specs=[cascade])`` timed, one
+     single query and 256 open-loop queries at 3x its serial rate, held to
+     recall@10 >= 0.99, exact distances, no set-up, K1, K2 and K3 launched;
+     each scan stage's K2 launches read through ``StageRecorder`` on the
+     executor thread and held to its d-tiles per ``cascade-batch`` batch.
+     The served tiered path (int8, P // 4 slots, nprobe 8, max_batch 16):
+     the tiered phase's 256 zipf queries in an open loop at 3x the rate of
+     their blocking single-query searches, held to those searches' ids,
+     recall@10 within the routed buckets >= 0.99, no id outside them, no
+     set-up after warmup; recorded: each upload's host wait against its
+     issue-to-complete window (the overlap ``prepare_execute`` buys),
+     beside the same on the blocking path (batches of 16 on a fresh pool).
   6. mutable (after 4, on the same engine) — the store made mutable
      (``from_store``: masters to the host, the frozen mirrors dropped),
      10,000 ids drawn from ``--seed`` deleted, 10,000 rows of
@@ -112,6 +142,18 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      tiered floors, no deleted id.  Then ``compact()`` and the same again
      (the tiered pool must change generation).  Every K1, K2 and K3 must
      launch.
+  6b. serve_churn (after 6's ``compact()``, on that mutable store) — a
+     server with a maintenance thread (interval CHURN_MAINT_S, head fill
+     threshold 0) under f32 and int8 open-loop traffic while a thread runs
+     CHURN_CYCLES cycles of inserting CHURN_ROWS standard-normal rows,
+     querying each as itself and deleting them; held: a maintenance swap
+     adopted, every inserted row its own rank 0 while live, no deleted id
+     returned (nor found by the deleted rows queried as themselves),
+     recall@10 against the live set at the fused floors; recorded: clone
+     and repack seconds, the first batch after the swap, p99 of the
+     queries submitted while the swap was made, swaps adopted, discarded,
+     rows replayed, set-ups after warmup (a new tiles_version rebuilds its
+     mirrors; not held).
   7. jit_masked — a flat ADSampling engine over the first 65,536 rows:
      4 queries with ``prefer_static=True`` plan ``jit-masked`` and return
      the ``adaptive`` executor's ids; both run plain PyTorch on the card.
@@ -120,7 +162,8 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      dtype and metric, K2 on the tiered pool by dtype); the K1, K2 and K3
      rows on the mutable phase's path also carry ``launches_mutable`` (its
      counts before and after ``compact``), the K2 rows ``launches_tiered``
-     (phase 5b's cold and warm passes).
+     (phase 5b's cold and warm passes), and the K1, K2 and K3 rows on
+     phase 5c's serving path ``launches_serve``.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -208,6 +251,20 @@ TIERED_QUERIES, TIERED_BATCH, TIERED_ZIPF, TIERED_NPROBE = 256, 16, 3.0, 8
 TIERED_DTYPES, TIERED_HELD, TIERED_PROFILE_DTYPE = ("f32", "int8", "int4"), ("f32", "int8"), "int8"
 TIERED_RECALL_FLOOR, TIERED_HIT_FLOOR = 0.99, 0.8
 TREE_NPROBE_SUPER, TREE_OVERLAP_FLOOR, TREE_RECALL_FLOOR = 4, 0.9, 0.9
+
+# phase serve (benchmarks/bench_serve.py's premise at the main path's scale):
+# serial queries, open-loop queries (lognormal gaps at SERVE_RATE_X times
+# the serial rate), the cascade's open-loop queries, batch caps, flush
+# window, admission queue depth (deep enough that nothing is rejected);
+# recall floors of the queries served in a bucket of one (fused-scan) and
+# in larger buckets (fused-batch); the profiled window
+SERVE_SERIAL, SERVE_OPEN, SERVE_CASCADE_OPEN, SERVE_RATE_X = 64, 2048, 256, 3.0
+SERVE_MAX_BATCH, SERVE_TIERED_MAX_BATCH, SERVE_FLUSH_S, SERVE_QUEUE_DEPTH = 64, 16, 0.002, 8192
+SERVE_DTYPES, SERVE_RECALL_FLOORS, SERVE_PROFILE_S = ("f32", "int8"), (0.95, 0.99), 1.0
+# phase serve_churn (bench_serve's CHURN_ROWS): rows inserted then deleted
+# per cycle, cycles, the gap after each, the maintenance interval, and how
+# long the traffic may wait for a swap after the churn
+CHURN_ROWS, CHURN_CYCLES, CHURN_GAP_S, CHURN_MAINT_S, CHURN_SWAP_WAIT_S = 8, 48, 0.5, 10.0, 180.0
 
 
 def emit(obj: dict) -> None:
@@ -734,17 +791,22 @@ def stage_kernel_row(torch, ref, call: dict, ladder: str, stage: str) -> dict:
 class StageRecorder:
     """Stands in for ``ops.batched_cascade_stage_op`` while a
     ``cascade-batch`` run is counted: calls the op, keeps each stage's
-    arguments and the K2 launches the call made."""
+    arguments (unless ``keep_args`` is false) and the K2 launches the call
+    made.  The executor looks the op up at each call, so a server's
+    executor thread goes through the recorder too."""
 
-    def __init__(self, ops, k2):
+    def __init__(self, ops, k2, keep_args: bool = True):
         self.ops, self.k2, self.calls = ops, k2, []
-        self.op = ops.batched_cascade_stage_op
+        self.op, self.keep_args = ops.batched_cascade_stage_op, keep_args
 
     def __call__(self, *args, **kwargs):
         n0 = self.k2.launches
         out = self.op(*args, **kwargs)
-        self.calls.append({"args": args, "kwargs": kwargs,
-                           "k2_launches": self.k2.launches - n0})
+        call = {"packed": bool(kwargs.get("packed")),
+                "k2_launches": self.k2.launches - n0}
+        if self.keep_args:
+            call.update(args=args, kwargs=kwargs)
+        self.calls.append(call)
         return out
 
     def __enter__(self):
@@ -1305,7 +1367,7 @@ def mutable_round(torch, eng, Q, Qd, Xall, gt, dead, own, own_ids, counters,
     return out, launches
 
 
-def mutable_phase(torch, eng, Xd, Q, Qd, seed: int, counters: dict) -> tuple[list, dict]:
+def mutable_phase(torch, eng, Xd, Q, Qd, seed: int, counters: dict) -> tuple[list, dict, dict]:
     """The mutable store on the main path's IVF engine: 10,000 ids chosen at
     random from ``seed`` deleted, 10,000 new rows (``make_dataset``, the
     same kind, seed + 2) inserted in batches of 200 (flushes through
@@ -1313,7 +1375,8 @@ def mutable_phase(torch, eng, Xd, Q, Qd, seed: int, counters: dict) -> tuple[lis
     ``compact()`` and ``mutable_round`` again.  The ground truth is that of
     the live set (the rows minus the deleted plus the inserted), computed
     on the card by direct f32 differences.  -> (phase lines, launches by
-    kernel row name and round)."""
+    kernel row name and round, the live set: ``Xall`` (row i the vector of
+    id i), ``gt`` and the ``dead`` ids)."""
     from repro_torch.data.synthetic import make_dataset
     from repro_torch.obs import metrics
 
@@ -1373,7 +1436,7 @@ def mutable_phase(torch, eng, Xd, Q, Qd, seed: int, counters: dict) -> tuple[lis
             assert line["tiered"]["generation"] != lines[-1]["tiered"]["generation"], \
                 "the tiered pool kept its generation across compact()"
         lines.append(line)
-    return lines, launches
+    return lines, launches, {"Xall": Xall, "gt": gt, "dead": dead}
 
 
 def jit_masked_phase(torch, Xd, Q, seed: int, counters: dict) -> dict:
@@ -1692,9 +1755,620 @@ def tiered_phase(torch, ref, eng, Xd, seed: int, k2) -> tuple[list, list, dict]:
         metrics.set_enabled(False)
         reg.reset()
         store._tiered_cache = {}
+    # the host masters and sorted rows stay for phase serve, which drops them
+    return list(rows.values()), launches
+
+
+# ------------------------------------------------------------- serving
+def serve_queries(seed: int, D: int, n: int, n_clusters: int = 64) -> np.ndarray:
+    """``n`` queries drawn as the main path's are (``make_dataset``'s
+    clustered kind): that call's first two draws are its cluster centres
+    and widths; a stream of its own (``seed + 4``) picks each query's
+    cluster and noise."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_clusters, D)) * 4.0
+    widths = rng.uniform(0.3, 1.2, size=(n_clusters, 1))
+    qrng = np.random.default_rng(seed + 4)
+    qa = qrng.integers(0, n_clusters, size=n)
+    Q = centers[qa] + qrng.standard_normal((n, D)) * widths[qa]
+    return Q.astype(np.float32)
+
+
+def ground_truth_many(torch, X, Q, k: int, cand: int = 64, chunk: int = 1 << 17,
+                      qchunk: int = 256) -> np.ndarray:
+    """Exact top-k ids of many queries: each query's nearest ``cand`` rows
+    by the matmul form ``||x||^2 - 2 q.x`` in f32 (TF32 off), re-scored by
+    direct f32 differences, the nearest ``k`` of those kept.  The form's
+    error (about 1e-7 of the norms) is far below the gap between a
+    clustered query's 10th and 64th neighbours."""
+    xn = torch.sum(X * X, dim=1)
+    out = []
+    for q0 in range(0, Q.shape[0], qchunk):
+        Qc = Q[q0:q0 + qchunk]
+        best_d = best_i = None
+        for lo in range(0, X.shape[0], chunk):
+            d = xn[None, lo:lo + chunk] - 2.0 * (Qc @ X[lo:lo + chunk].T)
+            dd, ii = torch.topk(d, min(cand, d.shape[1]), dim=1, largest=False)
+            ii = ii + lo
+            if best_d is not None:
+                dd, sel = torch.topk(torch.cat([best_d, dd], 1), cand, dim=1, largest=False)
+                ii = torch.gather(torch.cat([best_i, ii], 1), 1, sel)
+            best_d, best_i = dd, ii
+        diff = X[best_i] - Qc[:, None, :]
+        exact = torch.sum(diff * diff, dim=2)
+        top = torch.topk(exact, k, dim=1, largest=False).indices
+        out.append(torch.gather(best_i, 1, top))
+    return torch.cat(out).cpu().numpy()
+
+
+def recording_server(VectorServer):
+    """A ``VectorServer`` that keeps a record of every batch it runs (its
+    bucket, executor, queries' futures and enqueue times, plan time, run
+    window and the store's tiles_version after it) and of every swap it
+    applies.  Adds nothing to the path but the bookkeeping."""
+
+    class RecordingServer(VectorServer):
+        def __init__(self, *args, **kwargs):
+            self.batches, self.swaps = [], []
+            super().__init__(*args, **kwargs)
+
+        def _run_batch(self, b):
+            rec = {"bucket": b.bucket, "n": len(b.items),
+                   "futures": [it.future for it in b.items],
+                   "t_enqueue": [it.t_enqueue for it in b.items],
+                   "plan_s": b.t_plan1 - b.t_plan0, "t_run": time.perf_counter(),
+                   "t_done": None}
+            self.batches.append(rec)
+            super()._run_batch(b)
+            rec["executor"] = b.prepared.plan.executor
+            rec["tiles_version"] = getattr(self.engine.store, "tiles_version", 0)
+            rec["t_done"] = time.perf_counter()
+
+        def records(self) -> list:
+            """The batch records, once the executor has finished writing
+            them (a batch's futures resolve just before its record does)."""
+            t_end = time.perf_counter() + 5.0
+            while (any(r["t_done"] is None for r in self.batches)
+                   and time.perf_counter() < t_end):
+                time.sleep(0.001)
+            return self.batches
+
+        def _apply_swap(self, s):
+            v0 = getattr(self.engine.store, "tiles_version", 0)
+            super()._apply_swap(s)
+            self.swaps.append({"t": time.perf_counter(),
+                               "adopted": self.engine.store.tiles_version != v0})
+
+    return RecordingServer
+
+
+def open_loop(torch, srv, Q, specs, rate: float, seed: int, profile: bool = False,
+              until=None) -> dict:
+    """Submit the rows of ``Q`` one by one (spec ``specs[i % len(specs)]``)
+    at lognormal inter-arrival gaps of mean ``1 / rate`` (sigma 1, as
+    ``benchmarks/bench_serve.py`` draws them), cycling through ``Q`` while
+    ``until()`` is false when it is given; wait for every future (a
+    failure raises).  With ``profile``, ``torch.profiler`` traces the card
+    over the whole run; it starts and stops only while the server's
+    threads are idle (before the first submission, after the last batch),
+    never while another thread launches work.  -> per query: result,
+    submit and done time; QPS, p50, p99 and the profile."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    n = len(Q) if until is None else 1 << 30
+    gaps = np.random.default_rng(seed).lognormal(
+        mean=np.log(1.0 / rate) - 0.5, sigma=1.0, size=min(n, 1 << 20))
+    futs, t_sub, qi, done = [], [], [], {}
+    prof = prof_out = None
+    if profile:
+        torch.cuda.synchronize()
+        prof = tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        prof.start()
+    t_start = time.perf_counter()
+    next_at = t_start
+    i = 0
+    while i < n and (until is None or not until()):
+        next_at += gaps[i % len(gaps)]
+        delay = next_at - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        t_sub.append(time.perf_counter())
+        f = srv.submit(Q[i % len(Q)], specs[i % len(specs)])
+        f.add_done_callback(lambda _f, j=i: done.__setitem__(j, time.perf_counter()))
+        futs.append(f)
+        qi.append(i % len(Q))
+        i += 1
+    res = [f.result(timeout=300) for f in futs]
+    if prof is not None:
+        srv.records()  # the executor has finished its last batch
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_start
+        prof.stop()
+        busy = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        prof_out = {"window_ms": wall * 1e3, "device_busy_ms": busy,
+                    "device_idle_share": max(0.0, 1 - busy / (wall * 1e3))}
+    t_end = max(done.values())
+    lat = np.array([done[j] - t_sub[j] for j in range(len(futs))])
+    return {"ids": np.stack([r[0] for r in res]), "dists": np.stack([r[1] for r in res]),
+            "query": np.asarray(qi), "t_submit": np.asarray(t_sub),
+            "t_done": np.asarray([done[j] for j in range(len(futs))]),
+            "futures": futs, "qps": len(futs) / (t_end - t_start),
+            "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "wall_s": t_end - t_start, "profile": prof_out}
+
+
+def batch_record(batches, futures=None) -> dict:
+    """Per-bucket batch counts, fill, queue wait and plan time of the
+    recorded batches (those serving ``futures`` when given)."""
+    if futures is not None:
+        mine = {id(f) for f in futures}
+        batches = [b for b in batches if id(b["futures"][0]) in mine]
+    by = {}
+    for b in batches:
+        by.setdefault(b["bucket"], []).append(b)
+    waits = [b["t_run"] - t for b in batches for t in b["t_enqueue"]]
+    return {"batches_per_bucket": {str(k): len(v) for k, v in sorted(by.items())},
+            "fill_per_bucket": {str(k): float(np.mean([b["n"] / k for b in v]))
+                                for k, v in sorted(by.items())},
+            "queue_wait_ms_p50": float(np.percentile(waits, 50)) * 1e3 if waits else None,
+            "queue_wait_ms_p99": float(np.percentile(waits, 99)) * 1e3 if waits else None,
+            "plan_ms_mean": float(np.mean([b["plan_s"] for b in batches])) * 1e3
+            if batches else None,
+            "run_ms_per_bucket": {str(k): float(np.median([b["t_done"] - b["t_run"]
+                                                           for b in v])) * 1e3
+                                  for k, v in sorted(by.items())}}
+
+
+def bucket_of(batches, futures) -> np.ndarray:
+    """The bucket each future was served in."""
+    where = {id(f): b["bucket"] for b in batches for f in b["futures"]}
+    return np.asarray([where[id(f)] for f in futures])
+
+
+def served_recall(ids, gt, buckets) -> dict:
+    """recall@10 over the queries served in a bucket of one and in larger
+    buckets (None where none was)."""
+    one = buckets == 1
+    return {"bucket_1": recall(ids[one], gt[one]) if one.any() else None,
+            "buckets_ge_2": recall(ids[~one], gt[~one]) if (~one).any() else None,
+            "queries_bucket_1": int(one.sum()), "queries_buckets_ge_2": int((~one).sum())}
+
+
+def hold_served_recall(rec: dict, what: str) -> None:
+    f_one, f_many = SERVE_RECALL_FLOORS
+    assert rec["bucket_1"] is None or rec["bucket_1"] >= f_one, (what, rec)
+    assert rec["buckets_ge_2"] is None or rec["buckets_ge_2"] >= f_many, (what, rec)
+
+
+def k2_launches_per_batch(P: int, C: int, B: int) -> int:
+    """K2 launches of one ``fused-batch`` batch of B: ``core.plan._tile_scan``
+    takes the store in launches of at most MAX_PARTITIONS partitions and
+    ``_FUSED_BATCH_OUT_BYTES`` of output."""
+    from repro_torch.core.plan import _FUSED_BATCH_OUT_BYTES
+    from repro_torch.kernels.batched_matmul import MAX_PARTITIONS
+
+    step = max(1, min(MAX_PARTITIONS, _FUSED_BATCH_OUT_BYTES // (B * C * 4)))
+    return -(-P // step)
+
+
+class UploadLog:
+    """Stands in for ``obs.meters.cache_upload_wait`` while a tiered run is
+    logged: keeps every upload's (host wait, issue->complete window) in
+    microseconds and calls through."""
+
+    def __init__(self, meters):
+        self.meters, self.fn, self.pairs = meters, meters.cache_upload_wait, []
+
+    def __call__(self, wait_us, total_us):
+        self.pairs.append((float(wait_us), float(total_us)))
+        return self.fn(wait_us, total_us)
+
+    def __enter__(self):
+        self.meters.cache_upload_wait = self
+        return self
+
+    def __exit__(self, *exc):
+        self.meters.cache_upload_wait = self.fn
+        return False
+
+    def summary(self) -> dict:
+        w = np.array([p[0] for p in self.pairs])
+        t = np.array([p[1] for p in self.pairs])
+        return {"uploads": len(self.pairs),
+                "upload_wait_us_sum": float(w.sum()),
+                "upload_window_us_sum": float(t.sum()),
+                "upload_overlap": float(1 - w.sum() / t.sum()) if t.sum() > 0 else None,
+                "upload_overlap_mean": float(np.mean(np.maximum(0, 1 - w / t)))
+                if len(t) else None}
+
+
+def serve_phase(torch, eng, Xd, Qmain, seed: int, counters: dict) -> tuple[list, dict]:
+    """The serving tier (``repro_torch.serve.VectorServer``) on the main
+    path's engine, after the tiered phase and before the mutable one: the
+    serial baseline, the served main path at f32 and int8, the served
+    cascade (ladder A) and the served tiered path (int8); see the module
+    docstring, phase 5c.  -> (phase lines, launches by kernel row name)."""
+    from repro_torch.core.engine import SearchSpec
+    from repro_torch.kernels import ops
+    from repro_torch.obs import meters, metrics
+    from repro_torch.serve import VectorServer
+
+    Server = recording_server(VectorServer)
+    store, ivf = eng.store, eng.ivf
+    P, D, C = store.data.shape
+    lines, launches = [], {}
+    Q = serve_queries(seed, D, SERVE_OPEN)
+    Qd = torch.from_numpy(Q).to(Xd.device)
+    gt, t_gt = timed(torch, lambda: ground_truth_many(torch, Xd, Qd, K))
+    specs = {dt: SearchSpec(k=K, scan_dtype=dt) for dt in SERVE_DTYPES}
+
+    # the serial baseline: one query at a time through engine.search
+    serial = {}
+    for dt, spec in specs.items():
+        _, t_s = timed(torch, lambda: [eng.search(Q[i], spec) for i in range(SERVE_SERIAL)])
+        serial[dt] = SERVE_SERIAL / t_s
+    line = {"phase": "serve", "path": "main", "n": Xd.shape[0], "dim": D,
+            "max_batch": SERVE_MAX_BATCH, "flush_interval_s": SERVE_FLUSH_S,
+            "open_loop_queries": SERVE_OPEN, "rate_over_serial": SERVE_RATE_X,
+            "serial_queries": SERVE_SERIAL, "serial_qps": serial,
+            "ground_truth_s": t_gt}
+    srv = Server(eng, spec=specs["f32"], max_batch=SERVE_MAX_BATCH,
+                 flush_interval_s=SERVE_FLUSH_S, queue_depth=SERVE_QUEUE_DEPTH)
+    held = []
+    try:
+        seg0 = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        warm, line["warmup_s"] = timed(torch, lambda: srv.warmup(specs=[specs["int8"]]))
+        line["warmup_executors"] = {str(b): ex for b, ex in warm.items()}
+        seg_warm = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        for dt, spec in specs.items():
+            srv.batches.clear()
+            out = {}
+            # a closed-loop burst: 64 at once drain as one bucket-64 batch
+            want = eng.search(Qmain, spec)
+            want1 = eng.search(Q[0], spec)
+            for c in counters.values():
+                c.launches = 0
+            burst = [srv.submit(q, spec) for q in Qmain]
+            b_ids = np.stack([f.result(timeout=120)[0] for f in burst])
+            b_d = np.stack([f.result(timeout=120)[1] for f in burst])
+            out["burst_buckets"] = batch_record(srv.records(), burst)["batches_per_bucket"]
+            out["burst_ids_equal_engine_search"] = bool(np.array_equal(b_ids, want.ids))
+            out["burst_dists_equal_engine_search"] = bool(np.array_equal(b_d, want.dists))
+            # a single query alone: a bucket of one (fused-scan)
+            one = srv.submit(Q[0], spec).result(timeout=120)
+            out["single_ids_equal_engine_search"] = bool(np.array_equal(one[0], want1.ids))
+            rate = SERVE_RATE_X * serial[dt]
+            run = open_loop(torch, srv, Q, [spec], rate, seed + 10)
+            rec = batch_record(srv.records(), run["futures"])
+            # the device's idle share, on a profiled run of its own of about
+            # SERVE_PROFILE_S seconds of arrivals
+            n_prof = min(len(Q), int(rate * SERVE_PROFILE_S) + 1)
+            prof = open_loop(torch, srv, Q[:n_prof], [spec], rate, seed + 20,
+                             profile=True)
+            got = {k: c.launches for k, c in counters.items()}
+            buckets = bucket_of(srv.records(), run["futures"])
+            g = gt[run["query"]]
+            out.update(
+                qps=run["qps"], p50_ms=run["p50_ms"], p99_ms=run["p99_ms"],
+                qps_over_serial=run["qps"] / serial[dt],
+                p99_over_p50=run["p99_ms"] / run["p50_ms"],
+                recall_at_10=served_recall(run["ids"], g, buckets),
+                dist_rel_err=dist_error(torch, Xd, Qd[run["query"]], run["ids"], run["dists"]),
+                profile=prof["profile"], launches=got, **rec)
+            executors = {(b["bucket"] == 1, b["executor"]) for b in srv.records()}
+            out["executors"] = sorted({ex for _, ex in executors})
+            n1 = sum(b["bucket"] == 1 for b in srv.records())
+            k2_want = sum(k2_launches_per_batch(P, C, b["bucket"]) for b in srv.records()
+                          if b["bucket"] > 1)
+            out["k1_launches_want"], out["k2_launches_want"] = n1, k2_want
+            line[dt] = out
+            launches[f"K1 pdx_prune_scan_multi [{dt}]"] = got["k1"]
+            launches[f"K2 batched_distance_quant [{dt}]"] = got["k2"]
+            held.append((dt, out, executors, got, n1, k2_want))
+        line["setups_after_warmup"] = srv.jit_compiles_since_warmup()
+        line["new_allocator_segments_after_warmup"] = (
+            torch.cuda.memory_stats().get("segment.all.allocated", 0) - seg_warm)
+        line["allocator_segments_in_warmup"] = seg_warm - seg0
+
+        # the served cascade, ladder A
+        cspec = SearchSpec(k=K, cascade=LADDERS["A"])
+        _, t_cs = timed(torch, lambda: [eng.search(Q[i], cspec) for i in range(N_SINGLE)])
+        c_serial = N_SINGLE / t_cs
+        _, t_warm = timed(torch, lambda: srv.warmup(specs=[cspec]))
+        # each cascade-batch batch calls the stage op once per scan stage,
+        # in ladder order, on the executor thread: the recorder reads the
+        # K2 launches of every call, so each stage row gets its own count
+        with StageRecorder(ops, counters["k2"], keep_args=False) as srec:
+            for c in counters.values():
+                c.launches = 0
+            srv.batches.clear()
+            one = srv.submit(Q[0], cspec).result(timeout=120)
+            run = open_loop(torch, srv, Q[:SERVE_CASCADE_OPEN], [cspec],
+                            SERVE_RATE_X * c_serial, seed + 11)
+            got = {k: c.launches for k, c in counters.items()}
+        buckets = bucket_of(srv.records(), run["futures"])
+        g = gt[run["query"]]
+        cas = {"ladder": list(LADDERS["A"]), "warmup_s": t_warm, "serial_qps": c_serial,
+               "queries": SERVE_CASCADE_OPEN, "qps": run["qps"], "p50_ms": run["p50_ms"],
+               "p99_ms": run["p99_ms"],
+               "recall_at_10": recall(run["ids"], g),
+               "recall_at_10_by_bucket": served_recall(run["ids"], g, buckets),
+               "single_recall_at_10": recall(one[0][None], gt[:1]),
+               "dist_rel_err": dist_error(torch, Xd, Qd[run["query"]], run["ids"], run["dists"]),
+               "launches": got, "setups_after_warmup": srv.jit_compiles_since_warmup(),
+               "executors": sorted({b["executor"] for b in srv.records()}),
+               **batch_record(srv.records())}
+        n_cb = sum(b["bucket"] > 1 for b in srv.records())
+        n_cs = sum(b["bucket"] == 1 for b in srv.records())
+        # K2 runs once per d-tile of each stage a cascade-batch batch: the
+        # projection's one tile, then ceil(D / 64)
+        scan_stages = LADDERS["A"][:-1]
+        tiles = {stage: 1 if stage.startswith("proj") else -(-D // 64)
+                 for stage in scan_stages}
+        calls = {stage: srec.calls[i::len(scan_stages)]
+                 for i, stage in enumerate(scan_stages)}
+        k2_stage = {stage: sum(c["k2_launches"] for c in cs) for stage, cs in calls.items()}
+        cas.update(cascade_batch_batches=n_cb, cascade_scan_batches=n_cs,
+                   k2_launches_want=n_cb * sum(tiles.values()),
+                   stage_op_calls=len(srec.calls), k2_launches_by_stage=k2_stage,
+                   k2_launches_by_stage_want={s: n_cb * n for s, n in tiles.items()},
+                   stage_packed={s: sorted({c["packed"] for c in cs})
+                                 for s, cs in calls.items()})
+        line["cascade"] = cas
+        launches[f"K1 pdx_prune_scan_multi [{LADDERS['A'][0]}]"] = got["k1"]
+        launches[f"K3 pdx_prune_scan_multi_prefetch [{LADDERS['A'][1]}]"] = got["k3"]
+        for stage, n in k2_stage.items():
+            launches[f"K2 batched_distance_quant in cascade stage [A {stage}]"] = n
+    finally:
+        srv.close()
+    emit(line)
+    for dt, out, executors, got, n1, k2_want in held:
+        assert out["burst_buckets"] == {str(SERVE_MAX_BATCH): 1}, (dt, out["burst_buckets"])
+        assert out["burst_ids_equal_engine_search"], f"{dt}: served burst ids differ"
+        assert out["single_ids_equal_engine_search"], f"{dt}: served single ids differ"
+        assert all(ex == ("fused-scan" if one_q else "fused-batch")
+                   for one_q, ex in executors), (dt, executors)
+        hold_served_recall(out["recall_at_10"], f"serve {dt}")
+        assert out["dist_rel_err"] <= 1e-3, (dt, out["dist_rel_err"])
+        assert got["k1"] > 0 and got["k2"] > 0, (dt, got)
+        assert got["k1"] == n1 and got["k2"] == k2_want, (dt, got, n1, k2_want)
+    assert line["setups_after_warmup"] == 0, line["setups_after_warmup"]
+    cas = line["cascade"]
+    assert cas["recall_at_10"] >= CASCADE_RECALL_FLOOR, cas
+    assert cas["dist_rel_err"] <= 1e-3, cas
+    assert cas["setups_after_warmup"] == 0, cas
+    assert all(v > 0 for v in cas["launches"].values()), cas["launches"]
+    assert cas["launches"] == {"k1": cas["cascade_scan_batches"], "k3": cas["cascade_scan_batches"],
+                               "k2": cas["k2_launches_want"]}, cas
+    # the stage rows' counts are the recorder's, and add up to the counter
+    assert cas["stage_op_calls"] == len(LADDERS["A"][:-1]) * cas["cascade_batch_batches"], cas
+    assert sum(cas["k2_launches_by_stage"].values()) == cas["launches"]["k2"], cas
+    assert cas["k2_launches_by_stage"] == cas["k2_launches_by_stage_want"], cas
+    assert cas["stage_packed"] == {s: [s == "int4"] for s in LADDERS["A"][:-1]}, cas
+    lines.append(line)
+
+    # the served tiered path, int8
+    S = P // 4
+    tspec = SearchSpec(k=K, nprobe=TIERED_NPROBE, hbm_slots=S, scan_dtype="int8")
+    Qz = tiered_queries(seed, D)
+    Qzd = torch.from_numpy(Qz).to(Xd.device)
+    sel = ivf.route_batch(eng.pruner.transform_batch(Qzd), TIERED_NPROBE)
+    truth, allowed = routed_truth(torch, ivf, store.ids.cpu().numpy(), Xd, Qzd, sel)
+    store._tiered_cache = {}
+    block, t_block = timed(torch, lambda: [eng.search(q, tspec) for q in Qz])
+    t_serial = TIERED_QUERIES / t_block
+    block_ids = np.stack([r.ids for r in block])
+    store._tiered_cache = {}
+    tline = {"phase": "serve", "path": "tiered", "scan_dtype": "int8", "hbm_slots": S,
+             "nprobe": TIERED_NPROBE, "queries": TIERED_QUERIES,
+             "max_batch": SERVE_TIERED_MAX_BATCH, "serial_qps": t_serial}
+    reg = metrics.get_registry()
+    reg.reset()
+    metrics.set_enabled(True)
+    srv = Server(eng, spec=tspec, max_batch=SERVE_TIERED_MAX_BATCH,
+                 flush_interval_s=SERVE_FLUSH_S, queue_depth=SERVE_QUEUE_DEPTH)
+    try:
+        _, tline["warmup_s"] = timed(torch, srv.warmup)
+        counters["k2"].launches = 0
+        srv.batches.clear()
+        ev = {e: reg.get("repro_tiered_cache_events_total", event=e) for e in ("hit", "miss")}
+        with UploadLog(meters) as log:
+            run = open_loop(torch, srv, Qz, [tspec], SERVE_RATE_X * t_serial, seed + 12)
+        tline["served"] = {**log.summary(), **{
+            e: reg.get("repro_tiered_cache_events_total", event=e) - ev[e]
+            for e in ("hit", "miss")}}
+        tline["k2_launches"] = counters["k2"].launches
+        launches["K2 batched_distance_quant [int8, tiered pool]"] = counters["k2"].launches
+        tline.update(qps=run["qps"], p50_ms=run["p50_ms"], p99_ms=run["p99_ms"],
+                     qps_over_serial=run["qps"] / t_serial,
+                     setups_after_warmup=srv.jit_compiles_since_warmup(),
+                     **batch_record(srv.records()))
+    finally:
+        srv.close()
+        metrics.set_enabled(False)
+    # the blocking path on a fresh pool: batches of 16 through engine.search
+    store._tiered_cache = {}
+    metrics.set_enabled(True)
+    try:
+        reg.reset()
+        with UploadLog(meters) as log:
+            for lo in range(0, TIERED_QUERIES, TIERED_BATCH):
+                eng.search(Qz[lo:lo + TIERED_BATCH], tspec)
+        tline["blocking_batches_of_16"] = {**log.summary(), **{
+            e: reg.get("repro_tiered_cache_events_total", event=e) for e in ("hit", "miss")}}
+    finally:
+        metrics.set_enabled(False)
+        reg.reset()
+        store._tiered_cache = {}
         for name in ("_host_masters_cache", "_host_rows_cache"):
             store.__dict__.pop(name, None)
-    return list(rows.values()), launches
+    got = run["ids"]
+    tline["ids_equal_blocking_search"] = bool(np.array_equal(got, block_ids))
+    tline["recall_at_10_routed"] = recall(got, truth)
+    tline["dist_rel_err"] = dist_error(torch, Xd, Qzd, got, run["dists"])
+    tline["ids_outside_routed_buckets"] = sum(
+        len(set(g.tolist()) - a) for g, a in zip(got, allowed))
+    emit(tline)
+    assert tline["ids_equal_blocking_search"], "served tiered ids differ from blocking"
+    assert tline["recall_at_10_routed"] >= TIERED_RECALL_FLOOR, tline
+    assert tline["ids_outside_routed_buckets"] == 0, tline
+    assert tline["dist_rel_err"] <= 1e-3, tline
+    assert tline["setups_after_warmup"] == 0, tline
+    assert tline["k2_launches"] >= sum(tline["batches_per_bucket"].values()), tline
+    lines.append(tline)
+    return lines, launches
+
+
+def timed_method(fn, spans: list):
+    """``fn`` (a method) with each call's (start, end) appended to ``spans``."""
+    def inner(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(self, *args, **kwargs)
+        finally:
+            spans.append((t0, time.perf_counter()))
+    return inner
+
+
+def serve_churn_phase(torch, eng, Q, Qd, Xall, gt, dead, seed: int, counters: dict,
+                      serial_qps: float) -> dict:
+    """Balanced churn through a ``VectorServer`` on the mutable store the
+    mutable phase compacted: ``CHURN_CYCLES`` cycles of inserting
+    ``CHURN_ROWS`` standard-normal rows (far from every cluster, so they
+    never enter a clustered query's top-10), querying each as itself while
+    it is live, and deleting them, while f32 and int8 open-loop traffic
+    runs and the maintenance thread clones, repacks and swaps (head fill
+    threshold 0).  Held: a swap adopted, each inserted row its own rank 0
+    while live, no deleted id returned (also by the deleted rows queried
+    as themselves afterwards), recall@10 against the live set at the fused
+    floors.  Recorded: clone and repack seconds, the first batch after a
+    swap, p99 while a swap was being made, swaps, set-ups after it."""
+    import threading
+
+    from repro_torch.core.engine import SearchSpec
+    from repro_torch.core.layout import MutablePDXStore
+    from repro_torch.obs import metrics, setups
+    from repro_torch.serve import VectorServer
+
+    Server = recording_server(VectorServer)
+    store = eng.store
+    D = store.dim
+    specs = [SearchSpec(k=K), SearchSpec(k=K, scan_dtype="int8")]
+    clones, repacks = [], []
+    orig = MutablePDXStore.clone, MutablePDXStore.repack
+    MutablePDXStore.clone = timed_method(orig[0], clones)
+    MutablePDXStore.repack = timed_method(orig[1], repacks)
+    reg = metrics.get_registry()
+    reg.reset()
+    metrics.set_enabled(True)
+    line = {"phase": "serve_churn", "churn_rows": CHURN_ROWS, "churn_cycles": CHURN_CYCLES,
+            "maintenance_interval_s": CHURN_MAINT_S, "head_fill_threshold": 0.0,
+            "tiles_version_before": store.tiles_version}
+    srv = Server(eng, spec=specs[0], max_batch=SERVE_MAX_BATCH, flush_interval_s=SERVE_FLUSH_S,
+                 queue_depth=SERVE_QUEUE_DEPTH, maintenance_interval_s=CHURN_MAINT_S,
+                 head_fill_threshold=0.0)
+    churn = {"selves": [], "deleted": [], "error": None, "done": False}
+
+    def churn_loop():
+        try:
+            rng = np.random.default_rng(seed + 5)
+            for _ in range(CHURN_CYCLES):
+                rows = rng.standard_normal((CHURN_ROWS, D)).astype(np.float32)
+                ids = srv.insert(rows).result(timeout=300)
+                selves = [srv.submit(r, specs[0]) for r in rows]
+                churn["selves"].append((ids, np.array([f.result(timeout=300)[0][0]
+                                                       for f in selves])))
+                assert srv.delete([int(i) for i in ids]).result(timeout=300) == CHURN_ROWS
+                churn["deleted"].append((ids, rows))
+                time.sleep(CHURN_GAP_S)
+        except BaseException as e:  # reported by the main thread
+            churn["error"] = e
+        finally:
+            churn["done"] = True
+
+    try:
+        _, line["warmup_s"] = timed(torch, lambda: srv.warmup(specs=specs[1:]))
+        for c in counters.values():
+            c.launches = 0
+        srv.batches.clear()
+        kinds0 = setups.by_kind()
+        t0 = time.perf_counter()
+        th = threading.Thread(target=churn_loop, name="churn", daemon=True)
+        th.start()
+
+        def enough():
+            swapped = any(s["adopted"] for s in srv.swaps)
+            late = time.perf_counter() - t0 > CHURN_SWAP_WAIT_S
+            return churn["done"] and (swapped or late)
+
+        run = open_loop(torch, srv, Q, specs, SERVE_RATE_X * serial_qps, seed + 13,
+                        until=enough)
+        th.join(timeout=300)
+        if churn["error"] is not None:
+            raise churn["error"]
+        deleted = np.concatenate([ids for ids, _ in churn["deleted"]])
+        rows = np.concatenate([r for _, r in churn["deleted"]])
+        after = [srv.submit(r, specs[0]) for r in rows]
+        after_ids = np.stack([f.result(timeout=300)[0] for f in after])
+        line["setups_after_warmup"] = srv.jit_compiles_since_warmup()
+        line["setups_after_warmup_by_kind"] = {
+            k: v - kinds0.get(k, 0) for k, v in setups.by_kind().items()
+            if v != kinds0.get(k, 0)}
+    finally:
+        try:
+            srv.close()
+        finally:
+            MutablePDXStore.clone, MutablePDXStore.repack = orig
+            metrics.set_enabled(False)
+    swaps = reg.get("repro_serve_maintenance_total", event="swap")
+    discards = reg.get("repro_serve_maintenance_total", event="discard")
+    replayed = reg.get("repro_serve_replayed_rows_total")
+    reg.reset()
+    buckets = bucket_of(srv.records(), run["futures"])
+    g = gt[run["query"]]
+    is_f32 = (np.arange(len(run["futures"])) % 2) == 0
+    adopted = [s["t"] for s in srv.swaps if s["adopted"]]
+    lat = run["t_done"] - run["t_submit"]
+    line.update(
+        queries=len(run["futures"]), qps=run["qps"], p50_ms=run["p50_ms"],
+        p99_ms=run["p99_ms"], swaps_adopted=swaps, swaps_discarded=discards,
+        rows_replayed=replayed, clone_s=[b - a for a, b in clones],
+        repack_s=[b - a for a, b in repacks],
+        tiles_version_after=store.tiles_version,
+        recall_at_10={"f32": served_recall(run["ids"][is_f32], g[is_f32], buckets[is_f32]),
+                      "int8": served_recall(run["ids"][~is_f32], g[~is_f32],
+                                            buckets[~is_f32])},
+        dist_rel_err=dist_error(torch, Xall, Qd[run["query"]], run["ids"], run["dists"]),
+        launches={k: c.launches for k, c in counters.items()},
+        **batch_record(srv.records(), run["futures"]))
+    if adopted and clones:
+        # p99 of the queries submitted while the first swap was being made
+        win = (run["t_submit"] >= clones[0][0]) & (run["t_submit"] <= adopted[0])
+        line["p99_ms_during_swap"] = (float(np.percentile(lat[win], 99)) * 1e3
+                                      if win.any() else None)
+        line["queries_during_swap"] = int(win.sum())
+        first = next((b for b in srv.records() if b["t_run"] >= adopted[0]), None)
+        if first is not None:
+            line["first_batch_after_swap_ms"] = (first["t_done"] - first["t_run"]) * 1e3
+            line["first_batch_after_swap_bucket"] = first["bucket"]
+            line["first_batch_after_swap_latency_ms_max"] = max(
+                first["t_done"] - t for t in first["t_enqueue"]) * 1e3
+    selves = churn["selves"]
+    line["self_rank0"] = int(sum((ids == got).sum() for ids, got in selves))
+    line["self_queries"] = int(sum(len(ids) for ids, _ in selves))
+    gone = np.concatenate([dead, deleted])
+    line["deleted_ids_returned"] = int(np.isin(run["ids"], gone).sum())
+    line["deleted_rows_found_as_themselves"] = int(np.isin(after_ids, deleted).sum())
+    emit(line)
+    assert swaps >= 1, f"no maintenance swap adopted: {line}"
+    assert line["self_rank0"] == line["self_queries"], "an inserted row missed rank 0"
+    assert line["deleted_ids_returned"] == 0 and line["deleted_rows_found_as_themselves"] == 0
+    for dt in ("f32", "int8"):
+        hold_served_recall(line["recall_at_10"][dt], f"serve_churn {dt}")
+    assert line["dist_rel_err"] <= 1e-3, line["dist_rel_err"]
+    return line
 
 
 def recall(found, true) -> float:
@@ -1962,16 +2636,27 @@ def main() -> int:
             row["launches_tiered"] = tiered_launches.get(k2_rows[row["name"]], 0)
     kernels += pool_rows
 
+    # ----------------------------------------------------- 5c. serving
+    t0 = time.perf_counter()
+    serve_lines, serve_launches = serve_phase(torch, eng, Xd, Q, args.seed, counters)
+    emit({"phase": "serve_done", "launches": serve_launches,
+          "seconds": time.perf_counter() - t0})
+
     # ------------------------------- 6. the mutable store, 7. jit-masked
     # the frozen store's tensors go: the mutable store takes the card
     del store, m, pm, ids_scan, ids3, ids_k3, live_cols, start
     counters = {"k1": pdx_prune_scan_multi_cuda, "k2": batched_distance_quant_cuda,
                 "k3": pdx_prune_scan_multi_prefetch_cuda}
     t0 = time.perf_counter()
-    lines, mut_launches = mutable_phase(torch, eng, Xd, Q, Qd, args.seed, counters)
+    lines, mut_launches, live = mutable_phase(torch, eng, Xd, Q, Qd, args.seed, counters)
     for line in lines:
         emit(line)
     emit({"phase": "mutable_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    serve_churn_phase(torch, eng, Q, Qd, live["Xall"], live["gt"], live["dead"],
+                      args.seed, counters, serve_lines[0]["serial_qps"]["f32"])
+    emit({"phase": "serve_churn_done", "seconds": time.perf_counter() - t0})
+    del live
     t0 = time.perf_counter()
     emit({**jit_masked_phase(torch, Xd, Q, engine_seed, counters),
           "seconds": time.perf_counter() - t0})
@@ -1980,6 +2665,8 @@ def main() -> int:
         for tag, counts in mut_launches.items():
             if row["name"] in counts:
                 row.setdefault("launches_mutable", {})[tag] = counts[row["name"]]
+        if row["name"] in serve_launches:
+            row["launches_serve"] = serve_launches[row["name"]]
 
     # ----------------------------------------------------- 4. the record
     emit({"kernels": kernels + paper_rows})

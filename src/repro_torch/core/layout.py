@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from ..obs import metrics as _metrics
+from ..obs import setups as _setups
 from .device import resolve_device
 from .pruners import pca_components
 
@@ -200,6 +201,7 @@ def device_mirror(store, dtype: str = "f32") -> DeviceMirror:
     )
     if mirror is None:
         _metrics.counter("repro_mirror_builds_total", dtype=dtype)
+        _setups.note("device_mirror")
         data = store.data
         D = data.shape[1]
         ones = torch.ones((D,), dtype=torch.float32, device=data.device)
@@ -293,8 +295,10 @@ def projection_mirror(store, rank: int, dtype: str = "f32") -> ProjectionMirror:
     )
     if mirror is None:
         _metrics.counter("repro_mirror_builds_total", dtype=f"proj:{dtype}")
+        _setups.note("projection_mirror")
         comps = cache.get(("comps", version))
         if comps is None:
+            _setups.note("pca_fit")
             sample = _nary_head(store, _PCA_SAMPLE_ROWS)
             if len(sample) < 2:  # degenerate: identity "projection"
                 comps = np.eye(D, dtype=np.float32)
@@ -656,6 +660,7 @@ def _host_masters(store) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     ver = getattr(store, "tiles_version", 0)
     cached = getattr(store, "_host_masters_cache", None)
     if cached is None or cached[0] != ver:
+        _setups.note("host_masters")
         cached = (ver, store.data.cpu().numpy(), store.ids.cpu().numpy(),
                   store.dim_means.cpu().numpy().astype(np.float32))
         store._host_masters_cache = cached
@@ -698,6 +703,7 @@ def _store_quant_params(store, dtype: str) -> tuple[np.ndarray, np.ndarray]:
     cache = store.__dict__.setdefault("_quant_params_cache", {})
     hit = cache.get(dtype)
     if hit is None or hit[0] != ver:
+        _setups.note("quant_params")
         data, ids, means = _host_masters(store)
         hit = cache[dtype] = (ver, *_host_quant_params(data, ids, means, dtype))
     return hit[1], hit[2]
@@ -844,6 +850,7 @@ class BucketCache:
             _metrics.counter(
                 "repro_tiered_cache_events_total", event="invalidate"
             )
+        _setups.note("bucket_pool")
         data, ids, means = self._masters()
         P, D, C = data.shape
         Dp = (D + 1) // 2 if self.packed else D
@@ -1419,6 +1426,7 @@ class MutablePDXStore:
     def _sync_device(self):
         if self._dev_version != self.tiles_version:
             _metrics.counter("repro_store_device_uploads_total")
+            _setups.note("device_upload")
             version = self.tiles_version
             # drop the older generation before uploading the new one
             self._dev = None

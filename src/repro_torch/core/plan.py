@@ -53,6 +53,15 @@ planner: the plan trace records ``store.version``, and ``execute`` merges
 the store's unflushed write-head rows *exactly* (never pruned) into every
 executor's top-k, inside a ``merge`` span.
 
+``prepare_execute`` splits ``execute`` into a host half (now) and a
+device half (``PreparedSearch.run()``) for the serving tier's double
+buffer (``repro_torch.serve.vector``): for ``tiered-scan`` the host half
+routes, plans the chunks and issues the first pass's uploads; every other
+executor defers the whole of ``execute`` into ``run()``.  ``warm_shapes``
+pushes one synthetic batch per batch-shape bucket through it, so a warm
+serving loop builds no state (``obs.setups`` counts what a first search
+builds).
+
 Not ported yet, and refused with ``NotImplementedError`` naming the
 ROADMAP item: the mesh-sharded executors (``routed_tiered`` among them).
 """
@@ -65,6 +74,7 @@ import numpy as np
 import torch
 
 from ..obs import metrics as _metrics
+from ..obs import setups as _setups
 from ..obs import trace as _trace
 from .distance import pdx_distance
 from .layout import (
@@ -91,6 +101,9 @@ __all__ = [
     "executor_names",
     "plan_search",
     "execute",
+    "PreparedSearch",
+    "prepare_execute",
+    "warm_shapes",
     "pow2_bucket",
     "register_executor",
     "UNPORTED_EXECUTORS",
@@ -316,6 +329,115 @@ def execute(
     with _trace.span("merge", executor=plan.executor):
         return _merge_write_head(store, pruner, Q, spec, ids, dists,
                                  stats=stats)
+
+
+@dataclasses.dataclass
+class PreparedSearch:
+    """The host half of one planned batch; ``run()`` performs the device
+    half.  Produced by ``prepare_execute`` so a serving loop can overlap
+    batch N+1's host-side planning (routing, chunk planning, the first
+    pass's cache uploads) with batch N's device scan — the double
+    buffering in ``repro_torch.serve.vector``.  ``run()`` must be called
+    exactly once, and the store must not be mutated between ``prepare``
+    and ``run`` (the serving loop serializes both under its store lock /
+    executor thread)."""
+
+    plan: ExecutionPlan
+    spec: SearchSpec
+    _run: Callable[[], tuple[np.ndarray, np.ndarray]]
+
+    def run(self) -> tuple[np.ndarray, np.ndarray]:
+        return self._run()
+
+
+def prepare_execute(
+    plan: ExecutionPlan,
+    spec: SearchSpec,
+    store: PDXStore,
+    pruner: Pruner,
+    Q: torch.Tensor,
+    *,
+    ivf=None,
+    mesh=None,
+    stats: Optional[SearchStats] = None,
+) -> PreparedSearch:
+    """Split ``execute`` into host preparation (now) and device execution
+    (``PreparedSearch.run()``, later).
+
+    For ``tiered-scan`` the split is genuine: batch transform, bucket
+    routing, chunk planning and the first pass's ``issue`` (host quantize
+    and the copy to the device, on the cache's staging worker) happen
+    here, and ``run()`` settles the uploads, scans the pool and re-ranks.
+    For every other executor the host share is negligible, so the whole
+    ``execute`` is deferred into ``run()`` — callers get one uniform
+    contract.  The mesh executors (``routed_bucket``, ``routed_tiered``)
+    are not ported."""
+    if mesh is not None:
+        raise _not_ported("searching over a device mesh", "'Multi-device search'")
+    if plan.executor == "tiered-scan":
+        # the host half ends with the first pass's issue: the cache uploads
+        # of batch N+1 overlap batch N's device scan through the serving
+        # loop's depth-1 handoff (routing-driven prefetch)
+        launch = _prepare_tiered_host(store, pruner, Q, spec, ivf=ivf)
+
+        def _run_tiered():
+            with _trace.span("scan", executor=plan.executor,
+                             scan_dtype=spec.scan_dtype):
+                ids, dists = _run_tiered_device(launch, store, spec, ivf=ivf,
+                                                stats=stats)
+            with _trace.span("merge", executor=plan.executor):
+                return _merge_write_head(store, pruner, Q, spec, ids, dists,
+                                         stats=stats)
+
+        return PreparedSearch(plan=plan, spec=spec, _run=_run_tiered)
+
+    return PreparedSearch(
+        plan=plan, spec=spec,
+        _run=lambda: execute(plan, spec, store, pruner, Q, ivf=ivf, stats=stats),
+    )
+
+
+def warm_shapes(
+    spec: SearchSpec,
+    store: PDXStore,
+    pruner: Pruner,
+    buckets,
+    *,
+    ivf=None,
+    mesh=None,
+) -> dict:
+    """Warm the executor for each batch-shape bucket by pushing one
+    synthetic batch per bucket through ``prepare_execute().run()`` —
+    building the mirrors, the tiered cache with its host masters, quant
+    params and sorted rows, and loading the kernel libraries, so a serving
+    loop's steady state builds nothing (``obs.setups`` stays put).  For a
+    cascade spec every stage's mirror is built too.  Returns
+    {bucket: executor}.
+
+    The reference also compiles the write-head merge at each bucket's
+    shape and, per cascade stage, every pow2 survivor-compaction width
+    ``S`` and widened re-rank ``rk_eff`` the batch could request.  The port
+    keeps nothing per batch shape, ``S`` or ``rk_eff``: the head merge, the
+    stage gather, K2's launches and the re-rank are eager PyTorch and
+    kernel calls at whatever width the batch brings (K1/K3 keep host state
+    per kernel and mirror shape only, which the warm batch's own stages
+    set), so neither is replayed."""
+    if mesh is not None:
+        raise _not_ported("searching over a device mesh", "'Multi-device search'")
+    out = {}
+    D = store.dim
+    rng = np.random.default_rng(0)
+    for b in sorted(set(int(x) for x in buckets)):
+        Qb = rng.standard_normal((b, D)).astype(np.float32)
+        Q = torch.from_numpy(Qb).to(store.device)
+        plan = plan_search(spec, store, b, pruner=pruner, ivf=ivf)
+        prepare_execute(plan, spec, store, pruner, Q, ivf=ivf).run()
+        if spec.cascade is not None:
+            # a stage a warm batch's survivors never reach still has its
+            # mirror built (projection_mirror / device_mirror, PCA fit)
+            _cascade_mirrors(spec, store)
+        out[b] = plan.executor
+    return out
 
 
 # _head_distances broadcasts at most this many values at a time
@@ -1013,6 +1135,7 @@ def _get_bucket_cache(store, spec, *, ivf, n_regions=1, bucket_region=None):
         store._tiered_cache = caches
     bc = caches.get(key)
     if bc is None:
+        _setups.note("bucket_cache")
         po = pc = None
         if getattr(store, "num_buckets", None) is None:
             po = np.asarray(ivf.part_offsets)
@@ -1060,6 +1183,7 @@ def _host_master_rows(store) -> tuple[np.ndarray, np.ndarray]:
     cached = getattr(store, "_host_rows_cache", None)
     if cached is not None and cached[0] == ver:
         return cached[1], cached[2]
+    _setups.note("host_rows")
     data, ids, _ = _host_masters(store)
     live = np.asarray(ids) >= 0
     # the live columns in (partition, lane) order, as rows: the reference's
@@ -1346,14 +1470,21 @@ def _run_tiered_device(launch: _TieredLaunch, store, spec, *, ivf, stats):
     ticket = launch.ticket
     for si, (ci, pi) in enumerate(steps):
         chunk = launch.chunks[ci]
-        arrays, slot_ids = _tiered_step_ready(cache, launch, ticket, ci, pi)
-        pool, ids_dev, slot_bucket, scale, offset = arrays
-        rows = torch.as_tensor(chunk, device=dev)
-        cand = _tiered_pool_scan(
-            pool, ids_dev, slot_bucket, torch.from_numpy(sel[chunk]).to(dev),
-            launch.Qt[rows], scale, offset, launch.rk, spec.metric,
-            cache.quantized, packed=cache.packed, dim=cache.dim,
-        )
+        # settle, check residency, snapshot and enqueue the scan under the
+        # cache's lock: another thread's issue (the serving loop preparing
+        # the next batch) cannot evict between the check and the snapshot,
+        # and any later pool write comes after this scan — in stream order
+        # on the card (both threads enqueue on the default stream), in time
+        # on the CPU, where the scan runs inside the lock
+        with cache._lock:
+            arrays, slot_ids = _tiered_step_ready(cache, launch, ticket, ci, pi)
+            pool, ids_dev, slot_bucket, scale, offset = arrays
+            rows = torch.as_tensor(chunk, device=dev)
+            cand = _tiered_pool_scan(
+                pool, ids_dev, slot_bucket, torch.from_numpy(sel[chunk]).to(dev),
+                launch.Qt[rows], scale, offset, launch.rk, spec.metric,
+                cache.quantized, packed=cache.packed, dim=cache.dim,
+            )
         # the scan is in flight: overlap the next step's staging + copy
         ticket = _tiered_step_issue_next(cache, launch, steps, si)
         ids_c, dists_c = _tiered_rerank(

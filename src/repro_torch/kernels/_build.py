@@ -23,6 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..obs import setups as _setups
+
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "build_all", "library", "bind", "check_launch"]
 
 SOURCES = ("pdx_scan", "batched_matmul", "nary_scan")
@@ -103,6 +105,7 @@ def library(name: str) -> ctypes.CDLL:
             build_all()
         lib = ctypes.CDLL(str(path))
         _LOADED[name] = lib
+        _setups.note("kernel_library")
     return lib
 
 

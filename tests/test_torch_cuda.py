@@ -1012,3 +1012,36 @@ def test_tiered_scan_on_the_card_matches_the_cpu(dev, dtype):
         for j in np.nonzero(ai != bi)[0]:
             near = np.abs(ad - ad[j]) <= 1e-5 * np.abs(ad[j])
             assert bi[j] in ai[near], (ai, bi, ad)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_served_burst_on_the_card_equals_engine_search(dev, dtype):
+    """A closed-loop burst of 16 queries through ``VectorServer`` drains as
+    one bucket-16 batch (``fused-batch``, K2 launched) and returns, query by
+    query, the ids and distances of ``engine.search`` on the same batch;
+    then a single query (``fused-scan``, K1) equals its blocking search.
+    Nothing is built after ``warmup()``."""
+    from repro_torch.serve import VectorServer
+
+    X, Q = make_dataset(3000, 48, "clustered", n_queries=17, seed=3)
+    gpu = VectorSearchEngine.build(X, index="ivf", nlist=8, pruner="adsampling",
+                                   capacity=256, device=dev)
+    spec = SearchSpec(k=5, scan_dtype=dtype)
+    want = gpu.search(Q[:16], spec)
+    want1 = gpu.search(Q[16], spec)
+    srv = VectorServer(gpu, spec=spec, max_batch=16, flush_interval_s=5.0)
+    try:
+        srv.warmup()
+        n0 = (pdx_prune_scan_multi_cuda.launches, batched_distance_quant_cuda.launches)
+        res = [f.result(timeout=30) for f in [srv.submit(q) for q in Q[:16]]]
+        assert batched_distance_quant_cuda.launches > n0[1]
+        single = srv.submit(Q[16])
+    finally:
+        srv.close()
+    got1 = single.result(timeout=30)
+    assert pdx_prune_scan_multi_cuda.launches == n0[0] + 1
+    np.testing.assert_array_equal(np.stack([r[0] for r in res]), want.ids)
+    np.testing.assert_array_equal(np.stack([r[1] for r in res]), want.dists)
+    np.testing.assert_array_equal(got1[0], want1.ids)
+    np.testing.assert_array_equal(got1[1], want1.dists)
+    assert srv.jit_compiles_since_warmup() == 0

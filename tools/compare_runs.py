@@ -7,7 +7,9 @@ Each file is one run's standard output.  Prints, for every kernel row of
 the change's ``{"kernels": [...]}`` line, its ``ms`` in each run and the
 ratio of the change's mean over the parent's (rows the parent lacks show
 the change's times alone), then each change run's ``tiered`` and
-``tiered_tree`` phases: walls, hits, bytes and recall per scan dtype.
+``tiered_tree`` phases: walls, hits, bytes and recall per scan dtype, and
+its ``serve`` and ``serve_churn`` phases: QPS, latency, recall, idle share,
+upload overlap and swaps.
 """
 from __future__ import annotations
 
@@ -51,6 +53,31 @@ def main() -> None:
                         "hit_rate", "h2d_bytes")}, "first batch ms", rec["wall_ms_per_batch"][0])
             elif line.get("phase") == "tiered_tree":
                 print(path, "tree", line)
+            elif line.get("phase") == "serve" and line["path"] == "main":
+                for dt in ("f32", "int8"):
+                    rec = line[dt]
+                    print(path, "serve", dt, "serial qps", line["serial_qps"][dt], {
+                        k: rec[k] for k in ("qps", "qps_over_serial", "p50_ms", "p99_ms",
+                                            "p99_over_p50", "recall_at_10", "profile",
+                                            "batches_per_bucket", "queue_wait_ms_p50",
+                                            "plan_ms_mean", "run_ms_per_bucket")})
+                print(path, "serve cascade", {k: v for k, v in line["cascade"].items()
+                                              if k not in ("ladder", "fill_per_bucket")})
+                print(path, "serve setups", line["setups_after_warmup"], "new segments",
+                      line["new_allocator_segments_after_warmup"])
+            elif line.get("phase") == "serve" and line["path"] == "tiered":
+                print(path, "serve tiered", {k: line[k] for k in (
+                    "serial_qps", "qps", "p50_ms", "p99_ms", "plan_ms_mean",
+                    "run_ms_per_bucket", "batches_per_bucket", "served",
+                    "blocking_batches_of_16", "recall_at_10_routed")})
+            elif line.get("phase") == "serve_churn":
+                print(path, "serve_churn", {k: line.get(k) for k in (
+                    "qps", "p50_ms", "p99_ms", "p99_ms_during_swap", "queries_during_swap",
+                    "clone_s", "repack_s", "swaps_adopted", "swaps_discarded",
+                    "rows_replayed", "first_batch_after_swap_ms", "recall_at_10",
+                    "setups_after_warmup_by_kind", "self_rank0", "deleted_ids_returned")})
+            elif line.get("phase", "").endswith("_done") and "seconds" in line:
+                print(path, line["phase"], line["seconds"])
 
 
 if __name__ == "__main__":
