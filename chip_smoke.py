@@ -95,7 +95,7 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      centroid tree on a copy of the index (super_k = max(8, sqrt(nlist)),
      nprobe_super = 4): routing cost below nlist, bucket overlap with flat
      routing >= 0.9, tiered recall against flat-routed tiered >= 0.9.
-  5c. serve (after 5b, on the same frozen engine, before 6) — the serving
+  5c. serve (after 5e, on the same frozen engine, before 6) — the serving
      tier (``repro_torch.serve.VectorServer``, ``benchmarks/bench_serve.py``'s
      premise at full scale): 64 blocking single-query ``engine.search``
      calls per dtype (the serial rate); then one server (max_batch 64,
@@ -125,6 +125,20 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      set-up after warmup; recorded: each upload's host wait against its
      issue-to-complete window (the overlap ``prepare_execute`` buys),
      beside the same on the blocking path (batches of 16 on a fresh pool).
+  5d. routing (after 5b, before 5c) — batched bucket routing on the main
+     path's index: ``route_batch`` at B = 1, 16 and 64 for each route
+     dtype, every row held bit for bit to ``route`` of that query alone,
+     and its ms per batch beside the per-query loop through ``route``.
+  5e. sharded (after 5d, before 5c) — the broadcast mesh executors on a
+     world of one (NCCL, ``repro_torch.dist.make_mesh``) over the main
+     path's engine, through ``search(..., mesh=)``:
+     ``batch-block-sharded`` at f32 and int8 on the 64 queries bit for
+     bit equal to ``batch-matmul`` and
+     ``fused-batch`` (K2 counted from 0 around the int8 run and held to
+     ``_tile_scan``'s steps), ``block-sharded`` equal to the masked
+     PDXearch, ``dim-sharded`` equal to ``batch-matmul`` as sets, one
+     all-gather per batch and two per query, walls recorded.  One card
+     allows a world of one only.
   6. mutable (after 4, on the same engine) — the store made mutable
      (``from_store``: masters to the host, the frozen mirrors dropped),
      10,000 ids drawn from ``--seed`` deleted, 10,000 rows of
@@ -162,7 +176,8 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      dtype and metric, K2 on the tiered pool by dtype); the K1, K2 and K3
      rows on the mutable phase's path also carry ``launches_mutable`` (its
      counts before and after ``compact``), the K2 rows ``launches_tiered``
-     (phase 5b's cold and warm passes), and the K1, K2 and K3 rows on
+     (phase 5b's cold and warm passes) and ``launches_sharded`` (phase
+     5e's batch-block-sharded runs), and the K1, K2 and K3 rows on
      phase 5c's serving path ``launches_serve``.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last
@@ -265,6 +280,10 @@ SERVE_DTYPES, SERVE_RECALL_FLOORS, SERVE_PROFILE_S = ("f32", "int8"), (0.95, 0.9
 # per cycle, cycles, the gap after each, the maintenance interval, and how
 # long the traffic may wait for a swap after the churn
 CHURN_ROWS, CHURN_CYCLES, CHURN_GAP_S, CHURN_MAINT_S, CHURN_SWAP_WAIT_S = 8, 48, 0.5, 10.0, 180.0
+# phase routing: route dtypes, batch sizes, timed repetitions (the fastest
+# kept); phase sharded: the per-query executors' queries
+ROUTING_DTYPES, ROUTING_BATCHES, ROUTING_REPS = ("f32", "bf16", "int8", "int4"), (1, 16, 64), 3
+SHARDED_SINGLE = 4
 
 
 def emit(obj: dict) -> None:
@@ -2371,6 +2390,149 @@ def serve_churn_phase(torch, eng, Q, Qd, Xall, gt, dead, seed: int, counters: di
     return line
 
 
+def routing_phase(torch, eng, Qd) -> dict:
+    """Batched bucket routing on the main path's IVF index: for each route
+    dtype and B in ROUTING_BATCHES, ``route_batch`` over the first B
+    transformed queries held row for row, bit for bit, to the bucket order
+    ``route`` ranks for that query alone (its partition order is the
+    row's, cut at nprobe), and the ms per batch beside the per-query loop
+    through ``route``.  Emits the phase line before its asserts."""
+    from repro_torch.index.ivf import _route_chunk
+
+    ivf, pruner = eng.ivf, eng.pruner
+    Qt = pruner.transform_batch(Qd)
+    nprobe = TIERED_NPROBE
+    line = {"phase": "routing", "nlist": ivf.nlist,
+            "centroid_tiles": list(ivf.centroid_store.data.shape), "nprobe": nprobe,
+            "route_chunk": _route_chunk(ivf.centroid_store.data), "dtypes": {}}
+    mismatched = []
+    for dt in ROUTING_DTYPES:
+        ivf.route_batch(Qt[:1], nprobe, "l2", dt)  # the mirror and its f32 copy
+        row = {}
+        for B in ROUTING_BATCHES:
+            Qb = Qt[:B]
+            full, t_batch = min((timed(torch, lambda: ivf.route_batch(
+                Qb, ivf.nlist, "l2", dt)) for _ in range(ROUTING_REPS)),
+                key=lambda r: r[1])
+            singles, t_loop = min((timed(torch, lambda: [
+                ivf.route(Qb[i], nprobe, "l2", dt) for i in range(B)])
+                for _ in range(ROUTING_REPS)), key=lambda r: r[1])
+            for i in range(B):
+                alone = ivf.rank_buckets(Qb[i], "l2", dt)
+                if not (np.array_equal(full[i], alone) and np.array_equal(
+                        singles[i][0], ivf.partition_order(full[i], nprobe))):
+                    mismatched.append((dt, B, i))
+            row[str(B)] = {"batch_ms": t_batch * 1e3, "per_query_loop_ms": t_loop * 1e3,
+                           "loop_over_batch": t_loop / t_batch}
+        line["dtypes"][dt] = row
+    line["rows_not_bitwise"] = len(mismatched)
+    emit(line)
+    assert not mismatched, f"route_batch rows differ from route: {mismatched[:8]}"
+    return line
+
+
+def sharded_phase(torch, eng, Q, k2) -> tuple[dict, dict]:
+    """The broadcast mesh executors on a world of one (NCCL): the main
+    path's 1M x 960 engine searched through ``search(..., mesh=)``, the
+    executor forced (its IVF index would otherwise plan the bucket-routed
+    search, which is refused by name: held).  ``batch-block-sharded`` at
+    f32 and int8 on the 64 queries equals ``batch-matmul`` and
+    ``fused-batch`` bit for bit (one shard, no padding: the same
+    arithmetic), K2 counted from 0 around the int8 run and held to the
+    steps ``_tile_scan`` takes; ``block-sharded`` on 4 queries equals the
+    masked PDXearch (``pdxearch_jit``) alone; ``dim-sharded`` on a
+    ("model",) mesh of one equals ``batch-matmul``'s ids as sets; one
+    all-gather per batch and two per query.  The group is destroyed at the
+    end.  Emits the phase line before its asserts.
+    -> (the line, K2 launches by scan dtype)."""
+    import torch.distributed as tdist
+
+    from repro_torch.core.engine import SearchSpec
+    from repro_torch.core.pdxearch import pdxearch_jit
+    from repro_torch.core.plan import _FUSED_BATCH_OUT_BYTES
+    from repro_torch.dist import all_gather, make_mesh
+    from repro_torch.kernels.batched_matmul import MAX_PARTITIONS
+    from repro_torch.obs.meters import collective_counts
+
+    t0 = time.perf_counter()
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0, world_size=1)
+    try:
+        data = make_mesh((1,), ("data",))
+        model = make_mesh((1,), ("model",))
+        t_setup = time.perf_counter() - t0
+        # NCCL sets its communicator up at a group's first collective: do
+        # that outside the walls
+        _, t_first = timed(torch, lambda: [all_gather(
+            torch.zeros(1, device=eng.device), mesh, ax) for mesh, ax in (
+                (data, "data"), (model, "model"))])
+        P, _, C = eng.store.data.shape
+        B = Q.shape[0]
+        line = {"phase": "sharded", "world": 1, "backend": "nccl",
+                "mesh_device": data.device_type, "setup_s": t_setup,
+                "first_collectives_ms": t_first * 1e3, "walls_ms": {}}
+        fails = []
+        try:
+            eng.search(Q, SearchSpec(k=K), mesh=data)
+            fails.append("an IVF engine on a 'data' mesh did not refuse routed_bucket")
+        except NotImplementedError as e:
+            line["ivf_data_mesh"] = str(e)
+            if "'Bucket-routed search'" not in str(e):
+                fails.append(f"routed refusal names no ROADMAP item: {e}")
+        launches = {}
+        steps = -(-P // max(1, min(MAX_PARTITIONS, _FUSED_BATCH_OUT_BYTES // (B * C * 4))))
+        for dt, single in (("f32", "batch-matmul"), ("int8", "fused-batch")):
+            spec = SearchSpec(k=K, scan_dtype=dt)
+            want, t_want = timed(torch, lambda: eng.search(
+                Q, spec.replace(executor=single)))
+            k2.launches = 0
+            got, t_got = timed(torch, lambda: eng.search(
+                Q, spec.replace(executor="batch-block-sharded"), mesh=data))
+            launches[dt] = k2.launches
+            line["walls_ms"][f"batch-block-sharded {dt}"] = t_got * 1e3
+            line["walls_ms"][f"{single} {dt}"] = t_want * 1e3
+            if got.plan.executor != "batch-block-sharded":
+                fails.append(f"{dt}: planned {got.plan.executor}")
+            if not (np.array_equal(got.ids, want.ids)
+                    and np.array_equal(got.dists, want.dists)):
+                fails.append(f"batch-block-sharded {dt} differs from {single}")
+        line["k2_launches"] = launches
+        line["k2_steps_int8"] = steps
+        if launches != {"f32": 0, "int8": steps}:
+            fails.append(f"K2 launches {launches}, expected f32 0 and int8 {steps}")
+        four = Q[:SHARDED_SINGLE]
+        blk, t_blk = timed(torch, lambda: eng.search(
+            four, SearchSpec(k=K, executor="block-sharded"), mesh=data))
+        jm, t_jm = timed(torch, lambda: [pdxearch_jit(eng.store, torch.from_numpy(q).to(
+            eng.device), K, eng.pruner) for q in four])
+        line["walls_ms"]["block-sharded per query"] = t_blk * 1e3 / len(four)
+        line["walls_ms"]["pdxearch_jit per query"] = t_jm * 1e3 / len(four)
+        if not np.array_equal(blk.ids, np.stack([r.ids.cpu().numpy() for r in jm])):
+            fails.append("block-sharded ids differ from the masked PDXearch's")
+        dim, t_dim = timed(torch, lambda: eng.search(
+            four, SearchSpec(k=K, executor="dim-sharded"), mesh=model))
+        bm = eng.search(four, SearchSpec(k=K, executor="batch-matmul"))
+        line["walls_ms"]["dim-sharded per query"] = t_dim * 1e3 / len(four)
+        if dim.plan.executor != "dim-sharded" or any(
+                set(a.tolist()) != set(b.tolist()) for a, b in zip(dim.ids, bm.ids)):
+            fails.append("dim-sharded ids differ from batch-matmul's as sets")
+        line["collectives"] = {
+            "batch": collective_counts(lambda: eng.search(
+                Q, SearchSpec(k=K, scan_dtype="int8", executor="batch-block-sharded"),
+                mesh=data)),
+            "query": collective_counts(lambda: eng.search(
+                Q[0], SearchSpec(k=K, executor="block-sharded"), mesh=data)),
+        }
+        if line["collectives"] != {"batch": {"all_gather": 1},
+                                   "query": {"all_gather": 2}}:
+            fails.append(f"collectives {line['collectives']}")
+    finally:
+        tdist.destroy_process_group()
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    assert not fails, fails
+    return line, launches
+
+
 def recall(found, true) -> float:
     found, true = found.reshape(len(true), -1), true
     hits = sum(len(set(f.tolist()) & set(t.tolist())) for f, t in zip(found, true))
@@ -2635,6 +2797,15 @@ def main() -> int:
         if row["name"] in k2_rows:
             row["launches_tiered"] = tiered_launches.get(k2_rows[row["name"]], 0)
     kernels += pool_rows
+
+    # ----------------------------------------- 5d. routing, 5e. the mesh
+    t0 = time.perf_counter()
+    routing_phase(torch, eng, Qd)
+    emit({"phase": "routing_done", "seconds": time.perf_counter() - t0})
+    _, sharded_launches = sharded_phase(torch, eng, Q, batched_distance_quant_cuda)
+    for row in kernels:
+        if row["name"] in k2_rows and k2_rows[row["name"]] in sharded_launches:
+            row["launches_sharded"] = sharded_launches[k2_rows[row["name"]]]
 
     # ----------------------------------------------------- 5c. serving
     t0 = time.perf_counter()

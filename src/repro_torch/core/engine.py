@@ -31,8 +31,20 @@ device as a bucket-granular cache (``core.layout.BucketCache``, the
 ``tree="auto"`` at nlist >= 4096) routes through the two-level centroid
 tree.
 
+Meshes (``repro_torch.dist``): ``build(..., mesh=)`` keeps a
+``torch.distributed`` ``DeviceMesh`` as the engine's default and
+``search(..., mesh=)`` overrides it per call; on a "data" axis the planner
+shards partitions (``block-sharded``, ``batch-block-sharded``), on a
+"model" axis dimensions (``dim-sharded``).  Every rank builds and searches
+with the same arguments and gets the same result (the SPMD contract,
+``repro_torch.dist``).
+
+    dist.init_process_group("gloo", ...)         # one process per rank
+    mesh = repro_torch.dist.make_mesh((8,), ("data",), device="cpu")
+    eng = VectorSearchEngine.build(X, mesh=mesh, device="cpu")
+
 Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-meshes.
+the bucket-routed search an IVF engine plans on a "data" mesh.
 """
 from __future__ import annotations
 
@@ -49,7 +61,7 @@ from ..obs import trace as _trace
 from .device import resolve_device
 from .layout import MutablePDXStore, PDXStore, build_flat_store, pdx_to_nary
 from .pdxearch import SearchStats
-from .plan import ExecutionPlan, _not_ported, execute, plan_search
+from .plan import ExecutionPlan, _mesh_layout, execute, plan_search
 from .pruners import (
     Pruner,
     make_adsampling,
@@ -94,14 +106,15 @@ def _make_pruner(
 
 @dataclasses.dataclass
 class VectorSearchEngine:
-    """Store + pruner + optional IVF index, searched through the planner.
-    ``spec`` holds the engine's default ``SearchSpec`` (seeded from build
-    kwargs); per-call specs override it."""
+    """Store + pruner + optional IVF index + optional mesh, searched through
+    the planner.  ``spec`` holds the engine's default ``SearchSpec`` (seeded
+    from build kwargs); per-call specs override it."""
 
     store: PDXStore
     pruner: Pruner
     spec: SearchSpec = SearchSpec()
     ivf: Optional[IVFIndex] = None
+    mesh: Any = None
     zone_size: int = 0          # BOND zone grouping (kept for pruner refresh)
     head_capacity: int = 256    # write-head size on mutable upgrade
 
@@ -144,8 +157,6 @@ class VectorSearchEngine:
         device=None,
     ) -> "VectorSearchEngine":
         dev = resolve_device(device)
-        if mesh is not None:
-            raise _not_ported("building on a device mesh", "'Multi-device search'")
         X = np.ascontiguousarray(np.asarray(X, np.float32))
         pr = _make_pruner(
             pruner, X, eps0=eps0, bsa_m=bsa_m, zone_size=zone_size, seed=seed,
@@ -173,7 +184,9 @@ class VectorSearchEngine:
                 rerank_mult=rerank_mult, cascade=cascade,
                 route_dtype=route_dtype,
             )
-        return cls(store=store, pruner=pr, spec=spec, ivf=ivf,
+        if mesh is not None:
+            _mesh_layout(mesh, store)  # a mesh the store cannot use raises now
+        return cls(store=store, pruner=pr, spec=spec, ivf=ivf, mesh=mesh,
                    zone_size=zone_size)
 
     # ----------------------------------------------------------------- search
@@ -203,12 +216,13 @@ class VectorSearchEngine:
             raise ValueError(f"q must be (D,) or (B, D), got shape {tuple(Q.shape)}")
         single = Q.ndim == 1
         Qb = Q[None, :] if single else Q
+        use_mesh = mesh if mesh is not None else self.mesh
         t0 = time.perf_counter()
         with _trace.query(n_queries=Qb.shape[0], k=base.k) as qtrace:
             with _trace.span("plan"):
                 plan = plan_search(
                     base, self.store, Qb.shape[0], pruner=self.pruner,
-                    ivf=self.ivf, mesh=mesh,
+                    ivf=self.ivf, mesh=use_mesh,
                 )
             if qtrace is not None:
                 qtrace.attrs["executor"] = plan.executor
@@ -217,7 +231,7 @@ class VectorSearchEngine:
             ) else None
             ids, dists = execute(
                 plan, base, self.store, self.pruner, Qb,
-                ivf=self.ivf, stats=stats,
+                ivf=self.ivf, mesh=use_mesh, stats=stats,
             )
         if _metrics.enabled():
             B = Qb.shape[0]
@@ -260,7 +274,8 @@ class VectorSearchEngine:
         n_queries = 1 if np.ndim(q) == 1 else len(q)
         return plan_search(
             spec if spec is not None else self.spec, self.store, n_queries,
-            pruner=self.pruner, ivf=self.ivf, mesh=mesh,
+            pruner=self.pruner, ivf=self.ivf,
+            mesh=mesh if mesh is not None else self.mesh,
         )
 
     # --------------------------------------------------------------- mutation

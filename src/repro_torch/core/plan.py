@@ -28,6 +28,14 @@ metric/pruner config — and differ only in execution strategy:
                 device tile slots (``core.layout.BucketCache``), scan the
                 pool with K2, each query masked to its routed buckets, and
                 re-rank exactly against the host masters.
+  block-sharded        PDX partitions sharded over the mesh "data" axis;
+                       per-query shard-local masked PDXearch + top-k
+                       all-gathers (``repro_torch.dist.pdx_sharded``).
+  dim-sharded          dimension slabs sharded over the mesh "model" axis;
+                       a psum completes the distances.
+  batch-block-sharded  the batch scan on each "data" shard (K2 over the
+                       shard's mirror slice at a reduced ``scan_dtype``),
+                       then ONE packed top-k all-gather per batch.
 
 The fused executors re-rank the top ``rerank_mult * k`` candidates
 against the f32 master tiles whenever ``scan_dtype != "f32"``, so returned
@@ -35,18 +43,25 @@ distances stay exact.  Their kernels run on CUDA tensors; on CPU tensors
 the same ops run the kernels' plain PyTorch versions (``kernels.ops``
 dispatches by device).
 
-Planner rules, in order: a forced ``spec.executor`` wins; otherwise
-``hbm_slots`` on an IVF engine picks tiered-scan; otherwise a spec with a
-``cascade`` picks cascade-batch for batches and cascade-scan for
-single queries; otherwise a fused-eligible spec (``kernel="cuda"``, a
+Planner rules, in order: a forced ``spec.executor`` wins; then, with a
+mesh (a ``torch.distributed`` ``DeviceMesh``, ``repro_torch.dist``), the
+reference's mesh rules: an IVF index on a "data" mesh routes by bucket
+ownership (not ported: it raises) unless ``spec.routing="broadcast"``; a
+"data" axis picks batch-block-sharded for batches (with
+``spec.batch_collectives``) and block-sharded otherwise, padding the
+partitions when a mutable store leaves them indivisible; a "model" axis
+picks dim-sharded; a mesh the rules cannot use is ignored with a note.
+Without a mesh (or with one ignored): ``hbm_slots`` on an IVF engine
+picks tiered-scan; otherwise a spec with a ``cascade`` picks
+cascade-batch for batches and cascade-scan for single queries; otherwise a fused-eligible spec (``kernel="cuda"``, a
 store on CUDA with ``kernel="auto"``, or any reduced-precision
 ``scan_dtype``) picks a fused executor — single L2 queries the scan,
 batches (and other metrics) the batched kernel; otherwise batches take the
 matmul scan and single queries the adaptive path (or, with
 ``spec.prefer_static`` on a flat store, the masked one).  ``kernel="cuda"``
 on a CPU store raises, and so does ``kernel="torch"`` when a fused,
-cascade or tiered executor would run on a CUDA store: the knob steers
-planning, the tensors' device picks the body.
+cascade, tiered or quantized batch-block-sharded executor would run on a
+CUDA store: the knob steers planning, the tensors' device picks the body.
 
 Mutable stores (``core.layout.MutablePDXStore``) flow through the same
 planner: the plan trace records ``store.version``, and ``execute`` merges
@@ -62,8 +77,11 @@ pushes one synthetic batch per batch-shape bucket through it, so a warm
 serving loop builds no state (``obs.setups`` counts what a first search
 builds).
 
+The mesh executors follow the SPMD contract of ``repro_torch.dist``:
+every rank plans and executes the same search and gets the same result.
 Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the mesh-sharded executors (``routed_tiered`` among them).
+ROADMAP item: the bucket-routed executors (``routed_bucket``,
+``routed_tiered``).
 """
 from __future__ import annotations
 
@@ -79,6 +97,7 @@ from ..obs import trace as _trace
 from .distance import pdx_distance
 from .layout import (
     BucketCache,
+    MutablePDXStore,
     PDXStore,
     _host_masters,
     device_mirror,
@@ -112,11 +131,8 @@ __all__ = [
 #: Reference executors that the port does not have yet -> the ROADMAP.md
 #: item (modules queue) that will bring each one.
 UNPORTED_EXECUTORS = {
-    "routed_tiered": "'Multi-device search'",
-    "block-sharded": "'Multi-device search'",
-    "dim-sharded": "'Multi-device search'",
-    "batch-block-sharded": "'Multi-device search'",
-    "routed_bucket": "'Multi-device search'",
+    "routed_tiered": "'Bucket-routed search'",
+    "routed_bucket": "'Bucket-routed search'",
 }
 
 
@@ -140,7 +156,7 @@ class ExecutionPlan:
 
 
 # -------------------------------------------------------------------- registry
-# name -> fn(store, pruner, Q (B, D) tensor, spec, *, ivf, stats)
+# name -> fn(store, pruner, Q (B, D) tensor, spec, *, ivf, mesh, stats)
 #   -> (ids, dists) NumPy, each (B, k).
 _EXECUTORS: dict[str, Callable] = {}
 
@@ -149,6 +165,8 @@ _CASCADE = ("cascade-scan", "cascade-batch")
 # executors that run the hand-written kernels on a CUDA store and scan
 # reduced-precision device tiles (the mirrors, or the tiered slot pool)
 _KERNEL_EXECUTORS = _FUSED + _CASCADE + ("tiered-scan",)
+# executors that honour a reduced ``scan_dtype``
+_MIRROR_EXECUTORS = _KERNEL_EXECUTORS + ("batch-block-sharded",)
 
 
 def register_executor(name: str):
@@ -177,6 +195,39 @@ def _on_cuda(store) -> bool:
     return store.device.type == "cuda"
 
 
+def _runs_kernels(executor: str, spec: SearchSpec) -> bool:
+    """Does ``executor`` launch the hand-written kernels on a CUDA store?"""
+    return executor in _KERNEL_EXECUTORS or (
+        executor == "batch-block-sharded" and spec.scan_dtype != "f32")
+
+
+def _mesh_layout(mesh, store) -> tuple[tuple, dict]:
+    """(axis names, {axis: size}) of a mesh the store can be searched on:
+    a ``DeviceMesh`` over an initialised process group whose device type is
+    the store's."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..dist import mesh_shape
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(
+            f"mesh must be a torch.distributed DeviceMesh "
+            f"(repro_torch.dist.make_mesh), got {type(mesh).__name__}"
+        )
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "searching on a mesh needs an initialised default process group "
+            "on every rank (torch.distributed.init_process_group)"
+        )
+    if mesh.device_type != store.device.type:
+        raise ValueError(
+            f"the mesh is a {mesh.device_type!r} mesh but the store is on "
+            f"{store.device}; build both on one device type"
+        )
+    return tuple(mesh.mesh_dim_names), mesh_shape(mesh)
+
+
 # --------------------------------------------------------------------- planner
 def plan_search(
     spec: SearchSpec,
@@ -188,8 +239,7 @@ def plan_search(
     mesh=None,
 ) -> ExecutionPlan:
     """Choose an executor for ``n_queries`` queries against ``store``."""
-    if mesh is not None:
-        raise _not_ported("searching over a device mesh", "'Multi-device search'")
+    axes, shape = _mesh_layout(mesh, store) if mesh is not None else ((), {})
     if spec.kernel == "cuda" and not _on_cuda(store):
         raise ValueError(
             f"kernel='cuda' needs a store on a CUDA device; this store is on "
@@ -201,18 +251,18 @@ def plan_search(
     body = "cuda" if _on_cuda(store) else "torch"
 
     def plan(executor: str, reason: str) -> ExecutionPlan:
-        if (executor in _KERNEL_EXECUTORS and spec.kernel == "torch"
+        if (_runs_kernels(executor, spec) and spec.kernel == "torch"
                 and _on_cuda(store)):
             raise ValueError(
                 f"kernel='torch' with executor {executor!r} on a CUDA store: "
-                "the fused, cascade and tiered executors run the CUDA kernels "
-                "on the card (use kernel='auto' or 'cuda', or neither "
-                "hbm_slots nor a cascade nor a reduced scan_dtype nor a "
-                "forced fused executor)"
+                "the fused, cascade, tiered and quantized sharded executors "
+                "run the CUDA kernels on the card (use kernel='auto' or "
+                "'cuda', or neither hbm_slots nor a cascade nor a reduced "
+                "scan_dtype nor a forced fused executor)"
             )
-        if spec.kernel == "cuda" and executor not in _KERNEL_EXECUTORS:
+        if spec.kernel == "cuda" and not _runs_kernels(executor, spec):
             reason += " (kernel='cuda' noted: this executor runs plain torch)"
-        if spec.scan_dtype != "f32" and executor not in _KERNEL_EXECUTORS:
+        if spec.scan_dtype != "f32" and executor not in _MIRROR_EXECUTORS:
             reason += (
                 f" (scan_dtype={spec.scan_dtype!r} ignored: this executor "
                 "scans the f32 masters)"
@@ -229,7 +279,7 @@ def plan_search(
             )
         return ExecutionPlan(
             executor=executor, reason=reason, n_queries=n_queries,
-            pruner=fp, store_version=version,
+            pruner=fp, mesh_axes=axes, store_version=version,
         )
 
     if spec.executor is not None:
@@ -243,7 +293,74 @@ def plan_search(
                 f"registered: {executor_names()}"
             )
         return plan(spec.executor, "forced by spec.executor")
+
+    if mesh is not None:
+        return _mesh_plan(spec, store, n_queries, ivf, axes, shape, plan, body)
     return _host_plan(spec, n_queries, ivf, store, plan, body)
+
+
+def _mesh_plan(spec, store, n_queries, ivf, axes, shape, plan,
+               body: str) -> ExecutionPlan:
+    """The reference's mesh rules (``repro.core.plan.plan_search``)."""
+    if ivf is not None:
+        if "data" in axes and spec.routing == "bucket":
+            # the reference plans routed_tiered / routed_bucket here; the
+            # port refuses rather than quietly broadcasting instead
+            name = "routed_tiered" if spec.hbm_slots is not None else "routed_bucket"
+            raise _not_ported(f"executor {name!r} (IVF on a 'data' mesh; "
+                              "spec.routing='broadcast' keeps routing "
+                              "host-side)", UNPORTED_EXECUTORS[name])
+        note = (
+            "mesh ignored: spec.routing='broadcast' keeps IVF bucket "
+            "routing host-side; "
+            if "data" in axes
+            else f"mesh ignored: IVF bucket routing needs a 'data' axis, "
+                 f"mesh has {axes}; "
+        )
+        return _host_plan(spec, n_queries, ivf, store, plan, body, note=note)
+    if "data" in axes:
+        n_sh = shape["data"]
+        divisible = store.num_partitions % n_sh == 0
+        # a mutable store's partition count drifts with churn; the block
+        # executors pad it with empty tiles, so it stays on the mesh
+        if divisible or isinstance(store, MutablePDXStore):
+            pad_note = (
+                "" if divisible
+                else f" (P={store.num_partitions} padded to divisibility)"
+            )
+            if n_queries > 1 and spec.batch_collectives:
+                return plan(
+                    "batch-block-sharded",
+                    f"mesh 'data' axis ({n_sh} shards), batch of "
+                    f"{n_queries}: one top-k all-gather per batch" + pad_note,
+                )
+            return plan(
+                "block-sharded",
+                f"mesh 'data' axis ({n_sh} shards): per-query "
+                "shard-local PDXearch + top-k all-gather" + pad_note,
+            )
+        return _host_plan(
+            spec, n_queries, ivf, store, plan, body,
+            note=f"mesh ignored: {store.num_partitions} partitions not "
+                 f"divisible over {n_sh} 'data' shards; ",
+        )
+    if "model" in axes:
+        n_sh = shape["model"]
+        if store.dim % n_sh == 0:
+            return plan(
+                "dim-sharded",
+                f"mesh 'model' axis ({n_sh} shards): dimension-slab "
+                "partial distances + psum",
+            )
+        return _host_plan(
+            spec, n_queries, ivf, store, plan, body,
+            note=f"mesh ignored: D={store.dim} not divisible over "
+                 f"{n_sh} 'model' shards; ",
+        )
+    return _host_plan(
+        spec, n_queries, ivf, store, plan, body,
+        note=f"mesh ignored: no 'data'/'model' axis in {axes}; ",
+    )
 
 
 def _wants_fused(spec: SearchSpec, store) -> bool:
@@ -257,11 +374,12 @@ def _wants_fused(spec: SearchSpec, store) -> bool:
     )
 
 
-def _host_plan(spec, n_queries, ivf, store, plan, body: str) -> ExecutionPlan:
+def _host_plan(spec, n_queries, ivf, store, plan, body: str,
+               note: str = "") -> ExecutionPlan:
     if spec.hbm_slots is not None and ivf is not None:
         return plan(
             "tiered-scan",
-            f"hbm_slots={spec.hbm_slots}: bucket-granular device cache over "
+            note + f"hbm_slots={spec.hbm_slots}: bucket-granular device cache over "
             f"the routed set (scan_dtype={spec.scan_dtype}, nprobe="
             f"{spec.nprobe}, kernel={body}), exact host-RAM re-rank",
         )
@@ -271,12 +389,12 @@ def _host_plan(spec, n_queries, ivf, store, plan, body: str) -> ExecutionPlan:
         if n_queries > 1:
             return plan(
                 "cascade-batch",
-                f"multi-resolution cascade {stages} batched through the "
+                note + f"multi-resolution cascade {stages} batched through the "
                 f"batched distance kernel ({where}kernel={body}, B={n_queries})",
             )
         return plan(
             "cascade-scan",
-            f"multi-resolution cascade {stages} ({where}kernel={body}, "
+            note + f"multi-resolution cascade {stages} ({where}kernel={body}, "
             f"B={n_queries})",
         )
     if _wants_fused(spec, store):
@@ -284,22 +402,22 @@ def _host_plan(spec, n_queries, ivf, store, plan, body: str) -> ExecutionPlan:
             where = "IVF-routed START, " if ivf is not None else ""
             return plan(
                 "fused-scan",
-                f"fused whole-store mirror scan ({where}scan_dtype="
+                note + f"fused whole-store mirror scan ({where}scan_dtype="
                 f"{spec.scan_dtype}, kernel={body})",
             )
         extra = "; IVF store scanned exactly, all buckets" if ivf else ""
         return plan(
             "fused-batch",
-            f"fused batched mirror scan (scan_dtype={spec.scan_dtype}"
+            note + f"fused batched mirror scan (scan_dtype={spec.scan_dtype}"
             f", kernel={body}, B={n_queries}){extra}",
         )
     if n_queries > 1 and ivf is None:
         return plan("batch-matmul",
-                    f"batch of {n_queries} on one device: exact matmul scan")
+                    note + f"batch of {n_queries} on one device: exact matmul scan")
     if spec.prefer_static and ivf is None:
-        return plan("jit-masked", "prefer_static: shape-static masked PDXearch")
+        return plan("jit-masked", note + "prefer_static: shape-static masked PDXearch")
     where = "IVF-routed" if ivf is not None else "flat"
-    return plan("adaptive", f"{where} host-orchestrated PDXearch")
+    return plan("adaptive", note + f"{where} host-orchestrated PDXearch")
 
 
 # ------------------------------------------------------------------- execution
@@ -319,13 +437,12 @@ def execute(
     For mutable stores this is also the write-head merge point: whatever
     executor ran over the sealed tiles, the unflushed write-head rows are
     scanned exactly (never pruned — they carry no pruner metadata yet) and
-    merged into every query's top-k."""
-    if mesh is not None:
-        raise _not_ported("searching over a device mesh", "'Multi-device search'")
+    merged into every query's top-k, sharded paths included."""
     fn = _EXECUTORS[plan.executor]
     with _trace.span("scan", executor=plan.executor,
                      scan_dtype=spec.scan_dtype):
-        ids, dists = fn(store, pruner, Q, spec, ivf=ivf, stats=stats)
+        ids, dists = fn(store, pruner, Q, spec, ivf=ivf, mesh=mesh,
+                        stats=stats)
     with _trace.span("merge", executor=plan.executor):
         return _merge_write_head(store, pruner, Q, spec, ids, dists,
                                  stats=stats)
@@ -370,10 +487,8 @@ def prepare_execute(
     here, and ``run()`` settles the uploads, scans the pool and re-ranks.
     For every other executor the host share is negligible, so the whole
     ``execute`` is deferred into ``run()`` — callers get one uniform
-    contract.  The mesh executors (``routed_bucket``, ``routed_tiered``)
-    are not ported."""
-    if mesh is not None:
-        raise _not_ported("searching over a device mesh", "'Multi-device search'")
+    contract.  The bucket-routed mesh executors (``routed_bucket``,
+    ``routed_tiered``) are not ported."""
     if plan.executor == "tiered-scan":
         # the host half ends with the first pass's issue: the cache uploads
         # of batch N+1 overlap batch N's device scan through the serving
@@ -393,7 +508,8 @@ def prepare_execute(
 
     return PreparedSearch(
         plan=plan, spec=spec,
-        _run=lambda: execute(plan, spec, store, pruner, Q, ivf=ivf, stats=stats),
+        _run=lambda: execute(plan, spec, store, pruner, Q, ivf=ivf, mesh=mesh,
+                             stats=stats),
     )
 
 
@@ -422,16 +538,14 @@ def warm_shapes(
     kernel calls at whatever width the batch brings (K1/K3 keep host state
     per kernel and mirror shape only, which the warm batch's own stages
     set), so neither is replayed."""
-    if mesh is not None:
-        raise _not_ported("searching over a device mesh", "'Multi-device search'")
     out = {}
     D = store.dim
     rng = np.random.default_rng(0)
     for b in sorted(set(int(x) for x in buckets)):
         Qb = rng.standard_normal((b, D)).astype(np.float32)
         Q = torch.from_numpy(Qb).to(store.device)
-        plan = plan_search(spec, store, b, pruner=pruner, ivf=ivf)
-        prepare_execute(plan, spec, store, pruner, Q, ivf=ivf).run()
+        plan = plan_search(spec, store, b, pruner=pruner, ivf=ivf, mesh=mesh)
+        prepare_execute(plan, spec, store, pruner, Q, ivf=ivf, mesh=mesh).run()
         if spec.cascade is not None:
             # a stage a warm batch's survivors never reach still has its
             # mirror built (projection_mirror / device_mirror, PCA fit)
@@ -518,7 +632,7 @@ def _exact_scan_stats(stats: Optional[SearchStats], store, B: int) -> None:
 
 
 @register_executor("adaptive")
-def _exec_adaptive(store, pruner, Q, spec, *, ivf, stats):
+def _exec_adaptive(store, pruner, Q, spec, *, ivf, mesh, stats):
     out = []
     for q in Q:
         if ivf is not None:
@@ -540,7 +654,7 @@ def _exec_adaptive(store, pruner, Q, spec, *, ivf, stats):
 
 
 @register_executor("jit-masked")
-def _exec_jit_masked(store, pruner, Q, spec, *, ivf, stats):
+def _exec_jit_masked(store, pruner, Q, spec, *, ivf, mesh, stats):
     if ivf is not None:
         raise ValueError(
             "jit-masked executor has no IVF routing (bucket ranking is "
@@ -564,7 +678,7 @@ def _transform_batch(pruner: Pruner, Q: torch.Tensor) -> torch.Tensor:
 
 
 @register_executor("batch-matmul")
-def _exec_batch_matmul(store, pruner, Q, spec, *, ivf, stats):
+def _exec_batch_matmul(store, pruner, Q, spec, *, ivf, mesh, stats):
     # Exact scan over ALL partitions (IVF engines included: their store holds
     # every bucket, so this is exact; nprobe does not apply).
     Qt = _transform_batch(pruner, Q)
@@ -651,7 +765,7 @@ def _positions_to_ids(store_ids, cand: TopK) -> TopK:
 
 
 @register_executor("fused-batch")
-def _exec_fused_batch(store, pruner, Q, spec, *, ivf, stats):
+def _exec_fused_batch(store, pruner, Q, spec, *, ivf, mesh, stats):
     """Exact-over-store scan of the device mirror at ``spec.scan_dtype``
     width (IVF engines included — all buckets, like batch-matmul), f32
     re-ranked when the mirror is reduced-precision."""
@@ -685,7 +799,7 @@ def _exec_fused_batch(store, pruner, Q, spec, *, ivf, stats):
 
 
 @register_executor("fused-scan")
-def _exec_fused_scan(store, pruner, Q, spec, *, ivf, stats):
+def _exec_fused_scan(store, pruner, Q, spec, *, ivf, mesh, stats):
     """Single-query whole-store scan: one K1 launch per query, ADSampling
     keep-mask fused per d-tile, mirror operands dequantized in registers.
 
@@ -941,7 +1055,7 @@ def _cascade_stage(mdata, ids_scan, alive_prev, qs, thr, scale, offset,
 
 
 @register_executor("cascade-scan")
-def _exec_cascade_scan(store, pruner, Q, spec, *, ivf, stats):
+def _exec_cascade_scan(store, pruner, Q, spec, *, ivf, mesh, stats):
     """Multi-resolution cascade, one query at a time: each scan stage of
     ``spec.cascade`` scans its mirror over the previous stage's survivors
     with the exact-safe inflated threshold, and the exact f32 re-rank
@@ -1035,7 +1149,7 @@ def _cascade_batch_stage(mdata, idx: np.ndarray, alive, Qs, thr, scale, offset,
 
 
 @register_executor("cascade-batch")
-def _exec_cascade_batch(store, pruner, Q, spec, *, ivf, stats):
+def _exec_cascade_batch(store, pruner, Q, spec, *, ivf, mesh, stats):
     """The cascade once per batch: each scan stage runs over the whole
     query batch, carrying a shared (B, P*C) survivor bitmap between
     stages.  Per stage the union of the batch's survivors is compacted to a
@@ -1523,10 +1637,133 @@ class _TieredSnapshot:
 
 
 @register_executor("tiered-scan")
-def _exec_tiered_scan(store, pruner, Q, spec, *, ivf, stats):
+def _exec_tiered_scan(store, pruner, Q, spec, *, ivf, mesh, stats):
     """Tiered search beyond device memory: route -> admit (bucket-granular
     LRU device cache) -> masked quantized pool scan -> exact host-RAM
     re-rank.  The blocking composition of ``_prepare_tiered_host`` +
     ``_run_tiered_device``."""
     launch = _prepare_tiered_host(store, pruner, Q, spec, ivf=ivf)
     return _run_tiered_device(launch, store, spec, ivf=ivf, stats=stats)
+
+
+# ------------------------------------------------------- mesh executors
+def _get_placement(store, n_shards: int, kind: str, *, ivf=None, axis="data"):
+    """The store's tile->shard ``Placement``, cached per ``(tiles_version,
+    n_shards, kind)``: arranging and padding copies the tiles, which must
+    cost once per sealed-tile mutation, not once per search.  A dict, so
+    one store serving two mesh sizes (or block and bucket layouts) never
+    thrashes; stale-version entries are evicted."""
+    from ..dist.placement import Placement  # no core<->dist cycle
+
+    version = getattr(store, "tiles_version", 0)
+    key = (version, n_shards, kind)
+    cache = getattr(store, "_placement_cache", None)
+    if cache is None:
+        cache = {}
+        store._placement_cache = cache
+    pl = cache.get(key)
+    _metrics.counter(
+        "repro_cache_events_total", cache="placement",
+        event="hit" if pl is not None else "miss",
+    )
+    if pl is None:
+        if kind == "block":
+            pl = Placement.block(store.data, store.ids, n_shards, axis=axis)
+        elif kind == "bucket":
+            pb = getattr(store, "_part_bucket", None)
+            if pb is None:  # frozen store: derive from the (synced) index
+                pb = np.repeat(np.arange(ivf.nlist), ivf.part_counts)
+            if len(pb) < store.num_partitions:  # all-pad placeholder tiles
+                pb = np.concatenate(
+                    [pb, np.full(store.num_partitions - len(pb), -1, np.int64)]
+                )
+            pl = Placement.bucket(
+                store.data, store.ids, pb, ivf.nlist, n_shards, axis=axis
+            )
+        else:
+            raise ValueError(f"no cached placement kind {kind!r}")
+        for stale in [kk for kk in cache if kk[0] != version]:
+            del cache[stale]
+        cache[key] = pl
+    return pl
+
+
+def _mesh_axis(mesh, axis: str, executor: str) -> int:
+    """Size of ``axis`` on ``mesh``; a mesh without it cannot run
+    ``executor``."""
+    from ..dist import mesh_shape
+
+    if mesh is None or axis not in mesh_shape(mesh):
+        raise ValueError(
+            f"{executor} executor needs a mesh with a '{axis}' axis, got {mesh!r}"
+        )
+    return mesh_shape(mesh)[axis]
+
+
+def _stack_numpy(results: list) -> tuple[np.ndarray, np.ndarray]:
+    return (np.stack([r.ids.cpu().numpy() for r in results]),
+            np.stack([r.dists.cpu().numpy() for r in results]))
+
+
+@register_executor("block-sharded")
+def _exec_block_sharded(store, pruner, Q, spec, *, ivf, mesh, stats):
+    from ..dist.pdx_sharded import search_block_sharded
+
+    pl = _get_placement(store, _mesh_axis(mesh, "data", "block-sharded"),
+                        "block")
+    return _stack_numpy([
+        search_block_sharded(
+            mesh, q=q, k=spec.k, metric=spec.metric, pruner=pruner,
+            schedule=spec.schedule, delta_d=spec.delta_d, placement=pl,
+            stats=stats,
+        )
+        for q in Q
+    ])
+
+
+@register_executor("dim-sharded")
+def _exec_dim_sharded(store, pruner, Q, spec, *, ivf, mesh, stats):
+    from ..dist.pdx_sharded import search_dim_sharded
+    from ..dist.placement import Placement
+
+    pl = Placement.replicated(store.data, store.ids,
+                              _mesh_axis(mesh, "model", "dim-sharded"))
+    out = _stack_numpy([
+        search_dim_sharded(mesh, q=pruner.transform_query(q), k=spec.k,
+                           metric=spec.metric, placement=pl)
+        for q in Q
+    ])
+    _exact_scan_stats(stats, store, len(Q))
+    return out
+
+
+@register_executor("batch-block-sharded")
+def _exec_batch_block_sharded(store, pruner, Q, spec, *, ivf, mesh, stats):
+    from ..dist.pdx_sharded import search_batch_block_sharded
+
+    n_sh = _mesh_axis(mesh, "data", "batch-block-sharded")
+    pl = _get_placement(store, n_sh, "block")
+    Qt = _transform_batch(pruner, Q)
+    dt = spec.scan_dtype
+    mirror = device_mirror(store, dt) if dt != "f32" else None
+    res = search_batch_block_sharded(
+        mesh, Q=Qt, k=spec.k, metric=spec.metric, placement=pl,
+        mirror=mirror, rerank_mult=spec.rerank_mult,
+    )
+    B = Q.shape[0]
+    _exact_scan_stats(stats, store, B)
+    if _metrics.enabled():
+        from ..obs import meters as _meters
+
+        _meters.count_issued("batch-block-sharded", all_gather=1)
+        P, D, C = store.data.shape
+        bpv = mirror.bytes_per_value if mirror is not None else 4
+        wire = _meters.broadcast_batch_bytes(
+            n_shards=n_sh, B=B, D=store.dim, k=spec.k
+        )
+        wire["scan"] = float(P * D * C * bpv)
+        _meters.record_device_bytes(
+            "batch-block-sharded", mirror.dtype if mirror is not None else "f32",
+            wire,
+        )
+    return _numpy(res)

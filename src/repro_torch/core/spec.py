@@ -83,8 +83,11 @@ class SearchSpec:
 
     IVF routing
       nprobe     — buckets probed when the engine has an IVF index.
-      routing    — distributed query routing on a mesh; meshes are not
-                   ported yet, so the knob is inert here.
+      routing    — distributed query routing on a "data"-axis mesh:
+                   "bucket" (the default) plans the bucket-routed search
+                   for an IVF engine, which is not ported yet and raises;
+                   "broadcast" keeps IVF routing host-side and the mesh
+                   unused.  Without a mesh or an IVF index it is inert.
 
     Device-scan precision (the bandwidth lever; see ``core.layout``'s
     dtype-policy block)
@@ -131,7 +134,10 @@ class SearchSpec:
                           the planner choose.
       prefer_static     — prefer the shape-static masked path
                           (``jit-masked``) on a flat store.
-      batch_collectives — mesh knob; inert here.
+      batch_collectives — on a "data" mesh, batches take the one
+                          all-gather per batch executor
+                          (``batch-block-sharded``); False keeps them
+                          per query (``block-sharded``).
     """
 
     k: int = 10

@@ -25,6 +25,7 @@ import torch
 from ..core.device import resolve_device
 from ..core.distance import nary_distance
 from ..core.layout import (
+    DeviceMirror,
     PDXStore,
     build_bucketed_store,
     build_flat_store,
@@ -41,17 +42,77 @@ __all__ = ["IVFIndex", "build_ivf", "TREE_AUTO_NLIST"]
 TREE_AUTO_NLIST = 4096
 
 
+# The batched ranking materialises a (Bc, Pc, D, C) difference block; Bc is
+# the largest chunk whose block stays under this many values, capped at
+# _ROUTE_CHUNK_MAX rows.
+_ROUTE_BLOCK_VALUES = 1 << 26
+_ROUTE_CHUNK_MAX = 16
+
+
+def _route_chunk(cdata: torch.Tensor) -> int:
+    """Rows per ranking chunk: set by the centroid tiles alone, never by the
+    batch, so every call reduces blocks of one shape."""
+    per_query = cdata.shape[0] * cdata.shape[1] * cdata.shape[2]
+    return max(1, min(_ROUTE_CHUNK_MAX, _ROUTE_BLOCK_VALUES // per_query))
+
+
+def _rank_centroids_batch(
+    cdata: torch.Tensor, Q: torch.Tensor, nlist: int, metric: str
+) -> torch.Tensor:
+    """One dimension-major scan of ALL (Pc, D, C) centroid tiles for a
+    (B, D) batch -> (B, nlist) ascending bucket orders (stable, like
+    ``jnp.argsort``), ``pdx_distance``'s arithmetic per tile.
+
+    The batch runs in chunks of ``_route_chunk(cdata)`` rows, the last
+    padded with zero rows: the sum over D then has one shape whatever B
+    is, so a reduction whose strategy follows the shape (CUDA's) rounds a
+    query's distances the same alone as inside a batch, and ``route`` (B =
+    1) agrees with ``route_batch`` bit for bit."""
+    bc = _route_chunk(cdata)
+    B = Q.shape[0]
+    out = []
+    for lo in range(0, B, bc):
+        Qc = Q[lo:lo + bc]
+        if Qc.shape[0] < bc:
+            Qc = torch.cat([Qc, Qc.new_zeros((bc - Qc.shape[0], Q.shape[1]))])
+        qb = Qc[:, None, :, None]                                 # (Bc,1,D,1)
+        if metric == "l2":
+            diff = cdata[None] - qb
+            d = torch.sum(diff * diff, dim=2)
+        elif metric == "l1":
+            d = torch.sum(torch.abs(cdata[None] - qb), dim=2)
+        else:
+            d = -torch.sum(cdata[None] * qb, dim=2)
+        d = d.reshape(bc, -1)[: min(bc, B - lo), :nlist]
+        out.append(torch.argsort(d, dim=1, stable=True))
+    return torch.cat(out)
+
+
 def _rank_centroids(cdata: torch.Tensor, q: torch.Tensor, nlist: int, metric: str):
-    """One dimension-major scan of ALL (Pc, D, C) centroid tiles ->
-    ascending bucket order (stable, like ``jnp.argsort``)."""
-    if metric == "l2":
-        diff = cdata - q[None, :, None]
-        d = torch.sum(diff * diff, dim=1)
-    elif metric == "l1":
-        d = torch.sum(torch.abs(cdata - q[None, :, None]), dim=1)
-    else:
-        d = -torch.sum(cdata * q[None, :, None], dim=1)
-    return torch.argsort(d.reshape(-1)[:nlist], stable=True)
+    """``_rank_centroids_batch`` for one (D,) query -> (nlist,) order (the
+    reference's name; ``rank_buckets`` and ``route`` take the same B = 1
+    path through ``IVFIndex._ranked_batch``)."""
+    return _rank_centroids_batch(cdata, q[None], nlist, metric)[0]
+
+
+def _rank_centroids_batch_mirror(
+    m: DeviceMirror, Q: torch.Tensor, nlist: int, metric: str,
+    cache: dict,
+) -> torch.Tensor:
+    """Quantized-mirror bucket ranking: the mirror's tiles dequantized to
+    f32 once per mirror, then ``_rank_centroids_batch``'s exact arithmetic
+    on them.  ``cache`` holds one f32 copy per dtype beside the mirror it
+    came from; ``device_mirror`` hands out a new mirror for a new
+    ``tiles_version`` (or a rebuilt centroid store), which replaces it."""
+    got = cache.get(m.dtype)
+    if got is None or got[0] is not m:
+        t32 = dequantize_ref(
+            m.data, m.scale if m.quantized else None,
+            m.offset if m.quantized else None, dim_axis=1,
+            packed=m.packed, dim=m.dim,
+        )
+        got = cache[m.dtype] = (m, t32)
+    return _rank_centroids_batch(got[1], Q, nlist, metric)
 
 
 def _rank_centroids_tree(
@@ -110,6 +171,11 @@ class IVFIndex:
     super_centroids: Optional[torch.Tensor] = None
     super_children: Optional[torch.Tensor] = None
     nprobe_super: int = 0
+    # per route dtype: (centroid mirror, its f32 dequantization), kept by
+    # ``_rank_centroids_batch_mirror``
+    _route_f32: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False
+    )
 
     @property
     def tree_enabled(self) -> bool:
@@ -164,17 +230,16 @@ class IVFIndex:
                 )
             return order
         if dtype == "f32":
-            cdata = self.centroid_store.data
+            order = _rank_centroids_batch(
+                self.centroid_store.data, Q, self.nlist, metric
+            )
             bpv = 4.0
         else:
             m = device_mirror(self.centroid_store, dtype)
-            cdata = dequantize_ref(
-                m.data, m.scale if m.quantized else None,
-                m.offset if m.quantized else None, dim_axis=1,
-                packed=m.packed, dim=m.dim,
+            order = _rank_centroids_batch_mirror(
+                m, Q, self.nlist, metric, self._route_f32
             )
             bpv = m.bytes_per_value
-        order = torch.stack([_rank_centroids(cdata, q, self.nlist, metric) for q in Q])
         if _metrics.enabled():
             Pc, Dc, Cc = self.centroid_store.data.shape
             _metrics.counter(

@@ -10,6 +10,17 @@ byte width the demand-bytes model.
 
 ``cache_upload_wait`` meters one settle of the tiered bucket cache's
 asynchronous uploads (``core.layout.BucketCache.wait``).
+
+Collective meters: ``collective_counts`` runs a function and returns the
+collectives it issued, by the reference's primitive names (the reference
+walks a traced jaxpr; the port counts at the one module that issues them,
+``repro_torch.dist``); ``count_issued`` accumulates
+``repro_collectives_issued_total`` from the executed plan.  The
+reference's ``record_compile_collectives`` publishes a jaxpr walk once per
+compiled shape; the port compiles nothing per shape and has no jaxpr, so it
+has no counterpart.  ``broadcast_batch_bytes`` is the wire model of the
+broadcast executors and ``record_device_bytes`` records such a model into
+``repro_device_bytes_total``.
 """
 from __future__ import annotations
 
@@ -20,8 +31,36 @@ import numpy as np
 from ..kernels.ref import pdx_prune_scan_multi_ref
 from . import metrics
 
-__all__ = ["tile_widths", "fused_tile_counts", "fused_demand_bytes",
-           "cache_upload_wait"]
+__all__ = ["collective_counts", "count_issued", "tile_widths",
+           "fused_tile_counts", "fused_demand_bytes", "broadcast_batch_bytes",
+           "record_device_bytes", "cache_upload_wait"]
+
+
+# ------------------------------------------------------------ collectives
+def collective_counts(fn, *args, **kwargs) -> dict[str, int]:
+    """Run ``fn(*args, **kwargs)`` and return the collectives it issued in
+    this process, by primitive (``all_gather``, ``psum``, ...), e.g. to
+    assert that the batched path issues exactly one all-gather per batch."""
+    from ..dist import issued_counts
+
+    before = issued_counts()
+    fn(*args, **kwargs)
+    after = issued_counts()
+    return {p: n - before.get(p, 0) for p, n in after.items()
+            if n != before.get(p, 0)}
+
+
+def count_issued(executor: str, **primitives: int) -> None:
+    """Accumulate ``repro_collectives_issued_total`` counters from the
+    executed plan (e.g. ``count_issued("batch-block-sharded",
+    all_gather=1)`` per batch)."""
+    if not metrics.enabled():
+        return
+    for prim, n in primitives.items():
+        metrics.counter(
+            "repro_collectives_issued_total", float(n), executor=executor,
+            primitive=prim,
+        )
 
 
 def tile_widths(D: int, d_tile: int = 64) -> np.ndarray:
@@ -67,6 +106,31 @@ def fused_demand_bytes(
     )
     w = tile_widths(D, d_tile)
     return float(D * C * 4 + (parts * w).sum() * C * mirror.bytes_per_value)
+
+
+def broadcast_batch_bytes(
+    *, n_shards: int, B: int, D: int, k: int
+) -> dict[str, float]:
+    """Per-batch wire bytes of the mirrored-broadcast executors: every query
+    replicates to every shard, one packed (B, 2k) all-gather merges."""
+    return {
+        "all_to_all": 0.0,
+        "broadcast": float(n_shards * B * D * 4),
+        "all_gather": float(n_shards * B * 2 * k * 4),
+    }
+
+
+def record_device_bytes(executor: str, dtype: str, components: dict) -> None:
+    """Accumulate a components dict (as the wire models return it) into
+    ``repro_device_bytes_total{executor, component, dtype}`` counters."""
+    if not metrics.enabled():
+        return
+    for comp, nbytes in components.items():
+        if nbytes:
+            metrics.counter(
+                "repro_device_bytes_total", float(nbytes),
+                executor=executor, component=comp, dtype=dtype,
+            )
 
 
 def cache_upload_wait(wait_us: float, total_us: float) -> None:

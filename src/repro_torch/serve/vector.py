@@ -67,7 +67,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..core.device import resolve_device
 from ..core.layout import MutablePDXStore
 from ..core.plan import plan_search, pow2_bucket, prepare_execute, warm_shapes
 from ..obs import metrics as _metrics
@@ -139,12 +138,6 @@ class _Swap:
         self.expect_version = expect_version
 
 
-def _same_device(a: torch.device, b: torch.device) -> bool:
-    if a.type != b.type:
-        return False
-    return a.index is None or b.index is None or a.index == b.index
-
-
 class VectorServer:
     """Continuous-batching front end over a ``VectorSearchEngine``.
 
@@ -155,9 +148,9 @@ class VectorServer:
     or call ``close()`` — ``drain=True`` (default) completes every queued
     query before the threads exit.
 
-    ``device`` is where the server serves: None means the CUDA card (and
-    raises without one), so an engine on the CPU needs ``device="cpu"``
-    given explicitly; it must be the engine's device.
+    The server serves on ``engine.device``, as the reference does: the
+    engine's builders already make the caller ask for the CPU, so nothing
+    runs there unasked.
     """
 
     def __init__(
@@ -174,16 +167,9 @@ class VectorServer:
         maintenance_interval_s: Optional[float] = None,
         head_fill_threshold: float = 0.75,
         fragmentation_threshold: float = 0.25,
-        device=None,
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        dev = resolve_device(device)
-        if not _same_device(dev, engine.device):
-            raise ValueError(
-                f"the server runs on {dev} but the engine's store is on "
-                f"{engine.device}; pass device={str(engine.device)!r}"
-            )
         self.engine = engine
         self.device = engine.device
         self.spec = spec if spec is not None else engine.spec
@@ -303,7 +289,7 @@ class VectorServer:
             for sp in all_specs:
                 out = warm_shapes(
                     sp, self.engine.store, self.engine.pruner, buckets,
-                    ivf=self.engine.ivf,
+                    ivf=self.engine.ivf, mesh=self.engine.mesh,
                 )
         self._warm_compiles = jit_compile_count()
         return out
@@ -438,10 +424,11 @@ class VectorServer:
         eng = self.engine
         plan = plan_search(
             spec, eng.store, bucket, pruner=eng.pruner, ivf=eng.ivf,
+            mesh=eng.mesh,
         )
         return prepare_execute(
             plan, spec, eng.store, eng.pruner,
-            torch.as_tensor(Qpad).to(eng.device), ivf=eng.ivf,
+            torch.as_tensor(Qpad).to(eng.device), ivf=eng.ivf, mesh=eng.mesh,
         )
 
     def _executor_loop(self) -> None:

@@ -151,7 +151,7 @@ def test_kmeans_matches_reference():
                                   np.asarray(jk.assign(X, jc)))
 
 
-@pytest.mark.parametrize("route_dtype", ["f32", "int8", "int4"])
+@pytest.mark.parametrize("route_dtype", ["f32", "bf16", "int8", "int4"])
 def test_ivf_routing_matches_reference(route_dtype):
     X, Q = jsyn.make_dataset(900, 12, "clustered", n_queries=4, seed=8)
     pre = jk.kmeans(X, 10, iters=5, seed=0)
@@ -228,3 +228,29 @@ def test_search_records_spans_and_counters_when_enabled():
     assert "repro_search_queries_total" in snap["counters"]
     assert "repro_device_bytes_total" in snap["counters"]
     reg.reset()
+
+
+@pytest.mark.parametrize("n_shards,B,D,k", [(8, 16, 32, 5), (1, 64, 960, 10)])
+def test_broadcast_meters_match_reference(n_shards, B, D, k):
+    """The broadcast executors' wire model and the counters it and the
+    issued-collective meter record equal the reference's."""
+    from repro.obs import metrics as jmetrics
+    from repro_torch.obs import metrics as tmetrics
+
+    want = jmeters.broadcast_batch_bytes(n_shards=n_shards, B=B, D=D, k=k)
+    got = tmeters.broadcast_batch_bytes(n_shards=n_shards, B=B, D=D, k=k)
+    assert got == want
+    snaps = []
+    for meters, metrics in ((jmeters, jmetrics), (tmeters, tmetrics)):
+        reg = metrics.get_registry()
+        reg.reset()
+        metrics.set_enabled(True)
+        try:
+            meters.count_issued("batch-block-sharded", all_gather=1)
+            meters.record_device_bytes("batch-block-sharded", "int8",
+                                       {**want, "scan": 123.0})
+            snaps.append(reg.snapshot()["counters"])
+        finally:
+            metrics.set_enabled(False)
+            reg.reset()
+    assert snaps[0] == snaps[1] and snaps[1]

@@ -1045,3 +1045,39 @@ def test_served_burst_on_the_card_equals_engine_search(dev, dtype):
     np.testing.assert_array_equal(got1[0], want1.ids)
     np.testing.assert_array_equal(got1[1], want1.dists)
     assert srv.jit_compiles_since_warmup() == 0
+
+
+def test_batch_block_sharded_on_a_world_of_one_equals_fused_batch(dev):
+    """On a world of one (NCCL), ``batch-block-sharded`` at int8 scans the
+    whole store as one shard through K2 and equals ``fused-batch`` bit for
+    bit: one shard, no padding, the same arithmetic; K2 launches in it and
+    one all-gather crosses the (one-rank) mesh.  ``route_batch`` rows equal
+    ``route`` bit for bit on the card."""
+    import torch.distributed as tdist
+
+    from repro_torch.dist import make_mesh
+    from repro_torch.obs.meters import collective_counts
+
+    X, Q = make_dataset(8192, 96, "clustered", n_queries=16, seed=3)
+    eng = VectorSearchEngine.build(X, index="ivf", pruner="adsampling",
+                                   capacity=256, device=dev)
+    spec = SearchSpec(k=10, scan_dtype="int8")
+    want = eng.search(Q, spec.replace(executor="fused-batch"))
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        before = batched_distance_quant_cuda.launches
+        got = eng.search(Q, spec.replace(executor="batch-block-sharded"), mesh=mesh)
+        assert batched_distance_quant_cuda.launches > before
+        counts = collective_counts(lambda: eng.search(
+            Q, spec.replace(executor="batch-block-sharded"), mesh=mesh))
+    finally:
+        tdist.destroy_process_group()
+    np.testing.assert_array_equal(got.ids, want.ids)
+    np.testing.assert_array_equal(got.dists, want.dists)
+    assert counts == {"all_gather": 1}
+    Qt = eng.pruner.transform_batch(torch.from_numpy(Q).to(dev))
+    for dt in DTYPES:
+        rows = eng.ivf.route_batch(Qt, eng.ivf.nlist, "l2", dt)
+        for i in range(len(Q)):
+            np.testing.assert_array_equal(rows[i], eng.ivf.rank_buckets(Qt[i], "l2", dt))

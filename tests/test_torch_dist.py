@@ -1,0 +1,413 @@
+"""The port's mesh executors against the reference's, on spawned worlds of 8
+gloo processes on the CPU (``torch.distributed``; the reference runs 8 fake
+CPU devices in a subprocess, as ``tests/test_dist.py`` does).
+
+Each world is 8 processes, one rank each, that rendezvous through a
+``file://`` store under ``tmp_path`` (no port to collide under xdist) and
+run the same body: the SPMD contract, the same X, seed and Q on every
+rank.  Each rank saves its results; every rank's must equal rank 0's, and
+rank 0's are held to the reference's, which a subprocess with
+``--xla_force_host_platform_device_count=8`` computes at the same time on
+the same NumPy-seeded inputs.  A rank or a reference that does not finish
+within its join timeout fails its test rather than hanging the suite.
+
+Tolerances: ids equal the reference's exactly; distances within rtol 1e-5
+(both sides sum f32 values in different orders).  Dim-sharded sums its
+D-slabs in the collective's order, so its ids are compared as sets and its
+sorted distances at rtol 1e-5, as the reference test compares them.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+import time
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RTOL = 1e-5
+WORLD = 8
+JOIN_S = 120      # a port world's ranks, all together
+REF_JOIN_S = 300  # the reference subprocess (JAX import and compiles)
+
+_PORT = """
+import datetime, os
+import numpy as np
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+rank = int(os.environ["RANK"])
+dist.init_process_group(
+    "gloo", init_method=os.environ["INIT"], rank=rank,
+    world_size=int(os.environ["WORLD_SIZE"]),
+    timeout=datetime.timedelta(seconds=100))
+from repro_torch.dist import make_mesh
+out = {}
+"""
+_PORT_END = """
+np.savez(os.path.join(os.environ["OUT"], f"rank{rank}.npz"), **out)
+dist.barrier()
+dist.destroy_process_group()
+"""
+_REF = f"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={WORLD}"
+import jax, numpy as np, jax.numpy as jnp
+assert jax.device_count() == {WORLD}, jax.devices()
+out = {{}}
+"""
+_REF_END = """
+np.savez(os.path.join(os.environ["OUT"], "ref.npz"), **out)
+"""
+
+
+def _spawn(code: str, env: dict, log):
+    # the worlds run at a lower priority, so that tests timing themselves
+    # on the other workers are not starved by nine extra processes
+    return subprocess.Popen(["nice", "-n", "10", sys.executable, "-c", code],
+                            env=env, cwd=REPO, stdout=log,
+                            stderr=subprocess.STDOUT)
+
+
+def run_world(tmp_path, body: str, ref_body: str | None = None):
+    """Run ``body`` on a world of 8 gloo ranks (and ``ref_body`` in the
+    reference's 8-device subprocess beside it) -> (per-rank result dicts,
+    the reference's dict or None)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+               OUT=str(tmp_path), WORLD_SIZE=str(WORLD),
+               INIT=f"file://{tmp_path / 'rendezvous'}", OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    procs = []
+    try:
+        for r in range(WORLD):
+            log = open(tmp_path / f"rank{r}.log", "w")
+            procs.append((f"rank {r}", _spawn(
+                _PORT + textwrap.dedent(body) + _PORT_END,
+                dict(env, RANK=str(r)), log), log, JOIN_S))
+        if ref_body is not None:
+            log = open(tmp_path / "ref.log", "w")
+            procs.append(("reference", _spawn(
+                _REF + textwrap.dedent(ref_body) + _REF_END, env, log),
+                log, REF_JOIN_S))
+        t0 = time.monotonic()
+        for name, p, _, limit in procs:
+            try:
+                p.wait(timeout=max(1.0, limit - (time.monotonic() - t0)))
+            except subprocess.TimeoutExpired:
+                pytest.fail(f"{name} did not finish within {limit} s")
+        for name, p, log, _ in procs:
+            log.close()
+            logname = "ref.log" if name == "reference" else f"rank{name.split()[-1]}.log"
+            assert p.returncode == 0, (name, (tmp_path / logname).read_text()[-4000:])
+    finally:
+        for _, p, log, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(WORLD)]
+    for r, got in enumerate(ranks[1:], 1):  # the result is replicated
+        assert got.keys() == ranks[0].keys()
+        for key in got:
+            np.testing.assert_array_equal(got[key], ranks[0][key], err_msg=f"rank {r} {key}")
+    ref = dict(np.load(tmp_path / "ref.npz")) if ref_body is not None else None
+    return ranks[0], ref
+
+
+def _same(got: dict, ref: dict, keys) -> None:
+    for key in keys:
+        if key.startswith("ids"):
+            np.testing.assert_array_equal(got[key], ref[key], err_msg=key)
+        else:
+            np.testing.assert_allclose(got[key], ref[key], rtol=RTOL, err_msg=key)
+
+
+def test_block_sharded_search_matches_the_reference(tmp_path):
+    """``tests/test_dist.py::test_block_sharded_search_matches_single_device``:
+    16 partitions over 8 ranks, two queries; and the same with stats, whose
+    computed-values psum must equal the reference's."""
+    got, ref = run_world(tmp_path, """
+    from repro_torch.core.layout import build_flat_store
+    from repro_torch.core.pdxearch import SearchStats
+    from repro_torch.core.pruners import make_adsampling
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.dist.pdx_sharded import search_block_sharded
+
+    X, Q = make_dataset(2048, 32, "normal", n_queries=2, seed=0)
+    store = build_flat_store(X, capacity=128, device="cpu")
+    mesh = make_mesh((8,), ("data",), device="cpu")
+    for qi, q in enumerate(Q):
+        res = search_block_sharded(mesh, store.data, store.ids,
+                                   torch.from_numpy(q), 5)
+        out[f"ids{qi}"], out[f"d{qi}"] = res.ids.numpy(), res.dists.numpy()
+    pr = make_adsampling(32, eps0=2.1, seed=0, device="cpu")
+    st = SearchStats()
+    res = search_block_sharded(mesh, store.data, store.ids,
+                               torch.from_numpy(Q[0]), 5, pruner=pr, stats=st)
+    out["ids_ads"], out["d_ads"] = res.ids.numpy(), res.dists.numpy()
+    out["stats"] = np.array([st.values_total, st.values_computed,
+                             st.partitions_visited], np.float64)
+    """, """
+    from repro.core.layout import build_flat_store
+    from repro.core.pdxearch import SearchStats
+    from repro.core.pruners import make_adsampling
+    from repro.data.synthetic import make_dataset
+    from repro.dist.pdx_sharded import search_block_sharded
+
+    X, Q = make_dataset(2048, 32, "normal", n_queries=2, seed=0)
+    store = build_flat_store(X, capacity=128)
+    mesh = jax.make_mesh((8,), ("data",))
+    for qi, q in enumerate(Q):
+        res = search_block_sharded(mesh, store.data, store.ids, jnp.asarray(q), 5)
+        out[f"ids{qi}"], out[f"d{qi}"] = np.asarray(res.ids), np.asarray(res.dists)
+    pr = make_adsampling(32, eps0=2.1, seed=0)
+    st = SearchStats()
+    res = search_block_sharded(mesh, store.data, store.ids, jnp.asarray(Q[0]), 5,
+                               pruner=pr, stats=st)
+    out["ids_ads"], out["d_ads"] = np.asarray(res.ids), np.asarray(res.dists)
+    out["stats"] = np.array([st.values_total, st.values_computed,
+                             st.partitions_visited], np.float64)
+    """)
+    _same(got, ref, ["ids0", "d0", "ids1", "d1", "ids_ads", "d_ads"])
+    np.testing.assert_array_equal(got["stats"], ref["stats"])
+
+
+def test_dim_sharded_search_matches_the_reference(tmp_path):
+    """``tests/test_dist.py::test_dim_sharded_search_matches_single_device``:
+    D = 64 over 8 "model" ranks; ids as sets, sorted dists at rtol 1e-5."""
+    got, ref = run_world(tmp_path, """
+    from repro_torch.core.layout import build_flat_store
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.dist.pdx_sharded import search_dim_sharded
+
+    X, Q = make_dataset(1024, 64, "skewed", n_queries=2, seed=1)
+    store = build_flat_store(X, capacity=256, device="cpu")
+    mesh = make_mesh((8,), ("model",), device="cpu")
+    for qi, q in enumerate(Q):
+        res = search_dim_sharded(mesh, store.data, store.ids, torch.from_numpy(q), 5)
+        out[f"ids{qi}"], out[f"d{qi}"] = res.ids.numpy(), res.dists.numpy()
+    """, """
+    from repro.core.layout import build_flat_store
+    from repro.data.synthetic import make_dataset
+    from repro.dist.pdx_sharded import search_dim_sharded
+
+    X, Q = make_dataset(1024, 64, "skewed", n_queries=2, seed=1)
+    store = build_flat_store(X, capacity=256)
+    mesh = jax.make_mesh((8,), ("model",))
+    for qi, q in enumerate(Q):
+        res = search_dim_sharded(mesh, store.data, store.ids, jnp.asarray(q), 5)
+        out[f"ids{qi}"], out[f"d{qi}"] = np.asarray(res.ids), np.asarray(res.dists)
+    """)
+    for qi in range(2):
+        assert set(got[f"ids{qi}"].tolist()) == set(ref[f"ids{qi}"].tolist())
+        np.testing.assert_allclose(np.sort(got[f"d{qi}"]), np.sort(ref[f"d{qi}"]),
+                                   rtol=RTOL)
+
+
+_PLAN_SETUP = """
+X, Q = make_dataset(2048, 64, "normal", n_queries=4, seed=0)
+spec = SearchSpec(k=5)
+"""
+
+
+def test_planner_picks_the_reference_executors_on_each_mesh(tmp_path):
+    """``tests/test_plan.py::test_sharded_executors_match_ground_truth_8dev``:
+    the planner's pick on a "data" and a "model" mesh, batched and per
+    query, the ids and the SearchStats of each against the reference's; an
+    IVF engine on a "data" mesh plans the bucket-routed search, which the
+    port refuses by name, and ``routing="broadcast"`` ignores the mesh with
+    the reference's note."""
+    body = _PLAN_SETUP + textwrap.dedent("""
+    meshes = {"data": make_mesh((8,), ("data",), device="cpu"),
+              "model": make_mesh((8,), ("model",), device="cpu")}
+    cases = [("data", "linear", Q[0], spec), ("data", "linear", Q, spec),
+             ("data", "linear", Q, spec.replace(batch_collectives=False)),
+             ("model", "adsampling", Q[0], spec)]
+    plans = []
+    for i, (axis, pruner, q, sp) in enumerate(cases):
+        eng = build(X, pruner=pruner, capacity=128, mesh=meshes[axis])
+        st = SearchStats()
+        r = eng.search(q, sp, stats=st)
+        plans.append(r.plan.executor)
+        out[f"ids{i}"], out[f"d{i}"] = np.asarray(r.ids), np.asarray(r.dists)
+        out[f"stats{i}"] = np.array([st.values_total, st.values_computed,
+                                     st.partitions_visited], np.float64)
+    ivf = build(X, index="ivf", nlist=8, pruner="linear", capacity=128,
+                mesh=meshes["data"])
+    plans.append(plan_ivf(ivf))
+    r = ivf.search(Q[0], spec.replace(routing="broadcast", nprobe=8))
+    plans.append(r.plan.executor)
+    out["reason"] = np.array(r.plan.reason)
+    out["ids_ivf"], out["d_ivf"] = np.asarray(r.ids), np.asarray(r.dists)
+    out["plans"] = np.array(plans)
+    """)
+    got, ref = run_world(tmp_path, textwrap.dedent("""
+    from repro_torch.core.engine import SearchSpec, SearchStats, VectorSearchEngine
+    from repro_torch.data.synthetic import make_dataset
+
+    def build(X, **kw):
+        return VectorSearchEngine.build(X, device="cpu", **kw)
+
+    def plan_ivf(eng):
+        try:
+            eng.plan(Q, SearchSpec(k=5))
+        except NotImplementedError as e:
+            assert "'Bucket-routed search'" in str(e), e
+            return "routed_bucket"
+    """) + body, textwrap.dedent("""
+    from repro.core.engine import SearchSpec, SearchStats, VectorSearchEngine
+    from repro.data.synthetic import make_dataset
+
+    def make_mesh(shape, names, device):
+        return jax.make_mesh(shape, names)
+
+    def build(X, **kw):
+        return VectorSearchEngine.build(X, **kw)
+
+    def plan_ivf(eng):
+        return eng.plan(Q, SearchSpec(k=5)).executor
+    """) + body)
+    assert got["plans"].tolist() == ref["plans"].tolist() == [
+        "block-sharded", "batch-block-sharded", "block-sharded", "dim-sharded",
+        "routed_bucket", "adaptive"]
+    assert str(got["reason"]).startswith("mesh ignored: spec.routing='broadcast'")
+    assert str(got["reason"]) == str(ref["reason"])
+    _same(got, ref, ["ids0", "d0", "ids1", "d1", "ids2", "d2", "ids_ivf", "d_ivf"])
+    assert set(got["ids3"].ravel().tolist()) == set(ref["ids3"].ravel().tolist())
+    np.testing.assert_allclose(np.sort(got["d3"]), np.sort(ref["d3"]), rtol=RTOL)
+    for i in range(4):
+        np.testing.assert_array_equal(got[f"stats{i}"], ref[f"stats{i}"])
+
+
+def test_batched_executor_one_allgather_per_batch(tmp_path):
+    """``tests/test_plan.py::test_batched_executor_one_allgather_per_batch_8dev``:
+    one all-gather per batch whatever B, two per query, counted by the
+    port's ``collective_counts``; the engine's metered count agrees."""
+    got, _ = run_world(tmp_path, """
+    from repro_torch.core.engine import SearchSpec, VectorSearchEngine
+    from repro_torch.core.layout import build_flat_store
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.dist.pdx_sharded import (search_batch_block_sharded,
+                                              search_block_sharded)
+    from repro_torch.obs import metrics
+    from repro_torch.obs.meters import collective_counts
+
+    X, Q = make_dataset(2048, 32, "normal", n_queries=16, seed=0)
+    store = build_flat_store(X, capacity=128, device="cpu")
+    mesh = make_mesh((8,), ("data",), device="cpu")
+    d, i = store.data, store.ids
+    for B in (2, 4, 16):
+        counts = collective_counts(
+            lambda dd, ii, qq: search_batch_block_sharded(mesh, dd, ii, qq, 5),
+            d, i, torch.from_numpy(Q[:B]))
+        assert counts == {"all_gather": 1}, (B, counts)
+    per_q = collective_counts(
+        lambda dd, ii, qq: search_block_sharded(mesh, dd, ii, qq, 5),
+        d, i, torch.from_numpy(Q[0]))
+    assert per_q == {"all_gather": 2}, per_q
+    eng = VectorSearchEngine.build(X, pruner="linear", capacity=128, mesh=mesh,
+                                   device="cpu")
+    metrics.set_enabled(True)
+    eng.search(Q, SearchSpec(k=5))
+    snap = metrics.get_registry().snapshot()["counters"]
+    out["issued"] = np.array([v for k, v in snap["repro_collectives_issued_total"].items()])
+    out["ok"] = np.array(1)
+    """)
+    assert got["issued"].tolist() == [1.0]
+
+
+def test_sharded_executor_parity_under_churn(tmp_path):
+    """``tests/test_mutable.py::test_sharded_executor_parity_under_churn_8dev``:
+    the same churn on both packages; block- and batch-block-sharded give
+    the reference's ids before and after ``compact()``, which leaves 15
+    partitions, padded over 8 ranks."""
+    body = """
+    X, Q = make_dataset(2048, 32, "normal", n_queries=4, seed=0)
+    eng = build(X, pruner="linear", capacity=128, mesh=mesh)
+    rng = np.random.default_rng(9999)
+    new = rng.standard_normal((60, 32)).astype(np.float32)
+    out["new_ids"] = np.asarray(eng.insert(new))
+    eng.delete(rng.choice(2048, size=300, replace=False))
+    spec = SearchSpec(k=5)
+    plans = []
+    for when in ("head", "compacted"):
+        if when == "compacted":
+            eng.compact()
+            out["P"] = np.array(eng.store.num_partitions)
+        r1 = eng.search(Q[0], spec)
+        rb = eng.search(Q, spec)
+        plans += [r1.plan.executor, rb.plan.executor]
+        out[f"ids1_{when}"], out[f"d1_{when}"] = np.asarray(r1.ids), np.asarray(r1.dists)
+        out[f"idsb_{when}"], out[f"db_{when}"] = np.asarray(rb.ids), np.asarray(rb.dists)
+    out["reason"] = np.array(rb.plan.reason)
+    out["plans"] = np.array(plans)
+    """
+    got, ref = run_world(tmp_path, """
+    from repro_torch.core.engine import SearchSpec, VectorSearchEngine
+    from repro_torch.data.synthetic import make_dataset
+
+    mesh = make_mesh((8,), ("data",), device="cpu")
+
+    def build(X, **kw):
+        return VectorSearchEngine.build(X, device="cpu", **kw)
+    """ + body, """
+    from repro.core.engine import SearchSpec, VectorSearchEngine
+    from repro.data.synthetic import make_dataset
+
+    mesh = jax.make_mesh((8,), ("data",))
+    build = VectorSearchEngine.build
+    """ + body)
+    assert got["plans"].tolist() == ref["plans"].tolist() == [
+        "block-sharded", "batch-block-sharded"] * 2
+    assert int(got["P"]) == int(ref["P"]) and int(got["P"]) % WORLD != 0
+    assert "padded" in str(got["reason"]) and str(got["reason"]) == str(ref["reason"])
+    np.testing.assert_array_equal(got["new_ids"], ref["new_ids"])
+    _same(got, ref, [f"{a}_{w}" for a in ("ids1", "d1", "idsb", "db")
+                     for w in ("head", "compacted")])
+
+
+def test_batch_block_sharded_quantized_one_allgather(tmp_path):
+    """``tests/test_quantized.py::test_batch_block_sharded_quantized_one_allgather_8dev``:
+    bf16 and int8 batch-block-sharded give the reference's ids (and
+    ground truth) after the on-shard f32 re-rank, with one all-gather per
+    batch."""
+    body = """
+    X, Q = make_dataset(2048, 32, "normal", n_queries=8, seed=0)
+    eng = build(X, pruner="linear", capacity=128, mesh=mesh)
+    for dt in ("bf16", "int8", "int4"):
+        res = eng.search(Q, SearchSpec(k=5, scan_dtype=dt))
+        assert res.plan.executor == "batch-block-sharded", res.plan
+        out[f"ids_{dt}"], out[f"d_{dt}"] = np.asarray(res.ids), np.asarray(res.dists)
+    out["gt"] = ground_truth(X, Q, k=5)[0]
+    """
+    got, ref = run_world(tmp_path, """
+    from repro_torch.core.engine import SearchSpec, VectorSearchEngine
+    from repro_torch.core.layout import device_mirror
+    from repro_torch.core.plan import _get_placement
+    from repro_torch.data.synthetic import ground_truth, make_dataset
+    from repro_torch.dist.pdx_sharded import search_batch_block_sharded
+    from repro_torch.obs.meters import collective_counts
+
+    mesh = make_mesh((8,), ("data",), device="cpu")
+
+    def build(X, **kw):
+        return VectorSearchEngine.build(X, device="cpu", **kw)
+    """ + body + """
+    pl = _get_placement(eng.store, 8, "block")
+    mirror = device_mirror(eng.store, "int8")
+    counts = collective_counts(
+        lambda qq: search_batch_block_sharded(mesh, Q=qq, k=5, placement=pl,
+                                              mirror=mirror),
+        torch.from_numpy(Q))
+    assert counts == {"all_gather": 1}, counts
+    """, """
+    from repro.core.engine import SearchSpec, VectorSearchEngine
+    from repro.data.synthetic import ground_truth, make_dataset
+
+    mesh = jax.make_mesh((8,), ("data",))
+    build = VectorSearchEngine.build
+    """ + body)
+    for dt in ("bf16", "int8"):
+        np.testing.assert_array_equal(np.sort(got[f"ids_{dt}"], 1), np.sort(got["gt"], 1))
+    _same(got, ref, [f"{a}_{dt}" for a in ("ids", "d") for dt in ("bf16", "int8", "int4")])

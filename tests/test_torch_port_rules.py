@@ -9,6 +9,7 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -138,6 +139,18 @@ def test_kernel_torch_refuses_kernel_executors_on_a_cuda_store(cpu_engine, monke
             eng.plan(q, SearchSpec(kernel="torch", **spec))
 
 
+@pytest.fixture
+def world_of_one():
+    """A gloo process group of one rank in this process, torn down after."""
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 @pytest.mark.parametrize("spec", [
     dict(executor="routed_tiered"),
     dict(executor="dim-sharded"),
@@ -146,42 +159,90 @@ def test_kernel_torch_refuses_kernel_executors_on_a_cuda_store(cpu_engine, monke
     dict(executor="batch-block-sharded"),
 ])
 def test_unported_paths_name_their_roadmap_item(cpu_engine, spec):
+    """The two bucket-routed executors are refused, naming their ROADMAP
+    item; the three broadcast executors are ported and, forced without a
+    mesh, name the mesh axis they need."""
     eng, Q = cpu_engine
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eng.search(Q, SearchSpec(**spec))
+    if spec["executor"].startswith("routed"):
+        with pytest.raises(NotImplementedError, match="'Bucket-routed search'"):
+            eng.search(Q, SearchSpec(**spec))
+    else:
+        axis = "model" if spec["executor"] == "dim-sharded" else "data"
+        with pytest.raises(ValueError, match=f"needs a mesh with a '{axis}' axis"):
+            eng.search(Q, SearchSpec(**spec))
 
 
-def test_unported_engine_calls_name_their_roadmap_item(cpu_engine):
+def test_unported_engine_calls_name_their_roadmap_item(cpu_engine, world_of_one):
+    """An IVF engine on a "data" mesh plans the bucket-routed search, which
+    is refused by name at search, plan and build (never a quiet broadcast
+    instead); a mesh that is not a DeviceMesh is refused as such."""
+    from repro_torch.dist import make_mesh
+
     eng, Q = cpu_engine
-    for call in (lambda: eng.search(Q, mesh=object()),
-                 lambda: eng.plan(Q, mesh=object()),
-                 lambda: VectorSearchEngine.build(Q, mesh=object(), device="cpu"),
+    mesh = make_mesh((1,), ("data",), device="cpu")
+    for call in (lambda: eng.search(Q, mesh=mesh),
+                 lambda: eng.plan(Q, mesh=mesh),
+                 lambda: eng.search(Q, SearchSpec(hbm_slots=4), mesh=mesh),
                  lambda: VectorSearchEngine.build(Q, index="ivf", nlist=2, tree=True,
-                                                  capacity=64, mesh=object(),
-                                                  device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                                                  capacity=64, mesh=mesh,
+                                                  device="cpu").search(Q)):
+        with pytest.raises(NotImplementedError, match="'Bucket-routed search'"):
             call()
+    assert eng.plan(Q, SearchSpec(routing="broadcast"), mesh=mesh).reason.startswith(
+        "mesh ignored: spec.routing='broadcast'")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        eng.search(Q, mesh=object())
     flat = VectorSearchEngine.build(Q, pruner="linear", capacity=64, device="cpu")
     with pytest.raises(ValueError, match="unknown executor"):
         flat.search(Q[0], SearchSpec(executor="no-such-executor"))
 
 
 def test_only_tiered_and_mesh_executors_remain_unported():
-    """The masked and the single-device tiered executors are ported:
-    ``UNPORTED_EXECUTORS`` lists only the mesh-sharded executors (the mesh's
-    tiered one, ``routed_tiered``, among them), and the planner takes
-    ``prefer_static`` to ``jit-masked`` on a flat store."""
+    """The masked, the single-device tiered and the three broadcast mesh
+    executors are ported: ``UNPORTED_EXECUTORS`` lists only the two
+    bucket-routed ones, and the planner takes ``prefer_static`` to
+    ``jit-masked`` on a flat store."""
     from repro_torch.core.plan import UNPORTED_EXECUTORS, executor_names
 
-    for name in ("jit-masked", "tiered-scan"):
+    for name in ("jit-masked", "tiered-scan", "block-sharded", "dim-sharded",
+                 "batch-block-sharded"):
         assert name not in UNPORTED_EXECUTORS
         assert name in executor_names()
-    assert set(UNPORTED_EXECUTORS) == {
-        "routed_tiered", "block-sharded", "dim-sharded",
-        "batch-block-sharded", "routed_bucket"}
+    assert set(UNPORTED_EXECUTORS) == {"routed_tiered", "routed_bucket"}
     X, Q = make_dataset(200, 8, "normal", n_queries=1, seed=0)
     flat = VectorSearchEngine.build(X, pruner="linear", capacity=64, device="cpu")
     assert flat.search(Q[0], SearchSpec(prefer_static=True)).plan.executor == "jit-masked"
+
+
+def test_make_mesh_needs_a_process_group_and_a_card_unless_asked(monkeypatch):
+    """``make_mesh`` without an initialised process group raises, and so
+    does ``device=None`` (the card) where no card exists; the planner
+    refuses a mesh whose group is gone and a CPU store on a CUDA mesh,
+    and ``kernel="cuda"`` on a CPU mesh raises as on a CPU store."""
+    import torch.distributed as dist
+
+    from repro_torch.core import plan
+    from repro_torch.dist import make_mesh
+
+    with pytest.raises(RuntimeError, match="process group"):
+        make_mesh((1,), ("data",), device="cpu")
+    X, Q = make_dataset(200, 8, "normal", n_queries=2, seed=0)
+    flat = VectorSearchEngine.build(X, pruner="linear", capacity=64, device="cpu")
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",), device="cpu")
+        with pytest.raises(ValueError, match="kernel='cuda'"):
+            flat.search(Q, SearchSpec(kernel="cuda"), mesh=mesh)
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_mesh((1,), ("data",))
+        cuda_store = SimpleNamespace(device=torch.device("cuda"))
+        with pytest.raises(ValueError, match="'cpu' mesh but the store is on cuda"):
+            plan._mesh_layout(mesh, cuda_store)
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(RuntimeError, match="initialised default process group"):
+        flat.plan(Q, mesh=mesh)
 
 
 def test_tiered_entry_points_follow_the_store_and_the_kernel_knob(cpu_engine, monkeypatch):

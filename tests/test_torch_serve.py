@@ -144,7 +144,7 @@ def test_admission_queue_backpressure_and_close():
 def test_server_single_query_smallest_bucket_no_recompile():
     eng, X = _vec_engine()
     spec = eng.spec.replace(k=5, executor="batch-matmul")
-    with VectorServer(eng, spec=spec, max_batch=8, **CPU) as srv:
+    with VectorServer(eng, spec=spec, max_batch=8) as srv:
         srv.warmup()
         ids, dists = srv.search(X[3])
         assert ids.shape == (5,) and ids[0] == 3
@@ -159,7 +159,7 @@ def test_server_cascade_warmup_zero_recompiles():
     spec = eng.spec.replace(
         k=5, cascade=("int8", "f32"), kernel="torch",
     )
-    with VectorServer(eng, spec=spec, max_batch=8, **CPU) as srv:
+    with VectorServer(eng, spec=spec, max_batch=8) as srv:
         srv.warmup()
         futs = [srv.submit(X[i]) for i in range(16)]
         for i, f in enumerate(futs):
@@ -172,7 +172,7 @@ def test_server_matches_engine_results():
     eng, X = _vec_engine()
     spec = eng.spec.replace(k=10, executor="batch-matmul")
     ref = eng.search(X[:6], spec)
-    with VectorServer(eng, spec=spec, max_batch=8, **CPU) as srv:
+    with VectorServer(eng, spec=spec, max_batch=8) as srv:
         futs = [srv.submit(X[i]) for i in range(6)]
         for i, f in enumerate(futs):
             ids, dists = f.result(timeout=30)
@@ -182,7 +182,7 @@ def test_server_matches_engine_results():
 def test_server_shutdown_drains_in_flight():
     eng, X = _vec_engine()
     spec = eng.spec.replace(k=5, executor="batch-matmul")
-    srv = VectorServer(eng, spec=spec, max_batch=4, flush_interval_s=0.0, **CPU)
+    srv = VectorServer(eng, spec=spec, max_batch=4, flush_interval_s=0.0)
     futs = [srv.submit(X[i]) for i in range(12)]
     srv.close(drain=True)
     for i, f in enumerate(futs):
@@ -195,7 +195,7 @@ def test_server_shutdown_drains_in_flight():
 def test_server_close_without_drain_fails_queued():
     eng, X = _vec_engine()
     spec = eng.spec.replace(k=5, executor="batch-matmul")
-    srv = VectorServer(eng, spec=spec, max_batch=4, **CPU)
+    srv = VectorServer(eng, spec=spec, max_batch=4)
     futs = [srv.submit(X[i]) for i in range(8)]
     srv.close(drain=False)
     outcomes = set()
@@ -211,7 +211,7 @@ def test_server_close_without_drain_fails_queued():
 def test_server_deadline_exceeded():
     eng, X = _vec_engine()
     spec = eng.spec.replace(k=5, executor="batch-matmul")
-    with VectorServer(eng, spec=spec, max_batch=4, **CPU) as srv:
+    with VectorServer(eng, spec=spec, max_batch=4) as srv:
         fut = srv.submit(X[0], timeout_s=-0.001)   # already expired
         with pytest.raises(DeadlineExceeded):
             fut.result(timeout=30)
@@ -221,7 +221,7 @@ def test_server_overload_rejects():
     eng, X = _vec_engine()
     spec = eng.spec.replace(k=5, executor="batch-matmul")
     srv = VectorServer(eng, spec=spec, max_batch=1, queue_depth=1,
-                       flush_interval_s=0.0, **CPU)
+                       flush_interval_s=0.0)
     # stall the executor stage so submissions pile up in the bounded queue
     rejected = 0
     try:
@@ -241,7 +241,7 @@ def test_server_mutations_and_version_fenced_maintenance():
     spec = eng.spec.replace(k=5, executor="batch-matmul")
     with VectorServer(eng, spec=spec, max_batch=8,
                       maintenance_interval_s=0.02,
-                      head_fill_threshold=0.0, **CPU) as srv:
+                      head_fill_threshold=0.0) as srv:
         rng = np.random.default_rng(1)
         V = rng.standard_normal((4, X.shape[1])).astype(np.float32)
         new_ids = srv.insert(V).result(timeout=30)
@@ -291,7 +291,7 @@ def test_server_delta_replay_under_continuous_inserts():
     spec = eng.spec.replace(k=4, executor="batch-matmul")
     with VectorServer(eng, spec=spec, max_batch=8,
                       maintenance_interval_s=0.01,
-                      head_fill_threshold=0.0, **CPU) as srv:
+                      head_fill_threshold=0.0) as srv:
         all_ids = []
         for _ in range(12):
             V = rng.standard_normal((4, 16)).astype(np.float32)
@@ -306,17 +306,27 @@ def test_server_delta_replay_under_continuous_inserts():
 
 
 # --------------------------------------------------- port-only contracts
-def test_server_device_must_be_given_for_a_cpu_engine(monkeypatch):
-    """``device=None`` means the card: without one the server raises
-    rather than serving on the CPU unasked, and a device other than the
-    engine's is refused."""
-    eng, _ = _vec_engine(n=256, dim=8)
+def test_server_serves_a_cpu_engine_with_the_reference_call_shape(monkeypatch):
+    """``VectorServer(engine)``, the reference's call shape, serves a CPU
+    engine on ``engine.device`` (no card is consulted: the engine's build
+    already asked for the CPU) and returns the reference server's ids."""
+    rng = np.random.default_rng(4)
+    X = rng.standard_normal((256, 8)).astype(np.float32)
+    Q = X[:3] + 0.05
+    fields = dict(k=3, executor="batch-matmul")
+    te = VectorSearchEngine.build(X, pruner="linear", capacity=64, **CPU)
+    je = JEngine.build(X, pruner="linear", capacity=64)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        VectorServer(eng)
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(ValueError, match="engine's store is on cpu"):
-        VectorServer(eng, device="cuda")
+    out = {}
+    for who, srv in (("ref", JServer(je, spec=JSpec(kernel="jnp", **fields))),
+                     ("port", VectorServer(te, spec=SearchSpec(**fields)))):
+        with srv:
+            res = [srv.search(q) for q in Q]
+        out[who] = (np.stack([np.asarray(r[0]) for r in res]),
+                    np.stack([np.asarray(r[1]) for r in res]))
+        if who == "port":
+            assert srv.device == te.device == torch.device("cpu")
+    assert_same_results(out["ref"][0], out["ref"][1], out["port"][0], out["port"][1])
 
 
 def test_server_surfaces_a_failing_prepare_on_the_futures(monkeypatch):
@@ -324,7 +334,7 @@ def test_server_surfaces_a_failing_prepare_on_the_futures(monkeypatch):
     (nothing hangs), and the server keeps serving afterwards."""
     eng, X = _vec_engine(n=256, dim=8)
     spec = eng.spec.replace(k=3, executor="batch-matmul")
-    with VectorServer(eng, spec=spec, max_batch=4, **CPU) as srv:
+    with VectorServer(eng, spec=spec, max_batch=4) as srv:
         real = srv._prepare
 
         def boom(*a, **kw):
@@ -377,7 +387,7 @@ def test_no_setup_after_warmup(kind):
         eng, X = _vec_engine()
         spec = (eng.spec.replace(k=5, executor="batch-matmul") if kind == "plain"
                 else SearchSpec(k=5, cascade=("proj8:int8", "int4", "f32")))
-    with VectorServer(eng, spec=spec, max_batch=8, **CPU) as srv:
+    with VectorServer(eng, spec=spec, max_batch=8) as srv:
         warm = srv.warmup()
         assert sorted(warm) == [1, 2, 4, 8]
         futs = [srv.submit(X[i]) for i in range(21)]
@@ -513,7 +523,7 @@ def test_port_server_serves_the_reference_servers_ids(pair, name):
         ("ref", JServer(je, spec=JSpec(kernel="jnp", **fields), max_batch=8,
                         flush_interval_s=5.0)),
         ("port", VectorServer(te, spec=SearchSpec(**fields), max_batch=8,
-                              flush_interval_s=5.0, **CPU)),
+                              flush_interval_s=5.0)),
     ):
         burst = [srv.submit(q) for q in Q[:8]]
         res = [f.result(timeout=30) for f in burst]
@@ -536,7 +546,7 @@ def test_concurrent_tiered_serving_equals_blocking_search():
     Q = X[rng.permutation(len(X))[:48]] + 0.05
     want = np.stack([eng.search(q, spec).ids for q in Q])
     got = [None] * len(Q)
-    with VectorServer(eng, spec=spec, max_batch=4, flush_interval_s=0.0, **CPU) as srv:
+    with VectorServer(eng, spec=spec, max_batch=4, flush_interval_s=0.0) as srv:
         futs = [srv.submit(q) for q in Q]
         for i, f in enumerate(futs):
             got[i] = f.result(timeout=30)[0]

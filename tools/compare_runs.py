@@ -9,7 +9,8 @@ ratio of the change's mean over the parent's (rows the parent lacks show
 the change's times alone), then each change run's ``tiered`` and
 ``tiered_tree`` phases: walls, hits, bytes and recall per scan dtype, and
 its ``serve`` and ``serve_churn`` phases: QPS, latency, recall, idle share,
-upload overlap and swaps.
+upload overlap and swaps, and its ``routing`` and ``sharded`` phases and
+the ``fused_scan_wall`` medians, in each run given (parent runs too).
 """
 from __future__ import annotations
 
@@ -39,6 +40,14 @@ def main() -> None:
         p = [rows[name]["ms"] for rows in parent if name in rows]
         ratio = f"{statistics.mean(c) / statistics.mean(p):.3f}" if p else "-"
         print(f"{name[:64]:64s} parent {p} change {c} c/p {ratio}")
+    for path in args.parent + args.change:
+        for line in lines(path):
+            if line.get("phase") in ("routing", "sharded"):
+                print(path, line["phase"], {k: v for k, v in line.items() if k != "phase"})
+            elif line.get("phase") == "fused_scan_wall":
+                print(path, "fused_scan_wall median ms",
+                      {dt: rec.get("ms_per_query_median") for dt, rec in line.items()
+                       if isinstance(rec, dict)})
     for path, run in zip(args.change, runs):
         for line in run:
             if line.get("phase") == "tiered":
