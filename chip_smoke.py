@@ -103,11 +103,13 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      with the launch counters zeroed just before: a closed-loop burst of the
      main path's 64 queries (one bucket-64 batch, ids equal to
      ``engine.search`` of the batch), one single query (a bucket of one,
-     ids equal to its blocking search), and 2,048 queries drawn like the
-     main path's (``serve_queries``) in an open loop of lognormal gaps at 3x
+     ids equal to its blocking search), 16 of the queries below served one
+     at a time (buckets of one), and 2,048 queries drawn like the main
+     path's (``serve_queries``) in an open loop of lognormal gaps at 3x
      the serial rate; held: every future resolves, recall@10 against the
-     card's ground truth >= 0.95 on bucket-1 queries and >= 0.99 on the
-     rest, exact distances, no set-up after warmup (``obs.setups``), K1 ==
+     card's ground truth >= 0.95 on bucket-1 queries (the 16 and the open
+     loop's own, so the fused-scan floor, a mean, is taken over at least
+     the main path's 16 queries) and >= 0.99 on the rest, exact distances, no set-up after warmup (``obs.setups``), K1 ==
      the bucket-1 batches and K2 == the larger buckets' launches; recorded:
      QPS, p50/p99, QPS over serial and p99 over p50 (bench_serve's 2x and
      5x gates, not held), batches, fill, queue wait, plan and run time per
@@ -139,6 +141,20 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      PDXearch, ``dim-sharded`` equal to ``batch-matmul`` as sets, one
      all-gather per batch and two per query, walls recorded.  One card
      allows a world of one only.
+  5f. routed (after 5e, in the same NCCL world of one) — the bucket-routed
+     executors the main path's IVF engine plans on the ("data",) mesh, no
+     executor forced: ``routed_bucket`` at f32 and int8, nprobe 8, on the
+     64 queries (one exchange round of 64 slots) and on their first 40
+     (spilled into two rounds, 32 + 16), held to recall@10 >= 0.99 against
+     the exact top-10 within each query's routed buckets, no id outside
+     them, exact returned distances, one all-to-all per round and one
+     all-gather, K2 counted from 0 (f32 0, int8 ``_tile_scan``'s steps),
+     the spilled int8 rows equal to the same rows of the 64; then
+     ``routed_tiered`` on 5b's premise (P // 4 slots, the zipf queries in
+     batches of 16) at f32 and int8, each batch bit for bit equal to
+     ``tiered-scan`` on the same warm cache, one all-gather and one K2
+     launch per step; walls beside ``fused-batch``'s and ``tiered-scan``'s,
+     the exchange plan and ``routed_batch_bytes`` recorded.
   6. mutable (after 4, on the same engine) — the store made mutable
      (``from_store``: masters to the host, the frozen mirrors dropped),
      10,000 ids drawn from ``--seed`` deleted, 10,000 rows of
@@ -176,8 +192,10 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      dtype and metric, K2 on the tiered pool by dtype); the K1, K2 and K3
      rows on the mutable phase's path also carry ``launches_mutable`` (its
      counts before and after ``compact``), the K2 rows ``launches_tiered``
-     (phase 5b's cold and warm passes) and ``launches_sharded`` (phase
-     5e's batch-block-sharded runs), and the K1, K2 and K3 rows on
+     (phase 5b's cold and warm passes), ``launches_sharded`` (phase 5e's
+     batch-block-sharded runs) and ``launches_routed`` (phase 5f's runs;
+     K2 at the spilled exchange's 48 rows is a row of its own), and the
+     K1, K2 and K3 rows on
      phase 5c's serving path ``launches_serve``.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last
@@ -284,6 +302,9 @@ CHURN_ROWS, CHURN_CYCLES, CHURN_GAP_S, CHURN_MAINT_S, CHURN_SWAP_WAIT_S = 8, 48,
 # kept); phase sharded: the per-query executors' queries
 ROUTING_DTYPES, ROUTING_BATCHES, ROUTING_REPS = ("f32", "bf16", "int8", "int4"), (1, 16, 64), 3
 SHARDED_SINGLE = 4
+# phase routed: the spilled batch (40 rows of one rank's demand spill into
+# two exchange rounds, 32 + 16) and the recall floor within the routed buckets
+ROUTED_SPILL, ROUTED_RECALL_FLOOR = 40, 0.99
 
 
 def emit(obj: dict) -> None:
@@ -2058,6 +2079,13 @@ def serve_phase(torch, eng, Xd, Qmain, seed: int, counters: dict) -> tuple[list,
             # a single query alone: a bucket of one (fused-scan)
             one = srv.submit(Q[0], spec).result(timeout=120)
             out["single_ids_equal_engine_search"] = bool(np.array_equal(one[0], want1.ids))
+            # the bucket-one recall floor is fused-scan's, a mean over the
+            # main path's N_SINGLE queries: so many are served alone here,
+            # and the open loop's own bucket-one queries join them (alone,
+            # the open loop can serve as few as one, and one query at 9 of
+            # 10 would fail a mean floor of 0.95)
+            alone = np.stack([srv.submit(q, spec).result(timeout=120)[0]
+                              for q in Q[:N_SINGLE]])
             rate = SERVE_RATE_X * serial[dt]
             run = open_loop(torch, srv, Q, [spec], rate, seed + 10)
             rec = batch_record(srv.records(), run["futures"])
@@ -2073,7 +2101,9 @@ def serve_phase(torch, eng, Xd, Qmain, seed: int, counters: dict) -> tuple[list,
                 qps=run["qps"], p50_ms=run["p50_ms"], p99_ms=run["p99_ms"],
                 qps_over_serial=run["qps"] / serial[dt],
                 p99_over_p50=run["p99_ms"] / run["p50_ms"],
-                recall_at_10=served_recall(run["ids"], g, buckets),
+                recall_at_10=served_recall(
+                    np.concatenate([alone, run["ids"]]), np.concatenate([gt[:N_SINGLE], g]),
+                    np.concatenate([np.ones(N_SINGLE, buckets.dtype), buckets])),
                 dist_rel_err=dist_error(torch, Xd, Qd[run["query"]], run["ids"], run["dists"]),
                 profile=prof["profile"], launches=got, **rec)
             executors = {(b["bucket"] == 1, b["executor"]) for b in srv.records()}
@@ -2431,106 +2461,289 @@ def routing_phase(torch, eng, Qd) -> dict:
     return line
 
 
-def sharded_phase(torch, eng, Q, k2) -> tuple[dict, dict]:
-    """The broadcast mesh executors on a world of one (NCCL): the main
-    path's 1M x 960 engine searched through ``search(..., mesh=)``, the
-    executor forced (its IVF index would otherwise plan the bucket-routed
-    search, which is refused by name: held).  ``batch-block-sharded`` at
-    f32 and int8 on the 64 queries equals ``batch-matmul`` and
-    ``fused-batch`` bit for bit (one shard, no padding: the same
-    arithmetic), K2 counted from 0 around the int8 run and held to the
-    steps ``_tile_scan`` takes; ``block-sharded`` on 4 queries equals the
-    masked PDXearch (``pdxearch_jit``) alone; ``dim-sharded`` on a
-    ("model",) mesh of one equals ``batch-matmul``'s ids as sets; one
-    all-gather per batch and two per query.  The group is destroyed at the
-    end.  Emits the phase line before its asserts.
-    -> (the line, K2 launches by scan dtype)."""
+def mesh_phases(torch, ref, eng, Q, Qd, Xd, seed: int, k2) -> tuple[dict, list, dict]:
+    """Phases 5e (``sharded``) and 5f (``routed``) in one NCCL world of one
+    (``init_process_group("nccl", store=HashStore(), rank=0,
+    world_size=1)``), destroyed at the end.  -> (K2 launches of the sharded
+    phase by scan dtype, the routed phase's K2 rows, its K2 launches by
+    kernel row name)."""
     import torch.distributed as tdist
 
-    from repro_torch.core.engine import SearchSpec
-    from repro_torch.core.pdxearch import pdxearch_jit
-    from repro_torch.core.plan import _FUSED_BATCH_OUT_BYTES
     from repro_torch.dist import all_gather, make_mesh
-    from repro_torch.kernels.batched_matmul import MAX_PARTITIONS
-    from repro_torch.obs.meters import collective_counts
 
     t0 = time.perf_counter()
     tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0, world_size=1)
     try:
-        data = make_mesh((1,), ("data",))
-        model = make_mesh((1,), ("model",))
+        meshes = {ax: make_mesh((1,), (ax,)) for ax in ("data", "model")}
         t_setup = time.perf_counter() - t0
         # NCCL sets its communicator up at a group's first collective: do
         # that outside the walls
         _, t_first = timed(torch, lambda: [all_gather(
-            torch.zeros(1, device=eng.device), mesh, ax) for mesh, ax in (
-                (data, "data"), (model, "model"))])
-        P, _, C = eng.store.data.shape
-        B = Q.shape[0]
-        line = {"phase": "sharded", "world": 1, "backend": "nccl",
-                "mesh_device": data.device_type, "setup_s": t_setup,
-                "first_collectives_ms": t_first * 1e3, "walls_ms": {}}
-        fails = []
-        try:
-            eng.search(Q, SearchSpec(k=K), mesh=data)
-            fails.append("an IVF engine on a 'data' mesh did not refuse routed_bucket")
-        except NotImplementedError as e:
-            line["ivf_data_mesh"] = str(e)
-            if "'Bucket-routed search'" not in str(e):
-                fails.append(f"routed refusal names no ROADMAP item: {e}")
-        launches = {}
-        steps = -(-P // max(1, min(MAX_PARTITIONS, _FUSED_BATCH_OUT_BYTES // (B * C * 4))))
-        for dt, single in (("f32", "batch-matmul"), ("int8", "fused-batch")):
-            spec = SearchSpec(k=K, scan_dtype=dt)
-            want, t_want = timed(torch, lambda: eng.search(
-                Q, spec.replace(executor=single)))
-            k2.launches = 0
-            got, t_got = timed(torch, lambda: eng.search(
-                Q, spec.replace(executor="batch-block-sharded"), mesh=data))
-            launches[dt] = k2.launches
-            line["walls_ms"][f"batch-block-sharded {dt}"] = t_got * 1e3
-            line["walls_ms"][f"{single} {dt}"] = t_want * 1e3
-            if got.plan.executor != "batch-block-sharded":
-                fails.append(f"{dt}: planned {got.plan.executor}")
-            if not (np.array_equal(got.ids, want.ids)
-                    and np.array_equal(got.dists, want.dists)):
-                fails.append(f"batch-block-sharded {dt} differs from {single}")
-        line["k2_launches"] = launches
-        line["k2_steps_int8"] = steps
-        if launches != {"f32": 0, "int8": steps}:
-            fails.append(f"K2 launches {launches}, expected f32 0 and int8 {steps}")
-        four = Q[:SHARDED_SINGLE]
-        blk, t_blk = timed(torch, lambda: eng.search(
-            four, SearchSpec(k=K, executor="block-sharded"), mesh=data))
-        jm, t_jm = timed(torch, lambda: [pdxearch_jit(eng.store, torch.from_numpy(q).to(
-            eng.device), K, eng.pruner) for q in four])
-        line["walls_ms"]["block-sharded per query"] = t_blk * 1e3 / len(four)
-        line["walls_ms"]["pdxearch_jit per query"] = t_jm * 1e3 / len(four)
-        if not np.array_equal(blk.ids, np.stack([r.ids.cpu().numpy() for r in jm])):
-            fails.append("block-sharded ids differ from the masked PDXearch's")
-        dim, t_dim = timed(torch, lambda: eng.search(
-            four, SearchSpec(k=K, executor="dim-sharded"), mesh=model))
-        bm = eng.search(four, SearchSpec(k=K, executor="batch-matmul"))
-        line["walls_ms"]["dim-sharded per query"] = t_dim * 1e3 / len(four)
-        if dim.plan.executor != "dim-sharded" or any(
-                set(a.tolist()) != set(b.tolist()) for a, b in zip(dim.ids, bm.ids)):
-            fails.append("dim-sharded ids differ from batch-matmul's as sets")
-        line["collectives"] = {
-            "batch": collective_counts(lambda: eng.search(
-                Q, SearchSpec(k=K, scan_dtype="int8", executor="batch-block-sharded"),
-                mesh=data)),
-            "query": collective_counts(lambda: eng.search(
-                Q[0], SearchSpec(k=K, executor="block-sharded"), mesh=data)),
-        }
-        if line["collectives"] != {"batch": {"all_gather": 1},
-                                   "query": {"all_gather": 2}}:
-            fails.append(f"collectives {line['collectives']}")
+            torch.zeros(1, device=eng.device), mesh, ax) for ax, mesh in meshes.items()])
+        world = {"world": 1, "backend": "nccl",
+                 "mesh_device": meshes["data"].device_type, "setup_s": t_setup,
+                 "first_collectives_ms": t_first * 1e3}
+        _, sharded_launches = sharded_phase(torch, eng, Q, k2, meshes, world)
+        rows, routed_launches = routed_phase(torch, ref, eng, Q, Qd, Xd, seed, k2,
+                                             meshes["data"])
     finally:
         tdist.destroy_process_group()
+    return sharded_launches, rows, routed_launches
+
+
+def sharded_phase(torch, eng, Q, k2, meshes: dict, world: dict) -> tuple[dict, dict]:
+    """The broadcast mesh executors on a world of one (NCCL): the main
+    path's 1M x 960 engine searched through ``search(..., mesh=)``, the
+    executor forced (its IVF index would otherwise plan the bucket-routed
+    search, phase 5f).  ``batch-block-sharded`` at f32 and int8 on the 64
+    queries equals ``batch-matmul`` and ``fused-batch`` bit for bit (one
+    shard, no padding: the same arithmetic), K2 counted from 0 around the
+    int8 run and held to the steps ``_tile_scan`` takes; ``block-sharded``
+    on 4 queries equals the masked PDXearch (``pdxearch_jit``) alone;
+    ``dim-sharded`` on a ("model",) mesh of one equals ``batch-matmul``'s
+    ids as sets; one all-gather per batch and two per query.  Emits the
+    phase line before its asserts.  -> (the line, K2 launches by scan
+    dtype)."""
+    from repro_torch.core.engine import SearchSpec
+    from repro_torch.core.pdxearch import pdxearch_jit
+    from repro_torch.core.plan import _FUSED_BATCH_OUT_BYTES
+    from repro_torch.kernels.batched_matmul import MAX_PARTITIONS
+    from repro_torch.obs.meters import collective_counts
+
+    t0 = time.perf_counter()
+    data, model = meshes["data"], meshes["model"]
+    P, _, C = eng.store.data.shape
+    B = Q.shape[0]
+    line = {"phase": "sharded", **world, "walls_ms": {}}
+    fails = []
+    launches = {}
+    steps = -(-P // max(1, min(MAX_PARTITIONS, _FUSED_BATCH_OUT_BYTES // (B * C * 4))))
+    for dt, single in (("f32", "batch-matmul"), ("int8", "fused-batch")):
+        spec = SearchSpec(k=K, scan_dtype=dt)
+        want, t_want = timed(torch, lambda: eng.search(
+            Q, spec.replace(executor=single)))
+        k2.launches = 0
+        got, t_got = timed(torch, lambda: eng.search(
+            Q, spec.replace(executor="batch-block-sharded"), mesh=data))
+        launches[dt] = k2.launches
+        line["walls_ms"][f"batch-block-sharded {dt}"] = t_got * 1e3
+        line["walls_ms"][f"{single} {dt}"] = t_want * 1e3
+        if got.plan.executor != "batch-block-sharded":
+            fails.append(f"{dt}: planned {got.plan.executor}")
+        if not (np.array_equal(got.ids, want.ids)
+                and np.array_equal(got.dists, want.dists)):
+            fails.append(f"batch-block-sharded {dt} differs from {single}")
+    line["k2_launches"] = launches
+    line["k2_steps_int8"] = steps
+    if launches != {"f32": 0, "int8": steps}:
+        fails.append(f"K2 launches {launches}, expected f32 0 and int8 {steps}")
+    four = Q[:SHARDED_SINGLE]
+    blk, t_blk = timed(torch, lambda: eng.search(
+        four, SearchSpec(k=K, executor="block-sharded"), mesh=data))
+    jm, t_jm = timed(torch, lambda: [pdxearch_jit(eng.store, torch.from_numpy(q).to(
+        eng.device), K, eng.pruner) for q in four])
+    line["walls_ms"]["block-sharded per query"] = t_blk * 1e3 / len(four)
+    line["walls_ms"]["pdxearch_jit per query"] = t_jm * 1e3 / len(four)
+    if not np.array_equal(blk.ids, np.stack([r.ids.cpu().numpy() for r in jm])):
+        fails.append("block-sharded ids differ from the masked PDXearch's")
+    dim, t_dim = timed(torch, lambda: eng.search(
+        four, SearchSpec(k=K, executor="dim-sharded"), mesh=model))
+    bm = eng.search(four, SearchSpec(k=K, executor="batch-matmul"))
+    line["walls_ms"]["dim-sharded per query"] = t_dim * 1e3 / len(four)
+    if dim.plan.executor != "dim-sharded" or any(
+            set(a.tolist()) != set(b.tolist()) for a, b in zip(dim.ids, bm.ids)):
+        fails.append("dim-sharded ids differ from batch-matmul's as sets")
+    line["collectives"] = {
+        "batch": collective_counts(lambda: eng.search(
+            Q, SearchSpec(k=K, scan_dtype="int8", executor="batch-block-sharded"),
+            mesh=data)),
+        "query": collective_counts(lambda: eng.search(
+            Q[0], SearchSpec(k=K, executor="block-sharded"), mesh=data)),
+    }
+    if line["collectives"] != {"batch": {"all_gather": 1},
+                               "query": {"all_gather": 2}}:
+        fails.append(f"collectives {line['collectives']}")
     line["seconds"] = time.perf_counter() - t0
     emit(line)
     assert not fails, fails
     return line, launches
+
+
+def routed_phase(torch, ref, eng, Q, Qd, Xd, seed: int, k2, mesh) -> tuple[list, dict]:
+    """The bucket-routed executors on a world of one (NCCL), no executor
+    forced: the main path's IVF engine on the ("data",) mesh plans them.
+    ``routed_bucket`` at f32 and int8, nprobe 8: the 64 main queries in one
+    exchange round of 64 slots, then their first ``ROUTED_SPILL`` rows,
+    which spill into two rounds (32, 16); held: recall@10 against the exact
+    top-10 within each query's routed buckets, no id outside them, exact
+    returned distances, one all-to-all per round and one all-gather, K2
+    counted from 0 around each run (f32 0, int8 the steps ``_tile_scan``
+    takes at the exchange's row count), and at int8 the spilled rows' ids
+    equal to the same rows of the 64; recorded: walls beside
+    ``fused-batch``'s, the plan's budget, rounds and occupancy, and
+    ``routed_batch_bytes``' components.  K2 at the spilled exchange's row
+    count (a shape no other row has) is held to its plain version.  Then
+    ``routed_tiered`` on phase 5b's premise (P // 4 slots, the zipf
+    queries in batches of 16, nprobe 8) at f32 and int8: each batch
+    through ``tiered-scan`` and at once through ``routed_tiered`` on the
+    same warm cache, held bit for bit equal (one region, one block in the
+    merge), one all-gather and one K2 launch per step.  Emits a phase line
+    before its asserts.  -> (K2 rows, K2 launches by kernel row name)."""
+    from repro_torch.core import plan
+    from repro_torch.core.engine import SearchSpec
+    from repro_torch.core.layout import device_mirror
+    from repro_torch.dist.routing import plan_routing
+    from repro_torch.kernels.batched_matmul import MAX_PARTITIONS
+    from repro_torch.obs.meters import collective_counts, routed_batch_bytes
+
+    t0 = time.perf_counter()
+    store, ivf = eng.store, eng.ivf
+    P, D, C = store.data.shape
+    B = Q.shape[0]
+    nprobe = TIERED_NPROBE
+    pl, t_pl = timed(torch, lambda: plan._get_placement(store, 1, "bucket", ivf=ivf))
+    sel = ivf.route_batch(eng.pruner.transform_batch(Qd), nprobe)
+    truth, allowed = routed_truth(torch, ivf, store.ids.cpu().numpy(), Xd, Qd, sel)
+    line = {"phase": "routed", "world": 1, "backend": "nccl", "nprobe": nprobe,
+            "batch": B, "spill_batch": ROUTED_SPILL, "placement_slots": pl.num_slots,
+            "placement_s": t_pl, "walls_ms": {}, "first_call_ms": {}, "plans": {},
+            "k2_launches": {}, "k2_steps": {}, "collectives": {}}
+    fails = []
+
+    def steps_for(rows: int) -> int:
+        per = max(1, min(MAX_PARTITIONS, plan._FUSED_BATCH_OUT_BYTES // (rows * C * 4)))
+        return -(-pl.num_slots // per)
+
+    def hold(res, tag, truth_rows, allowed_rows, Qrows):
+        if res.plan.executor != "routed_bucket":
+            fails.append(f"{tag}: planned {res.plan.executor}")
+        rec = recall(res.ids, truth_rows)
+        out = sum(len(set(g.tolist()) - a) for g, a in zip(res.ids, allowed_rows))
+        err = dist_error(torch, Xd, Qrows, res.ids, res.dists)
+        line[f"recall_at_10_routed {tag}"] = rec
+        line[f"ids_outside_routed_buckets {tag}"] = out
+        line[f"dist_rel_err {tag}"] = err
+        if rec < ROUTED_RECALL_FLOOR or out or err > 1e-3:
+            fails.append(f"{tag}: recall {rec}, {out} ids outside, dist error {err}")
+
+    launches, results = {}, {}
+    for rows in (B, ROUTED_SPILL):
+        rp = plan_routing(sel[:rows], pl.bucket_shard, pl.bucket_parts, 1)
+        line["plans"][str(rows)] = {"budget": rp.budget, "round_budgets": list(rp.round_budgets),
+                                    "occupancy": rp.occupancy}
+        for dt in ("f32", "int8"):
+            m = device_mirror(store, dt)
+            line["plans"][str(rows)][f"bytes {dt}"] = routed_batch_bytes(
+                rp, n_shards=1, D=D, C=C, num_slots=pl.num_slots, nprobe=nprobe, k=K,
+                bytes_per_value=m.bytes_per_value, quantized=dt != "f32")
+    want_rounds = {str(B): [B, 0], str(ROUTED_SPILL): [32, 16]}
+    for rows, rounds in want_rounds.items():
+        if line["plans"][rows]["round_budgets"] != rounds:
+            fails.append(f"B = {rows}: rounds {line['plans'][rows]['round_budgets']}")
+    for dt in ("f32", "int8"):
+        spec = SearchSpec(k=K, nprobe=nprobe, scan_dtype=dt)
+        # the first call binds the placement's arranged mirror: set-up
+        _, t_first = timed(torch, lambda: eng.search(Q, spec, mesh=mesh))
+        line["first_call_ms"][dt] = t_first * 1e3
+        _, t_fb = timed(torch, lambda: eng.search(Q, SearchSpec(k=K, scan_dtype=dt)))
+        line["walls_ms"][f"fused-batch {dt}"] = t_fb * 1e3
+        for rows in (B, ROUTED_SPILL):
+            tag = f"{dt} B={rows}"
+            k2.launches = 0
+            res, t_r = timed(torch, lambda: eng.search(Q[:rows], spec, mesh=mesh))
+            launched = k2.launches
+            line["walls_ms"][f"routed_bucket {tag}"] = t_r * 1e3
+            slots = sum(line["plans"][str(rows)]["round_budgets"])
+            want = 0 if dt == "f32" else steps_for(slots)
+            line["k2_launches"][tag], line["k2_steps"][tag] = launched, want
+            if launched != want:
+                fails.append(f"{tag}: K2 launched {launched}, expected {want}")
+            launches[(dt, rows)] = launched
+            hold(res, tag, truth[:rows], allowed[:rows], Qd[:rows])
+            results[(dt, rows)] = res
+            line["collectives"][tag] = collective_counts(
+                lambda: eng.search(Q[:rows], spec, mesh=mesh))
+            spilled = rows != B
+            if line["collectives"][tag] != {"all_to_all": 1 + spilled, "all_gather": 1}:
+                fails.append(f"{tag}: collectives {line['collectives'][tag]}")
+    line["spilled_int8_ids_equal"] = bool(np.array_equal(
+        results[("int8", ROUTED_SPILL)].ids, results[("int8", B)].ids[:ROUTED_SPILL]))
+    if not line["spilled_int8_ids_equal"]:
+        fails.append("int8: the spilled batch's ids differ from the same rows of the 64")
+
+    # routed_tiered beside tiered-scan, each batch through both in turn
+    S = P // 4
+    Qz = tiered_queries(seed, D)
+    Qzt = eng.pruner.transform_batch(torch.from_numpy(Qz).to(Xd.device))
+    selz = ivf.route_batch(Qzt, nprobe)
+    batches = [(Qz[lo:lo + TIERED_BATCH], selz[lo:lo + TIERED_BATCH])
+               for lo in range(0, TIERED_QUERIES, TIERED_BATCH)]
+    cnts = np.asarray(ivf.part_counts)
+    tiered = {}
+    for dt in TIERED_HELD:
+        spec = SearchSpec(k=K, nprobe=nprobe, hbm_slots=S, scan_dtype=dt)
+        single = spec.replace(executor="tiered-scan")
+        for Qb, _ in batches:  # the cold pass fills the pool, uncounted
+            eng.search(Qb, single)
+        bc = plan._get_bucket_cache(store, spec, ivf=ivf)
+        rec = {"hbm_slots": S, "walls_ms": {"tiered-scan": [], "routed_tiered": []},
+               "steps": 0, "k2_launches": 0, "bitwise_equal_batches": 0,
+               "executors": set()}
+        k2.launches = 0
+        for Qb, sb in batches:
+            steps = tiered_steps(plan, sb, cnts, bc.region_slots)
+            want, t_w = timed(torch, lambda: eng.search(Qb, single))
+            n0 = k2.launches
+            got, t_g = timed(torch, lambda: eng.search(Qb, spec, mesh=mesh))
+            rec["k2_launches"] += k2.launches - n0
+            rec["steps"] += steps
+            rec["walls_ms"]["tiered-scan"].append(t_w * 1e3)
+            rec["walls_ms"]["routed_tiered"].append(t_g * 1e3)
+            rec["executors"].add(got.plan.executor)
+            rec["bitwise_equal_batches"] += bool(np.array_equal(got.ids, want.ids)
+                                                 and np.array_equal(got.dists, want.dists))
+        rec["executors"] = sorted(rec["executors"])
+        for name in ("tiered-scan", "routed_tiered"):
+            rec[f"wall_ms_median {name}"] = statistics.median(rec["walls_ms"][name])
+        Qb, sb = batches[0]
+        rec["collectives_batch0"] = collective_counts(lambda: eng.search(Qb, spec, mesh=mesh))
+        rec["steps_batch0"] = tiered_steps(plan, sb, cnts, bc.region_slots)
+        tiered[dt] = rec
+        store._tiered_cache.clear()
+        if rec["executors"] != ["routed_tiered"]:
+            fails.append(f"tiered {dt}: planned {rec['executors']}")
+        if rec["bitwise_equal_batches"] != len(batches):
+            fails.append(f"tiered {dt}: {len(batches) - rec['bitwise_equal_batches']} "
+                         "batches differ from tiered-scan")
+        if rec["k2_launches"] != rec["steps"]:
+            fails.append(f"tiered {dt}: K2 launched {rec['k2_launches']} for "
+                         f"{rec['steps']} steps")
+        if rec["collectives_batch0"] != {"all_gather": rec["steps_batch0"]}:
+            fails.append(f"tiered {dt}: collectives {rec['collectives_batch0']}")
+    line["routed_tiered"] = tiered
+
+    # K2 at the spilled exchange's shape: the received rows (the 40 queries,
+    # then the zero rows of the unused slots) over the arranged int8 mirror
+    m = device_mirror(store, "int8")
+    slots = sum(line["plans"][str(ROUTED_SPILL)]["round_budgets"])
+    Qr = torch.zeros((slots, D), dtype=torch.float32, device=Xd.device)
+    Qr[:ROUTED_SPILL] = eng.pruner.transform_batch(Qd[:ROUTED_SPILL])
+    name = "K2 batched_distance_quant [int8, routed spill]"
+    rows = [k2_kernel_row(torch, ref, pl.arranged_mirror(m), Qr, m.scale, m.offset,
+                          False, D, "int8", name, launches[("int8", ROUTED_SPILL)],
+                          (pl.ids >= 0).reshape(-1))]
+    # the placement's copies of the tiles go: later phases do not route
+    store._placement_cache.clear()
+    torch.cuda.empty_cache()
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    assert not fails, fails
+    by_row = {"K2 batched_distance_quant [f32]": launches[("f32", B)],
+              "K2 batched_distance_quant [int8]": launches[("int8", B)],
+              name: launches[("int8", ROUTED_SPILL)],
+              **{f"K2 batched_distance_quant [{dt}, tiered pool]": rec["k2_launches"]
+                 for dt, rec in tiered.items()}}
+    return rows, by_row
 
 
 def recall(found, true) -> float:
@@ -2802,10 +3015,16 @@ def main() -> int:
     t0 = time.perf_counter()
     routing_phase(torch, eng, Qd)
     emit({"phase": "routing_done", "seconds": time.perf_counter() - t0})
-    _, sharded_launches = sharded_phase(torch, eng, Q, batched_distance_quant_cuda)
+    t0 = time.perf_counter()
+    sharded_launches, routed_rows, routed_launches = mesh_phases(
+        torch, ref, eng, Q, Qd, Xd, args.seed, batched_distance_quant_cuda)
+    emit({"phase": "mesh_done", "seconds": time.perf_counter() - t0})
     for row in kernels:
         if row["name"] in k2_rows and k2_rows[row["name"]] in sharded_launches:
             row["launches_sharded"] = sharded_launches[k2_rows[row["name"]]]
+        if row["name"] in routed_launches:
+            row["launches_routed"] = routed_launches[row["name"]]
+    kernels += routed_rows
 
     # ----------------------------------------------------- 5c. serving
     t0 = time.perf_counter()

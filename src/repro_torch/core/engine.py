@@ -34,17 +34,18 @@ tree.
 Meshes (``repro_torch.dist``): ``build(..., mesh=)`` keeps a
 ``torch.distributed`` ``DeviceMesh`` as the engine's default and
 ``search(..., mesh=)`` overrides it per call; on a "data" axis the planner
-shards partitions (``block-sharded``, ``batch-block-sharded``), on a
-"model" axis dimensions (``dim-sharded``).  Every rank builds and searches
-with the same arguments and gets the same result (the SPMD contract,
+routes an IVF engine's queries to the shards that own their buckets
+(``routed_bucket``, or ``routed_tiered`` with ``hbm_slots``;
+``repro_torch.dist.routing``) and shards a flat engine's partitions
+(``block-sharded``, ``batch-block-sharded``), on a "model" axis
+dimensions (``dim-sharded``).  Every rank builds and searches with the
+same arguments and gets the same result (the SPMD contract,
 ``repro_torch.dist``).
 
     dist.init_process_group("gloo", ...)         # one process per rank
     mesh = repro_torch.dist.make_mesh((8,), ("data",), device="cpu")
-    eng = VectorSearchEngine.build(X, mesh=mesh, device="cpu")
-
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP item):
-the bucket-routed search an IVF engine plans on a "data" mesh.
+    eng = VectorSearchEngine.build(X, index="ivf", mesh=mesh, device="cpu")
+    eng.search(Q).plan.executor                  # "routed_bucket"
 """
 from __future__ import annotations
 

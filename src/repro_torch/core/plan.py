@@ -36,6 +36,16 @@ metric/pruner config — and differ only in execution strategy:
   batch-block-sharded  the batch scan on each "data" shard (K2 over the
                        shard's mirror slice at a reduced ``scan_dtype``),
                        then ONE packed top-k all-gather per batch.
+  routed_bucket        IVF buckets owned by "data" shards: one all-to-all
+                       sends each query to the shards that own its routed
+                       buckets, each shard scans only those (K2 over its
+                       mirror slice at a reduced ``scan_dtype``, then an
+                       exact f32 re-rank), ONE packed all-gather merges
+                       (``repro_torch.dist.routing``).
+  routed_tiered        tiered-scan with the slot pool split into one
+                       region per "data" shard: each shard scans its
+                       region with K2, ONE packed all-gather per step
+                       merges, and the exact re-rank stays on the host.
 
 The fused executors re-rank the top ``rerank_mult * k`` candidates
 against the f32 master tiles whenever ``scan_dtype != "f32"``, so returned
@@ -46,7 +56,8 @@ dispatches by device).
 Planner rules, in order: a forced ``spec.executor`` wins; then, with a
 mesh (a ``torch.distributed`` ``DeviceMesh``, ``repro_torch.dist``), the
 reference's mesh rules: an IVF index on a "data" mesh routes by bucket
-ownership (not ported: it raises) unless ``spec.routing="broadcast"``; a
+ownership (routed_tiered with ``hbm_slots``, routed_bucket otherwise)
+unless ``spec.routing="broadcast"``; a
 "data" axis picks batch-block-sharded for batches (with
 ``spec.batch_collectives``) and block-sharded otherwise, padding the
 partitions when a mutable store leaves them indivisible; a "model" axis
@@ -60,8 +71,9 @@ batches (and other metrics) the batched kernel; otherwise batches take the
 matmul scan and single queries the adaptive path (or, with
 ``spec.prefer_static`` on a flat store, the masked one).  ``kernel="cuda"``
 on a CPU store raises, and so does ``kernel="torch"`` when a fused,
-cascade, tiered or quantized batch-block-sharded executor would run on a
-CUDA store: the knob steers planning, the tensors' device picks the body.
+cascade, tiered (routed_tiered too) or quantized batch-block-sharded or
+routed_bucket executor would run on a CUDA store: the knob steers
+planning, the tensors' device picks the body.
 
 Mutable stores (``core.layout.MutablePDXStore``) flow through the same
 planner: the plan trace records ``store.version``, and ``execute`` merges
@@ -70,22 +82,22 @@ executor's top-k, inside a ``merge`` span.
 
 ``prepare_execute`` splits ``execute`` into a host half (now) and a
 device half (``PreparedSearch.run()``) for the serving tier's double
-buffer (``repro_torch.serve.vector``): for ``tiered-scan`` the host half
-routes, plans the chunks and issues the first pass's uploads; every other
-executor defers the whole of ``execute`` into ``run()``.  ``warm_shapes``
+buffer (``repro_torch.serve.vector``): for ``tiered-scan`` and
+``routed_tiered`` the host half routes, plans the chunks and issues the
+first pass's uploads; for ``routed_bucket`` it routes, plans the exchange
+and packs the send buffer, and ``run()`` fires the collectives; every
+other executor defers the whole of ``execute`` into ``run()``.  ``warm_shapes``
 pushes one synthetic batch per batch-shape bucket through it, so a warm
 serving loop builds no state (``obs.setups`` counts what a first search
 builds).
 
 The mesh executors follow the SPMD contract of ``repro_torch.dist``:
 every rank plans and executes the same search and gets the same result.
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the bucket-routed executors (``routed_bucket``,
-``routed_tiered``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -125,22 +137,7 @@ __all__ = [
     "warm_shapes",
     "pow2_bucket",
     "register_executor",
-    "UNPORTED_EXECUTORS",
 ]
-
-#: Reference executors that the port does not have yet -> the ROADMAP.md
-#: item (modules queue) that will bring each one.
-UNPORTED_EXECUTORS = {
-    "routed_tiered": "'Bucket-routed search'",
-    "routed_bucket": "'Bucket-routed search'",
-}
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md, modules "
-        f"queue: {item})"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,11 +159,14 @@ _EXECUTORS: dict[str, Callable] = {}
 
 _FUSED = ("fused-scan", "fused-batch")
 _CASCADE = ("cascade-scan", "cascade-batch")
+_TIERED = ("tiered-scan", "routed_tiered")
 # executors that run the hand-written kernels on a CUDA store and scan
 # reduced-precision device tiles (the mirrors, or the tiered slot pool)
-_KERNEL_EXECUTORS = _FUSED + _CASCADE + ("tiered-scan",)
+_KERNEL_EXECUTORS = _FUSED + _CASCADE + _TIERED
+# ... and those that run them only at a reduced ``scan_dtype``
+_QUANT_KERNEL_EXECUTORS = ("batch-block-sharded", "routed_bucket")
 # executors that honour a reduced ``scan_dtype``
-_MIRROR_EXECUTORS = _KERNEL_EXECUTORS + ("batch-block-sharded",)
+_MIRROR_EXECUTORS = _KERNEL_EXECUTORS + _QUANT_KERNEL_EXECUTORS
 
 
 def register_executor(name: str):
@@ -198,7 +198,7 @@ def _on_cuda(store) -> bool:
 def _runs_kernels(executor: str, spec: SearchSpec) -> bool:
     """Does ``executor`` launch the hand-written kernels on a CUDA store?"""
     return executor in _KERNEL_EXECUTORS or (
-        executor == "batch-block-sharded" and spec.scan_dtype != "f32")
+        executor in _QUANT_KERNEL_EXECUTORS and spec.scan_dtype != "f32")
 
 
 def _mesh_layout(mesh, store) -> tuple[tuple, dict]:
@@ -255,7 +255,7 @@ def plan_search(
                 and _on_cuda(store)):
             raise ValueError(
                 f"kernel='torch' with executor {executor!r} on a CUDA store: "
-                "the fused, cascade, tiered and quantized sharded executors "
+                "the fused, cascade, tiered and quantized mesh executors "
                 "run the CUDA kernels on the card (use kernel='auto' or "
                 "'cuda', or neither hbm_slots nor a cascade nor a reduced "
                 "scan_dtype nor a forced fused executor)"
@@ -267,7 +267,7 @@ def plan_search(
                 f" (scan_dtype={spec.scan_dtype!r} ignored: this executor "
                 "scans the f32 masters)"
             )
-        if spec.hbm_slots is not None and executor != "tiered-scan":
+        if spec.hbm_slots is not None and executor not in _TIERED:
             reason += (
                 " (hbm_slots ignored: tiered serving needs an IVF index "
                 "and this executor scans a fully-resident store/mirror)"
@@ -283,10 +283,6 @@ def plan_search(
         )
 
     if spec.executor is not None:
-        if spec.executor in UNPORTED_EXECUTORS:
-            raise _not_ported(
-                f"executor {spec.executor!r}", UNPORTED_EXECUTORS[spec.executor]
-            )
         if spec.executor not in _EXECUTORS:
             raise ValueError(
                 f"unknown executor {spec.executor!r}; "
@@ -304,12 +300,22 @@ def _mesh_plan(spec, store, n_queries, ivf, axes, shape, plan,
     """The reference's mesh rules (``repro.core.plan.plan_search``)."""
     if ivf is not None:
         if "data" in axes and spec.routing == "bucket":
-            # the reference plans routed_tiered / routed_bucket here; the
-            # port refuses rather than quietly broadcasting instead
-            name = "routed_tiered" if spec.hbm_slots is not None else "routed_bucket"
-            raise _not_ported(f"executor {name!r} (IVF on a 'data' mesh; "
-                              "spec.routing='broadcast' keeps routing "
-                              "host-side)", UNPORTED_EXECUTORS[name])
+            n_sh = shape["data"]
+            if spec.hbm_slots is not None:
+                return plan(
+                    "routed_tiered",
+                    f"mesh 'data' axis ({n_sh} shards) + IVF + "
+                    f"hbm_slots={spec.hbm_slots}: region-split bucket "
+                    f"cache, shard-local pool scan + one packed top-k "
+                    f"all-gather, exact host-RAM re-rank "
+                    f"(nprobe={spec.nprobe})",
+                )
+            return plan(
+                "routed_bucket",
+                f"mesh 'data' axis ({n_sh} shards) + IVF: bucket-owned "
+                f"placement, all-to-all query routing + hierarchical "
+                f"top-k merge (nprobe={spec.nprobe})",
+            )
         note = (
             "mesh ignored: spec.routing='broadcast' keeps IVF bucket "
             "routing host-side; "
@@ -481,36 +487,48 @@ def prepare_execute(
     """Split ``execute`` into host preparation (now) and device execution
     (``PreparedSearch.run()``, later).
 
-    For ``tiered-scan`` the split is genuine: batch transform, bucket
-    routing, chunk planning and the first pass's ``issue`` (host quantize
-    and the copy to the device, on the cache's staging worker) happen
-    here, and ``run()`` settles the uploads, scans the pool and re-ranks.
-    For every other executor the host share is negligible, so the whole
-    ``execute`` is deferred into ``run()`` — callers get one uniform
-    contract.  The bucket-routed mesh executors (``routed_bucket``,
-    ``routed_tiered``) are not ported."""
-    if plan.executor == "tiered-scan":
+    For ``routed_bucket`` the split is genuine: placement lookup, batch
+    transform, bucket ranking, exchange planning and send-buffer packing
+    happen here, and ``run()`` only fires the collectives.  For
+    ``tiered-scan`` and ``routed_tiered`` batch transform, bucket routing,
+    chunk planning and the first pass's ``issue`` (host quantize and the
+    copy to the device, on the cache's staging worker) happen here, and
+    ``run()`` settles the uploads, scans the pool and re-ranks.  For every
+    other executor the host share is negligible, so the whole ``execute``
+    is deferred into ``run()`` — callers get one uniform contract."""
+    if plan.executor == "routed_bucket":
+        launch, sel = _prepare_routed_host(store, pruner, Q, spec, ivf=ivf,
+                                           mesh=mesh)
+        runner = lambda: _run_routed_device(         # noqa: E731
+            launch, sel, store, spec, ivf=ivf, stats=stats)
+    elif plan.executor == "tiered-scan":
         # the host half ends with the first pass's issue: the cache uploads
         # of batch N+1 overlap batch N's device scan through the serving
         # loop's depth-1 handoff (routing-driven prefetch)
-        launch = _prepare_tiered_host(store, pruner, Q, spec, ivf=ivf)
+        tl = _prepare_tiered_host(store, pruner, Q, spec, ivf=ivf)
+        runner = lambda: _run_tiered_device(          # noqa: E731
+            tl, store, spec, ivf=ivf, stats=stats)
+    elif plan.executor == "routed_tiered":
+        tl = _prepare_routed_tiered_host(store, pruner, Q, spec, ivf=ivf,
+                                         mesh=mesh)
+        runner = lambda: _run_tiered_device(          # noqa: E731
+            tl, store, spec, ivf=ivf, stats=stats, mesh=mesh)
+    else:
+        return PreparedSearch(
+            plan=plan, spec=spec,
+            _run=lambda: execute(plan, spec, store, pruner, Q, ivf=ivf,
+                                 mesh=mesh, stats=stats),
+        )
 
-        def _run_tiered():
-            with _trace.span("scan", executor=plan.executor,
-                             scan_dtype=spec.scan_dtype):
-                ids, dists = _run_tiered_device(launch, store, spec, ivf=ivf,
-                                                stats=stats)
-            with _trace.span("merge", executor=plan.executor):
-                return _merge_write_head(store, pruner, Q, spec, ids, dists,
-                                         stats=stats)
+    def _run():
+        with _trace.span("scan", executor=plan.executor,
+                         scan_dtype=spec.scan_dtype):
+            ids, dists = runner()
+        with _trace.span("merge", executor=plan.executor):
+            return _merge_write_head(store, pruner, Q, spec, ids, dists,
+                                     stats=stats)
 
-        return PreparedSearch(plan=plan, spec=spec, _run=_run_tiered)
-
-    return PreparedSearch(
-        plan=plan, spec=spec,
-        _run=lambda: execute(plan, spec, store, pruner, Q, ivf=ivf, mesh=mesh,
-                             stats=stats),
-    )
+    return PreparedSearch(plan=plan, spec=spec, _run=_run)
 
 
 def warm_shapes(
@@ -1495,8 +1513,16 @@ def _prepare_tiered_host(store, pruner, Q, spec, *, ivf) -> _TieredLaunch:
             "at bucket granularity, which only routing defines)"
         )
     cache = _get_bucket_cache(store, spec, ivf=ivf)
+    return _tiered_launch(store, pruner, Q, spec, ivf, cache)
+
+
+def _tiered_launch(store, pruner, Q, spec, ivf, cache: BucketCache,
+                   **route_attrs) -> _TieredLaunch:
+    """The host half of both tiered executors once the cache is chosen:
+    batch transform, bucket routing, chunk planning, the first pass's
+    ``issue``."""
     Qt = _transform_batch(pruner, Q.to(torch.float32))
-    with _trace.span("route", nprobe=spec.nprobe, tiered=True):
+    with _trace.span("route", nprobe=spec.nprobe, tiered=True, **route_attrs):
         sel = np.asarray(
             ivf.route_batch(Qt, spec.nprobe, spec.metric, spec.route_dtype)
         )
@@ -1517,13 +1543,17 @@ def _prepare_tiered_host(store, pruner, Q, spec, *, ivf) -> _TieredLaunch:
 
 
 def _tiered_stats(stats, store, cache, sel, ivf) -> None:
-    """Selected-bucket work accounting, matching the routed convention:
-    every live value in a probed bucket is computed, everything outside is
-    avoided by routing."""
-    if stats is None:
-        return
+    if stats is not None:
+        _selected_bucket_stats(stats, store, *cache._bucket_extent(), sel)
+
+
+def _selected_bucket_stats(stats, store, offs, cnts, sel) -> None:
+    """Selected-bucket work accounting of the routed and tiered executors:
+    every live value in a probed bucket (partitions ``offs[b]`` on, ``cnts[b]``
+    of them) is computed, everything outside is avoided by routing, not by
+    a pruning predicate (values_total counts only visited partitions, the
+    adaptive + IVF convention)."""
     counts = store.counts.cpu().numpy()
-    offs, cnts = cache._bucket_extent()
     nb = len(cnts)
     bucket_rows = np.array(
         [counts[offs[b]: offs[b] + cnts[b]].sum() for b in range(nb)],
@@ -1568,18 +1598,23 @@ def _tiered_step_issue_next(cache, launch, steps, si):
     return cache.issue(np.asarray(blist, np.int64), parts=parts)
 
 
-def _run_tiered_device(launch: _TieredLaunch, store, spec, *, ivf, stats):
+def _run_tiered_device(launch: _TieredLaunch, store, spec, *, ivf, stats,
+                       mesh=None):
     """Device half: per (chunk, pass) step, settle the step's prefetch
     ticket -> masked pool scan -> issue the NEXT step's uploads under the
     scan -> exact host re-rank; multi-pass chunks (routed demand beyond
     the slot pool) merge their per-pass top-k, chunk results land back in
-    batch order."""
+    batch order.  With a ``mesh`` (routed_tiered) each rank scans its
+    region of the pool and one all-gather per step merges the ranks'
+    candidates (``_tiered_shard_scan``)."""
     cache, sel = launch.cache, launch.sel
     B = sel.shape[0]
     out_i = np.full((B, spec.k), -1, np.int64)
     out_d = np.full((B, spec.k), np.inf, np.float32)
     C = store.capacity
     dev = launch.Qt.device
+    scan = (_tiered_pool_scan if mesh is None
+            else functools.partial(_tiered_shard_scan, mesh))
     steps = _tiered_steps(launch)
     ticket = launch.ticket
     for si, (ci, pi) in enumerate(steps):
@@ -1594,7 +1629,7 @@ def _run_tiered_device(launch: _TieredLaunch, store, spec, *, ivf, stats):
             arrays, slot_ids = _tiered_step_ready(cache, launch, ticket, ci, pi)
             pool, ids_dev, slot_bucket, scale, offset = arrays
             rows = torch.as_tensor(chunk, device=dev)
-            cand = _tiered_pool_scan(
+            cand = scan(
                 pool, ids_dev, slot_bucket, torch.from_numpy(sel[chunk]).to(dev),
                 launch.Qt[rows], scale, offset, launch.rk, spec.metric,
                 cache.quantized, packed=cache.packed, dim=cache.dim,
@@ -1613,12 +1648,23 @@ def _run_tiered_device(launch: _TieredLaunch, store, spec, *, ivf, stats):
                 out_i[chunk], out_d[chunk], ids_c, dists_c, spec.k
             )
         if _metrics.enabled():
-            S = cache.capacity_slots
-            _metrics.counter(
-                "repro_device_bytes_total",
-                float(S) * cache.dim * C * cache.bytes_per_value,
-                executor="tiered-scan", component="scan", dtype=cache.dtype,
-            )
+            scan_bytes = (float(cache.capacity_slots) * cache.dim * C
+                          * cache.bytes_per_value)
+            if mesh is None:
+                _metrics.counter(
+                    "repro_device_bytes_total", scan_bytes,
+                    executor="tiered-scan", component="scan", dtype=cache.dtype,
+                )
+            else:
+                from ..dist import axis_size
+                from ..obs import meters as _meters
+
+                _meters.count_issued("routed_tiered", all_gather=1)
+                _meters.record_device_bytes("routed_tiered", cache.dtype, {
+                    "scan": scan_bytes,
+                    "all_gather": float(axis_size(mesh, "data") * len(chunk)
+                                        * 2 * launch.rk * 4),
+                })
     cache.wait(ticket)
     _tiered_stats(stats, store, cache, sel, ivf)
     return out_i, out_d
@@ -1767,3 +1813,116 @@ def _exec_batch_block_sharded(store, pruner, Q, spec, *, ivf, mesh, stats):
             wire,
         )
     return _numpy(res)
+
+
+# ------------------------------------------------- bucket-routed executors
+def _prepare_routed_host(store, pruner, Q, spec, *, ivf, mesh):
+    """Host half of the routed executor: placement lookup, batch transform,
+    bucket ranking, exchange planning, send-buffer packing.  No collective
+    fires here — that is ``_run_routed_device``'s job."""
+    if ivf is None:
+        raise ValueError("routed_bucket executor needs an IVF index")
+    from ..dist.routing import prepare_routed
+
+    pl = _get_placement(store, _mesh_axis(mesh, "data", "routed_bucket"),
+                        "bucket", ivf=ivf)
+    Qt = _transform_batch(pruner, Q.to(torch.float32))
+    sel = ivf.route_batch(Qt, spec.nprobe, spec.metric, spec.route_dtype)
+    dt = spec.scan_dtype
+    mirror = device_mirror(store, dt) if dt != "f32" else None
+    launch = prepare_routed(
+        mesh, pl, Qt, sel, spec.k, metric=spec.metric,
+        mirror=mirror, rerank_mult=spec.rerank_mult,
+    )
+    return launch, sel
+
+
+def _run_routed_device(launch, sel, store, spec, *, ivf, stats):
+    """Device half: fire the prepared exchange, scan and merge, then
+    account the selected-bucket work."""
+    from ..dist.routing import launch_routed
+
+    res = launch_routed(launch)
+    if stats is not None:
+        _selected_bucket_stats(stats, store, np.asarray(ivf.part_offsets),
+                               np.asarray(ivf.part_counts), np.asarray(sel))
+    return _numpy(res)
+
+
+@register_executor("routed_bucket")
+def _exec_routed_bucket(store, pruner, Q, spec, *, ivf, mesh, stats):
+    """Bucket-routed search on a "data" mesh: queries travel to the shards
+    that own their top-nprobe buckets (one all-to-all, two when the plan
+    spills, and one packed all-gather per batch: ``repro_torch.dist.
+    routing``).  Exact over each query's selected buckets; with nprobe >=
+    nlist it equals the exact full scan.  The blocking composition of
+    ``_prepare_routed_host`` and ``_run_routed_device``."""
+    launch, sel = _prepare_routed_host(store, pruner, Q, spec, ivf=ivf,
+                                       mesh=mesh)
+    return _run_routed_device(launch, sel, store, spec, ivf=ivf, stats=stats)
+
+
+def _prepare_routed_tiered_host(store, pruner, Q, spec, *, ivf, mesh):
+    """Host half of routed-tiered: region assignment (bucket -> owner shard,
+    the greedy balance of bucket placements, over the current bucket
+    extents), routing, chunk planning, the first pass's ``issue``.
+
+    Every rank keeps the same cache bookkeeping and a whole pool: the
+    ranks see the same batches, so they admit, evict and upload alike, and
+    rank r scans only its region's slots."""
+    if ivf is None:
+        raise ValueError("routed_tiered executor needs an IVF index")
+    from ..dist.placement import assign_buckets
+
+    n_sh = _mesh_axis(mesh, "data", "routed_tiered")
+    # the region split follows the CURRENT bucket extents (the same on every
+    # rank); the cache regenerates its whole pool when tiles_version moves,
+    # so a refreshed assignment never mixes with stale residency.  The
+    # greedy split is a Python loop over the buckets (ms at nlist 1000), so
+    # it is kept beside the extents it was made from
+    tmp = _get_bucket_cache(store, spec, ivf=ivf, n_regions=n_sh)
+    _, cnts = tmp._bucket_extent()
+    made = getattr(tmp, "_region_split", None)
+    if made is None or not np.array_equal(made[0], cnts):
+        made = (np.array(cnts, copy=True), assign_buckets(cnts, n_sh))
+        tmp._region_split = made
+    cache = _get_bucket_cache(store, spec, ivf=ivf, n_regions=n_sh,
+                              bucket_region=made[1])
+    return _tiered_launch(store, pruner, Q, spec, ivf, cache, n_shards=n_sh)
+
+
+def _tiered_shard_scan(mesh, pool, slot_ids, slot_bucket, sel, Qt, scale,
+                       offset, rk: int, metric: str, quantized: bool,
+                       packed: bool = False, dim: Optional[int] = None) -> TopK:
+    """The routed-tiered scan of one step on this rank: the pool's region r
+    (slots ``[r * S/n, (r+1) * S/n)``) through ``_tiered_pool_scan`` -> the
+    region's top-``rk`` as GLOBAL pool positions; the ranks' (B, 2rk)
+    packed candidates cross in ONE all-gather and merge to the replicated
+    top-``rk``.  Candidate resolution and the exact re-rank stay on the
+    host, against the RAM masters."""
+    from ..dist import axis_rank, axis_size
+    from ..dist.pdx_sharded import _gather_packed
+
+    S, _, C = pool.shape
+    w = S // axis_size(mesh, "data")
+    lo = axis_rank(mesh, "data") * w
+    sl = slice(lo, lo + w)
+    cand = _tiered_pool_scan(pool[sl], slot_ids[sl], slot_bucket[sl], sel, Qt,
+                             scale, offset, rk, metric, quantized, packed=packed,
+                             dim=dim)
+    # region positions -> pool positions (a constant shift keeps the order)
+    cand.ids = torch.where(cand.ids >= 0, cand.ids + lo * C, -1)
+    return _gather_packed(cand, mesh, "data", rk)
+
+
+@register_executor("routed_tiered")
+def _exec_routed_tiered(store, pruner, Q, spec, *, ivf, mesh, stats):
+    """Tiered search on a "data" mesh: each shard scans one region of the
+    bucket pool (regions follow the greedy bucket -> shard balance of
+    bucket placements) masked to the routed buckets, the candidates merge
+    in ONE packed all-gather per step, and id resolution and the exact f32
+    re-rank stay on the host masters."""
+    launch = _prepare_routed_tiered_host(store, pruner, Q, spec, ivf=ivf,
+                                         mesh=mesh)
+    return _run_tiered_device(launch, store, spec, ivf=ivf, stats=stats,
+                              mesh=mesh)

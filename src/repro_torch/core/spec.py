@@ -85,9 +85,11 @@ class SearchSpec:
       nprobe     — buckets probed when the engine has an IVF index.
       routing    — distributed query routing on a "data"-axis mesh:
                    "bucket" (the default) plans the bucket-routed search
-                   for an IVF engine, which is not ported yet and raises;
-                   "broadcast" keeps IVF routing host-side and the mesh
-                   unused.  Without a mesh or an IVF index it is inert.
+                   for an IVF engine (``routed_bucket``, or
+                   ``routed_tiered`` with ``hbm_slots``; see
+                   ``repro_torch.dist.routing``); "broadcast" keeps IVF
+                   routing host-side and the mesh unused.  Without a mesh
+                   or an IVF index it is inert.
 
     Device-scan precision (the bandwidth lever; see ``core.layout``'s
     dtype-policy block)

@@ -1,6 +1,6 @@
-"""repro_torch.dist — the mesh, tile placement and the sharded PDXearch
-executors on ``torch.distributed`` (counterpart of ``repro.dist``'s vector
-half).
+"""repro_torch.dist — the mesh, tile placement, the sharded PDXearch
+executors and the bucket-routed search (``routing``) on
+``torch.distributed`` (counterpart of ``repro.dist``'s vector half).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` whose
 ``mesh_dim_names`` name its axes ("data" for partition sharding, "model"
@@ -15,8 +15,8 @@ rank gets the same, replicated result.  This stands in for ``shard_map``'s
 store: ``placement.Placement.local``) and ``out_specs`` of ``P()`` (the
 collectives leave every rank with the whole answer).
 
-Every collective the executors issue goes through ``all_gather`` and
-``psum`` below, which count each call under the reference's primitive
+Every collective the executors issue goes through ``all_gather``,
+``all_to_all`` and ``psum`` below, which count each call under the reference's primitive
 name; ``repro_torch.obs.meters.collective_counts`` reads those counts
 around a call.
 """
@@ -29,7 +29,7 @@ import torch.distributed as dist
 
 __all__ = [
     "make_mesh", "mesh_shape", "axis_size", "axis_rank", "mesh_device",
-    "all_gather", "psum", "issued_counts",
+    "all_gather", "all_to_all", "psum", "issued_counts",
 ]
 
 
@@ -102,6 +102,25 @@ def all_gather(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     out = t.new_empty((axis_size(mesh, axis) * t.shape[0],) + tuple(t.shape[1:]))
     _count("all_gather")
     dist.all_gather_into_tensor(out, t, group=mesh.get_group(mesh_dim=axis))
+    return out
+
+
+def all_to_all(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """All-to-all along dim 0 over the ranks of ``axis``: (n, ...) per rank,
+    row t goes to rank t and row s of the result came from rank s
+    (``lax.all_to_all(x, axis, 0, 0, tiled=True)``).  ``t`` may be a view
+    (a spilled round is a slice of the send buffer); it is made contiguous
+    here."""
+    n = axis_size(mesh, axis)
+    if t.shape[0] != n:
+        raise ValueError(
+            f"all_to_all over {n} ranks of '{axis}' needs dim 0 of size {n}, "
+            f"got shape {tuple(t.shape)}"
+        )
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    _count("all_to_all")
+    dist.all_to_all_single(out, t, group=mesh.get_group(mesh_dim=axis))
     return out
 
 

@@ -11,8 +11,8 @@ arranged-and-padded tile tensors plus the metadata the executors need:
 * ``bucket``     — bucket-owned sharding for IVF stores: a greedy
   size-balanced assignment gives each IVF bucket one owner rank, and each
   rank's slice lists its buckets ascending with their partitions
-  contiguous (the layout of the bucket-routed search, ROADMAP
-  'Bucket-routed search').
+  contiguous (the layout of the bucket-routed search,
+  ``repro_torch.dist.routing``).
 
 The tensors stay where the store keeps them; ``local(rank)`` is a rank's
 (P'/n, D, C) slice, which an executor moves to its mesh device.  All

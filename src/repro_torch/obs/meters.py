@@ -18,8 +18,9 @@ walks a traced jaxpr; the port counts at the one module that issues them,
 ``repro_collectives_issued_total`` from the executed plan.  The
 reference's ``record_compile_collectives`` publishes a jaxpr walk once per
 compiled shape; the port compiles nothing per shape and has no jaxpr, so it
-has no counterpart.  ``broadcast_batch_bytes`` is the wire model of the
-broadcast executors and ``record_device_bytes`` records such a model into
+has no counterpart.  ``routed_batch_bytes`` and ``broadcast_batch_bytes``
+are the wire models of the bucket-routed and the broadcast executors, and
+``record_device_bytes`` records such a model into
 ``repro_device_bytes_total``.
 """
 from __future__ import annotations
@@ -32,7 +33,8 @@ from ..kernels.ref import pdx_prune_scan_multi_ref
 from . import metrics
 
 __all__ = ["collective_counts", "count_issued", "tile_widths",
-           "fused_tile_counts", "fused_demand_bytes", "broadcast_batch_bytes",
+           "fused_tile_counts", "fused_demand_bytes", "routed_batch_bytes",
+           "broadcast_batch_bytes",
            "record_device_bytes", "cache_upload_wait"]
 
 
@@ -106,6 +108,26 @@ def fused_demand_bytes(
     )
     w = tile_widths(D, d_tile)
     return float(D * C * 4 + (parts * w).sum() * C * mirror.bytes_per_value)
+
+
+def routed_batch_bytes(
+    rp, *, n_shards: int, D: int, C: int, num_slots: int, nprobe: int,
+    k: int, bytes_per_value: float = 4.0, rerank_mult: int = 4,
+    quantized: bool = False,
+) -> dict[str, float]:
+    """Per-batch byte totals of one routed-bucket search under
+    ``RoutingPlan`` ``rp``: the padded all-to-all payload (queries with
+    their bucket ids reinterpreted as f32, an f32 wire), the packed
+    candidate all-gather, each rank's one mirror-slice scan, and, when
+    quantized, the f32 master columns the on-shard re-rank gathers per
+    delivered query."""
+    n_dests = float((np.asarray(rp.dest_shard) >= 0).sum())
+    return {
+        "scan": float(num_slots * D * C * bytes_per_value),
+        "rerank": (n_dests * rerank_mult * k * D * 4.0) if quantized else 0.0,
+        "all_to_all": float(n_shards * n_shards * rp.budget * (D + nprobe) * 4),
+        "all_gather": float(n_shards * (n_shards * rp.budget) * 2 * k * 4),
+    }
 
 
 def broadcast_batch_bytes(

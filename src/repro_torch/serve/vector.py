@@ -151,6 +151,11 @@ class VectorServer:
     The server serves on ``engine.device``, as the reference does: the
     engine's builders already make the caller ask for the CPU, so nothing
     runs there unasked.
+
+    An engine whose mesh spans more than one rank is refused: the mesh
+    executors are SPMD (every rank must search the same batches), and the
+    admission batcher cannot promise that the ranks form the same batches,
+    so the first collective would hang.  A world of one serves.
     """
 
     def __init__(
@@ -170,6 +175,15 @@ class VectorServer:
     ):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        mesh = getattr(engine, "mesh", None)
+        if mesh is not None and mesh.size() > 1:
+            raise ValueError(
+                f"VectorServer cannot serve an engine whose mesh spans "
+                f"{mesh.size()} ranks: the mesh executors need every rank to "
+                "search the same batches, which the admission batcher cannot "
+                "promise (the first collective would hang); serve one rank's "
+                "engine without a mesh, or a world of one"
+            )
         self.engine = engine
         self.device = engine.device
         self.spec = spec if spec is not None else engine.spec

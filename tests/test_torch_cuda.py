@@ -1081,3 +1081,47 @@ def test_batch_block_sharded_on_a_world_of_one_equals_fused_batch(dev):
         rows = eng.ivf.route_batch(Qt, eng.ivf.nlist, "l2", dt)
         for i in range(len(Q)):
             np.testing.assert_array_equal(rows[i], eng.ivf.rank_buckets(Qt[i], "l2", dt))
+
+
+def test_routed_executors_on_a_world_of_one(dev):
+    """On a world of one (NCCL) an IVF engine on a ("data",) mesh plans
+    ``routed_bucket``: at int8 it launches K2 over the rank's buckets and
+    gives the f32 routed answer (plain matrix products, exact within the
+    routed buckets; ids as sets), a batch whose demand spills into two exchange rounds
+    equals the same rows of an unspilled batch, and the collectives are
+    one all-to-all per round and one all-gather; with ``hbm_slots`` it
+    plans ``routed_tiered``, which equals ``tiered-scan`` bit for bit on
+    the same warm cache."""
+    import torch.distributed as tdist
+
+    from repro_torch.dist import make_mesh
+    from repro_torch.obs.meters import collective_counts
+
+    X, Q = make_dataset(8192, 96, "clustered", n_queries=40, seed=3)
+    eng = VectorSearchEngine.build(X, index="ivf", pruner="adsampling",
+                                   capacity=256, device=dev)
+    spec = SearchSpec(k=10, nprobe=4, scan_dtype="int8")
+    tiered = SearchSpec(k=10, nprobe=4, hbm_slots=eng.store.num_partitions // 2,
+                        scan_dtype="int8")
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1,), ("data",))
+        before = batched_distance_quant_cuda.launches
+        got = eng.search(Q[:16], spec, mesh=mesh)
+        assert batched_distance_quant_cuda.launches > before
+        want = eng.search(Q[:16], spec.replace(scan_dtype="f32"), mesh=mesh)
+        spilled = eng.search(Q, spec, mesh=mesh)
+        counts = [collective_counts(lambda: eng.search(Q[:b], spec, mesh=mesh))
+                  for b in (16, 40)]
+        t_want = eng.search(Q[:16], tiered.replace(executor="tiered-scan"))
+        t_got = eng.search(Q[:16], tiered, mesh=mesh)
+    finally:
+        tdist.destroy_process_group()
+    assert got.plan.executor == "routed_bucket" and t_got.plan.executor == "routed_tiered"
+    for a, b in zip(got.ids, want.ids):
+        assert set(a.tolist()) == set(b.tolist())
+    np.testing.assert_array_equal(spilled.ids[:16], got.ids)
+    assert counts == [{"all_to_all": 1, "all_gather": 1},
+                      {"all_to_all": 2, "all_gather": 1}]
+    np.testing.assert_array_equal(t_got.ids, t_want.ids)
+    np.testing.assert_array_equal(t_got.dists, t_want.dists)

@@ -215,8 +215,8 @@ def test_planner_picks_the_reference_executors_on_each_mesh(tmp_path):
     """``tests/test_plan.py::test_sharded_executors_match_ground_truth_8dev``:
     the planner's pick on a "data" and a "model" mesh, batched and per
     query, the ids and the SearchStats of each against the reference's; an
-    IVF engine on a "data" mesh plans the bucket-routed search, which the
-    port refuses by name, and ``routing="broadcast"`` ignores the mesh with
+    IVF engine on a "data" mesh plans the bucket-routed search with the
+    reference's reason, and ``routing="broadcast"`` ignores the mesh with
     the reference's note."""
     body = _PLAN_SETUP + textwrap.dedent("""
     meshes = {"data": make_mesh((8,), ("data",), device="cpu"),
@@ -235,7 +235,9 @@ def test_planner_picks_the_reference_executors_on_each_mesh(tmp_path):
                                      st.partitions_visited], np.float64)
     ivf = build(X, index="ivf", nlist=8, pruner="linear", capacity=128,
                 mesh=meshes["data"])
-    plans.append(plan_ivf(ivf))
+    p = ivf.plan(Q, SearchSpec(k=5))
+    plans.append(p.executor)
+    out["reason_routed"] = np.array(p.reason)
     r = ivf.search(Q[0], spec.replace(routing="broadcast", nprobe=8))
     plans.append(r.plan.executor)
     out["reason"] = np.array(r.plan.reason)
@@ -248,13 +250,6 @@ def test_planner_picks_the_reference_executors_on_each_mesh(tmp_path):
 
     def build(X, **kw):
         return VectorSearchEngine.build(X, device="cpu", **kw)
-
-    def plan_ivf(eng):
-        try:
-            eng.plan(Q, SearchSpec(k=5))
-        except NotImplementedError as e:
-            assert "'Bucket-routed search'" in str(e), e
-            return "routed_bucket"
     """) + body, textwrap.dedent("""
     from repro.core.engine import SearchSpec, SearchStats, VectorSearchEngine
     from repro.data.synthetic import make_dataset
@@ -264,15 +259,13 @@ def test_planner_picks_the_reference_executors_on_each_mesh(tmp_path):
 
     def build(X, **kw):
         return VectorSearchEngine.build(X, **kw)
-
-    def plan_ivf(eng):
-        return eng.plan(Q, SearchSpec(k=5)).executor
     """) + body)
     assert got["plans"].tolist() == ref["plans"].tolist() == [
         "block-sharded", "batch-block-sharded", "block-sharded", "dim-sharded",
         "routed_bucket", "adaptive"]
     assert str(got["reason"]).startswith("mesh ignored: spec.routing='broadcast'")
     assert str(got["reason"]) == str(ref["reason"])
+    assert str(got["reason_routed"]) == str(ref["reason_routed"])
     _same(got, ref, ["ids0", "d0", "ids1", "d1", "ids2", "d2", "ids_ivf", "d_ivf"])
     assert set(got["ids3"].ravel().tolist()) == set(ref["ids3"].ravel().tolist())
     np.testing.assert_allclose(np.sort(got["d3"]), np.sort(ref["d3"]), rtol=RTOL)
@@ -411,3 +404,155 @@ def test_batch_block_sharded_quantized_one_allgather(tmp_path):
     for dt in ("bf16", "int8"):
         np.testing.assert_array_equal(np.sort(got[f"ids_{dt}"], 1), np.sort(got["gt"], 1))
     _same(got, ref, [f"{a}_{dt}" for a in ("ids", "d") for dt in ("bf16", "int8", "int4")])
+
+
+def test_routed_tiered_matches_the_reference(tmp_path):
+    """``tests/test_tiered.py::test_routed_tiered_capacity_smaller_than_store``:
+    a pool of 64 slots (8 per rank) under a store of more partitions plans
+    ``routed_tiered``; its f32 ids are ``routed_bucket``'s and, like its
+    int8 ids, the reference's; one all-gather per (chunk, pass) step."""
+    body = """
+    rng = np.random.default_rng(0)
+    cents = rng.standard_normal((64, 32)).astype(np.float32) * 4
+    X = (cents[rng.integers(0, 64, 8000)]
+         + rng.standard_normal((8000, 32)).astype(np.float32)).astype(np.float32)
+    Q = (cents[rng.integers(0, 64, 12)]
+         + rng.standard_normal((12, 32)).astype(np.float32)).astype(np.float32)
+    eng = build(X, index="ivf", nlist=64, pruner="linear", capacity=64, mesh=mesh)
+    out["P"] = np.array(eng.store.data.shape[0])
+    spec = SearchSpec(k=10, nprobe=4)
+    routed = eng.search(Q, spec)
+    tiered = spec.replace(hbm_slots=64)
+    res = eng.search(Q, tiered)
+    res8 = eng.search(Q, tiered.replace(scan_dtype="int8"))
+    out["plans"] = np.array([routed.plan.executor, res.plan.executor, res8.plan.executor])
+    out["ids_routed"] = np.asarray(routed.ids)
+    out["ids_f32"], out["d_f32"] = np.asarray(res.ids), np.asarray(res.dists)
+    out["ids_int8"], out["d_int8"] = np.asarray(res8.ids), np.asarray(res8.dists)
+    cache = next(iter(eng.store._tiered_cache.values()))
+    out["resident"] = np.array(cache.resident_slots)
+    """
+    got, ref = run_world(tmp_path, """
+    from repro_torch.core import plan
+    from repro_torch.core.engine import SearchSpec, VectorSearchEngine
+    from repro_torch.obs.meters import collective_counts
+
+    mesh = make_mesh((8,), ("data",), device="cpu")
+
+    def build(X, **kw):
+        return VectorSearchEngine.build(X, device="cpu", **kw)
+    """ + body + """
+    launch = plan._prepare_routed_tiered_host(
+        eng.store, eng.pruner, torch.from_numpy(Q), tiered, ivf=eng.ivf, mesh=mesh)
+    steps = len(plan._tiered_steps(launch))
+    plan._run_tiered_device(launch, eng.store, tiered, ivf=eng.ivf, stats=None,
+                            mesh=mesh)
+    counts = collective_counts(lambda: eng.search(Q, tiered))
+    assert counts == {"all_gather": steps}, (counts, steps)
+    out["steps"] = np.array(steps)
+    """, """
+    import repro.core.engine
+    from repro.core.engine import VectorSearchEngine
+    from repro.core.spec import SearchSpec
+
+    mesh = jax.make_mesh((8,), ("data",))
+    build = VectorSearchEngine.build
+    """ + body)
+    assert int(got["P"]) > 64
+    assert got["plans"].tolist() == ref["plans"].tolist() == [
+        "routed_bucket", "routed_tiered", "routed_tiered"]
+    np.testing.assert_array_equal(got["ids_f32"], got["ids_routed"])
+    assert int(got["resident"]) <= 64 and int(got["steps"]) >= 1
+    _same(got, ref, ["ids_routed", "ids_f32", "d_f32", "ids_int8", "d_int8"])
+
+
+def test_routed_collective_meters_and_trace(tmp_path):
+    """``tests/test_obs.py::test_routed_collective_meters_and_trace_8dev``:
+    three bf16 batches through ``routed_bucket`` with stats account the
+    selected buckets' work only, the trace runs plan -> route -> scan with
+    the on-shard ``rerank`` and ``merge``, the issued counters are the
+    per-call collectives (``collective_counts``, the port's stand-in for
+    the reference's jaxpr meter) times the batches, and the bytes per
+    component equal the reference's."""
+    body = """
+    metrics.set_enabled(True)
+    X, Q = make_dataset(8192, 32, "clustered", n_queries=16, seed=0)
+    eng = build(X, index="ivf", pruner="linear", capacity=128, nlist=32, mesh=mesh)
+    reg = metrics.get_registry()
+    spec = SearchSpec(k=5, nprobe=4, scan_dtype="bf16")
+    stats = SearchStats()
+    for _ in range(3):
+        res = eng.search(Q, spec, stats=stats)
+        assert res.plan.executor == "routed_bucket", res.plan
+    out["ids"], out["d"] = np.asarray(res.ids), np.asarray(res.dists)
+    out["full"] = np.array(float(np.asarray(eng.store.counts).sum()) * eng.store.dim)
+    out["stats"] = np.array([stats.values_total, stats.values_computed,
+                             stats.partitions_visited], np.float64)
+    qt = res.trace
+    out["spans"] = np.array(qt.span_names())
+    out["rerank_fused"] = np.array(qt.find("rerank").attrs.get("fused"))
+    out["issued"] = np.array([reg.get("repro_collectives_issued_total",
+                                      executor="routed_bucket", primitive=p)
+                              for p in ("all_to_all", "all_gather")])
+    out["bytes"] = np.array([reg.get("repro_device_bytes_total", executor="routed_bucket",
+                                     component=c, dtype="bf16")
+                             for c in ("scan", "rerank", "all_to_all", "all_gather")])
+    """
+    got, ref = run_world(tmp_path, """
+    from repro_torch.core.engine import SearchSpec, SearchStats, VectorSearchEngine
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.obs import metrics
+    from repro_torch.obs.meters import collective_counts
+
+    mesh = make_mesh((8,), ("data",), device="cpu")
+
+    def build(X, **kw):
+        return VectorSearchEngine.build(X, device="cpu", **kw)
+    """ + body + """
+    out["per_call"] = np.array([collective_counts(lambda: eng.search(Q, spec)).get(p, 0)
+                                for p in ("all_to_all", "all_gather")])
+    """, """
+    from repro.core.engine import SearchSpec, VectorSearchEngine
+    from repro.core.pdxearch import SearchStats
+    from repro.data.synthetic import make_dataset
+    from repro.obs import metrics
+
+    mesh = jax.make_mesh((8,), ("data",))
+    build = VectorSearchEngine.build
+    """ + body)
+    total, computed, visited = got["stats"]
+    assert 0 < total <= float(got["full"]) * 16 * 3 and computed == total and visited > 0
+    np.testing.assert_array_equal(got["stats"], ref["stats"])
+    spans = got["spans"].tolist()
+    for name in ("plan", "route", "scan", "rerank", "merge"):
+        assert name in spans, spans
+    assert spans.index("plan") < spans.index("route") < spans.index("scan")
+    assert str(got["rerank_fused"]) == "on-shard"
+    assert got["per_call"][1] == 1
+    assert got["issued"].tolist() == (got["per_call"] * 3).tolist() == ref["issued"].tolist()
+    assert (got["bytes"] > 0).all()
+    np.testing.assert_array_equal(got["bytes"], ref["bytes"])
+    _same(got, ref, ["ids", "d"])
+
+
+def test_vector_server_refuses_a_mesh_of_more_than_one_rank(tmp_path):
+    """The mesh executors are SPMD and the admission batcher cannot promise
+    that 8 ranks form the same batches: ``VectorServer`` refuses an engine
+    whose mesh spans more than one rank (the reference serves a mesh
+    engine from one process), at once and on every rank."""
+    got, _ = run_world(tmp_path, """
+    from repro_torch.core.engine import VectorSearchEngine
+    from repro_torch.data.synthetic import make_dataset
+    from repro_torch.serve import VectorServer
+
+    X, Q = make_dataset(2048, 32, "clustered", n_queries=4, seed=0)
+    mesh = make_mesh((8,), ("data",), device="cpu")
+    eng = VectorSearchEngine.build(X, index="ivf", nlist=16, pruner="linear",
+                                   capacity=64, mesh=mesh, device="cpu")
+    try:
+        VectorServer(eng)
+        out["refused"] = np.array("")
+    except ValueError as e:
+        out["refused"] = np.array(str(e))
+    """)
+    assert "mesh spans 8 ranks" in str(got["refused"])

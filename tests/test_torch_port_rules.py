@@ -159,35 +159,43 @@ def world_of_one():
     dict(executor="batch-block-sharded"),
 ])
 def test_unported_paths_name_their_roadmap_item(cpu_engine, spec):
-    """The two bucket-routed executors are refused, naming their ROADMAP
-    item; the three broadcast executors are ported and, forced without a
-    mesh, name the mesh axis they need."""
+    """Every mesh executor is ported (the two bucket-routed ones too), and
+    each, forced without a mesh, names the mesh axis it needs instead of
+    searching some other way."""
     eng, Q = cpu_engine
-    if spec["executor"].startswith("routed"):
-        with pytest.raises(NotImplementedError, match="'Bucket-routed search'"):
-            eng.search(Q, SearchSpec(**spec))
-    else:
-        axis = "model" if spec["executor"] == "dim-sharded" else "data"
-        with pytest.raises(ValueError, match=f"needs a mesh with a '{axis}' axis"):
-            eng.search(Q, SearchSpec(**spec))
+    axis = "model" if spec["executor"] == "dim-sharded" else "data"
+    with pytest.raises(ValueError,
+                       match=f"{spec['executor']} executor needs a mesh with a '{axis}' axis"):
+        eng.search(Q, SearchSpec(**spec))
 
 
 def test_unported_engine_calls_name_their_roadmap_item(cpu_engine, world_of_one):
-    """An IVF engine on a "data" mesh plans the bucket-routed search, which
-    is refused by name at search, plan and build (never a quiet broadcast
-    instead); a mesh that is not a DeviceMesh is refused as such."""
+    """An IVF engine on a "data" mesh plans the bucket-routed search at
+    search, plan and build, ``routed_tiered`` with ``hbm_slots``, and a
+    two-level tree's -1 pads route through it too; on a world of one each
+    gives the single-device executor's ids.  ``routing="broadcast"``
+    ignores the mesh with the reference's note, and a mesh that is not a
+    DeviceMesh is refused as such."""
     from repro_torch.dist import make_mesh
 
     eng, Q = cpu_engine
     mesh = make_mesh((1,), ("data",), device="cpu")
-    for call in (lambda: eng.search(Q, mesh=mesh),
-                 lambda: eng.plan(Q, mesh=mesh),
-                 lambda: eng.search(Q, SearchSpec(hbm_slots=4), mesh=mesh),
-                 lambda: VectorSearchEngine.build(Q, index="ivf", nlist=2, tree=True,
-                                                  capacity=64, mesh=mesh,
-                                                  device="cpu").search(Q)):
-        with pytest.raises(NotImplementedError, match="'Bucket-routed search'"):
-            call()
+    routed = eng.search(Q, mesh=mesh)
+    assert routed.plan.executor == "routed_bucket"
+    assert eng.plan(Q, mesh=mesh).executor == "routed_bucket"
+    spec = SearchSpec(nprobe=eng.spec.nprobe)
+    np.testing.assert_array_equal(routed.ids, eng.search(
+        Q, spec.replace(executor="batch-matmul")).ids)
+    tiered = eng.search(Q, SearchSpec(hbm_slots=4), mesh=mesh)
+    assert tiered.plan.executor == "routed_tiered"
+    np.testing.assert_array_equal(tiered.ids, eng.search(
+        Q, SearchSpec(hbm_slots=4, executor="tiered-scan")).ids)
+    tree = VectorSearchEngine.build(Q, index="ivf", nlist=2, tree=True, capacity=64,
+                                    mesh=mesh, device="cpu")
+    res = tree.search(Q)
+    assert res.plan.executor == "routed_bucket"
+    np.testing.assert_array_equal(res.ids, tree.search(
+        Q, SearchSpec(executor="batch-matmul")).ids)
     assert eng.plan(Q, SearchSpec(routing="broadcast"), mesh=mesh).reason.startswith(
         "mesh ignored: spec.routing='broadcast'")
     with pytest.raises(TypeError, match="DeviceMesh"):
@@ -198,17 +206,15 @@ def test_unported_engine_calls_name_their_roadmap_item(cpu_engine, world_of_one)
 
 
 def test_only_tiered_and_mesh_executors_remain_unported():
-    """The masked, the single-device tiered and the three broadcast mesh
-    executors are ported: ``UNPORTED_EXECUTORS`` lists only the two
-    bucket-routed ones, and the planner takes ``prefer_static`` to
-    ``jit-masked`` on a flat store."""
-    from repro_torch.core.plan import UNPORTED_EXECUTORS, executor_names
+    """Nothing is left unported: the masked, the tiered and all five mesh
+    executors are registered and ``UNPORTED_EXECUTORS`` is gone; the
+    planner takes ``prefer_static`` to ``jit-masked`` on a flat store."""
+    from repro_torch.core import plan
 
     for name in ("jit-masked", "tiered-scan", "block-sharded", "dim-sharded",
-                 "batch-block-sharded"):
-        assert name not in UNPORTED_EXECUTORS
-        assert name in executor_names()
-    assert set(UNPORTED_EXECUTORS) == {"routed_tiered", "routed_bucket"}
+                 "batch-block-sharded", "routed_bucket", "routed_tiered"):
+        assert name in plan.executor_names()
+    assert not hasattr(plan, "UNPORTED_EXECUTORS")
     X, Q = make_dataset(200, 8, "normal", n_queries=1, seed=0)
     flat = VectorSearchEngine.build(X, pruner="linear", capacity=64, device="cpu")
     assert flat.search(Q[0], SearchSpec(prefer_static=True)).plan.executor == "jit-masked"

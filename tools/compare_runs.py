@@ -9,8 +9,9 @@ ratio of the change's mean over the parent's (rows the parent lacks show
 the change's times alone), then each change run's ``tiered`` and
 ``tiered_tree`` phases: walls, hits, bytes and recall per scan dtype, and
 its ``serve`` and ``serve_churn`` phases: QPS, latency, recall, idle share,
-upload overlap and swaps, and its ``routing`` and ``sharded`` phases and
-the ``fused_scan_wall`` medians, in each run given (parent runs too).
+upload overlap and swaps, and its ``routing``, ``sharded`` and ``routed``
+phases and the ``fused_scan_wall`` medians, in each run given (parent
+runs too).
 """
 from __future__ import annotations
 
@@ -44,6 +45,12 @@ def main() -> None:
         for line in lines(path):
             if line.get("phase") in ("routing", "sharded"):
                 print(path, line["phase"], {k: v for k, v in line.items() if k != "phase"})
+            elif line.get("phase") == "routed":
+                print(path, "routed", {k: v for k, v in line.items()
+                                       if k not in ("phase", "routed_tiered")})
+                for dt, rec in line["routed_tiered"].items():
+                    print("    routed_tiered", dt, {k: v for k, v in rec.items()
+                                                    if k != "walls_ms"})
             elif line.get("phase") == "fused_scan_wall":
                 print(path, "fused_scan_wall median ms",
                       {dt: rec.get("ms_per_query_median") for dt, rec in line.items()
