@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main search path on one CUDA card.
+"""Drive the PyTorch/CUDA port's main paths on one CUDA card: vector search,
+and the served LM with retrieval through it.
 
     python3 chip_smoke.py [--n 1000000] [--dim 960] [--seed 0]
 
@@ -157,7 +158,7 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      the exchange plan and ``routed_batch_bytes`` recorded.
   6. mutable (after 4, on the same engine) — the store made mutable
      (``from_store``: masters to the host, the frozen mirrors dropped),
-     10,000 ids drawn from ``--seed`` deleted, 10,000 rows of
+     5,000 ids drawn from ``--seed`` deleted, 5,000 rows of
      ``make_dataset`` (same kind, ``--seed + 2``) inserted in batches of
      200, so flushes fill the freed slots bucket by bucket; then, with
      live write-head rows: the upload and mirror rebuilds timed, and with
@@ -187,6 +188,37 @@ JAX or the JAX package.  Phases, each printing one JSON line:
   7. jit_masked — a flat ADSampling engine over the first 65,536 rows:
      4 queries with ``prefer_static=True`` plan ``jit-masked`` and return
      the ``adaptive`` executor's ids; both run plain PyTorch on the card.
+  8. lm (after 7; the vector engine has left the card) — the served LM,
+     ``repro_torch.serve.GenerationEngine`` over llama3.2-3b at full width
+     (28 layers, d_model 3072, GQA 24/8 heads, d_ff 8192, vocab 128,256,
+     tied embeddings) at f32, the weights drawn on the card from a
+     ``torch.Generator`` seeded with ``--seed``: 8 requests of 16 prompt
+     tokens, 16 new tokens, ``cache_len`` as ``launch/serve.py`` computes
+     it.  Recorded: params and bytes, prefill ms, decode ms per token
+     (median over the steps) beside its byte bound, tokens/s, peak device
+     memory, one decode step's and one prefill's device time by kernel and
+     idle share (``torch.profiler``), and the same generation with bf16
+     weights (tokens/s, share of greedy tokens equal to f32's; not held).  Held: two ``generate`` calls
+     give equal tokens; prefill + one decode equals the parallel forward at
+     rtol 2e-2 / atol 2e-3 (the reference's teacher-forcing test).  The LM
+     is plain PyTorch: the reference computes it in plain JAX, with no
+     Pallas kernel.
+  9. rag (after 8, on its engine) — ``repro_torch.serve.RagPipeline.build``
+     over 4,096 documents of 32 tokens (the LM embeds them in chunks of 32;
+     a flat ADSampling store of capacity 256 at D = 3072 on the card), then
+     ``answer`` on phase 8's requests (``retrieve_k = 1``).  With the launch
+     counters zeroed just before each call and read just after: 64 sampled
+     documents as one query batch (``fused-batch``, exactly one K2) and 16
+     of them one at a time (``fused-scan``, one K1 each); ``answer``'s
+     batch of 8 (one K2).  Held: each document retrieves itself at rank 0,
+     recall@10 >= 0.99 (batch) and >= 0.95 (single) against a ground truth
+     of direct f32 differences on the card, returned distances exact (1e-3
+     relative; within K2's rounding scale 1e-5 (||q||^2 + ||x||^2) where
+     the distance is 0), the retrieval counter's ``executor`` label,
+     ``add_documents`` of 3 documents returning ids 4096-4098 that each
+     retrieve themselves, and K1 and K2 at the store's shape against their
+     plain versions.  Recorded: embed and store build seconds, retrieve
+     and search ms at B = 64 and B = 1, ``answer``'s wall and tokens/s.
   5. the kernels line: one JSON object per kernel and dtype (K4 and K5 by
      metric over the Table 4 sweep, K4 and K6 on the flat block, K7 by
      dtype and metric, K2 on the tiered pool by dtype); the K1, K2 and K3
@@ -196,7 +228,9 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      batch-block-sharded runs) and ``launches_routed`` (phase 5f's runs;
      K2 at the spilled exchange's 48 rows is a row of its own), and the
      K1, K2 and K3 rows on
-     phase 5c's serving path ``launches_serve``.
+     phase 5c's serving path ``launches_serve``; K1 and K2 at the RAG
+     store's shape (phase 9, D = 3072, C = 256) are rows of their own,
+     with ``launches_rag``.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last
 line ``{"ok": true, "device": {...}}``.  Any failure raises and exits
@@ -273,8 +307,10 @@ LADDERS = {"A": ("proj32:int8", "int4", "f32"), "B": ("bf16", "int8", "f32")}
 CASCADE_RECALL_FLOOR = 0.99
 
 # phase mutable: ids deleted, rows inserted (in batches), inserted rows
-# queried as themselves; phase jit_masked: rows of its flat engine, queries
-MUT_DELETE, MUT_INSERT, MUT_BATCH, MUT_SELF = 10_000, 10_000, 200, 16
+# queried as themselves (10,000 and 10,000 until the LM phases came: the
+# inserts' fallback repacks are host-bound, about 190 s of the script);
+# phase jit_masked: rows of its flat engine, queries
+MUT_DELETE, MUT_INSERT, MUT_BATCH, MUT_SELF = 5_000, 5_000, 200, 16
 MASKED_ROWS, MASKED_QUERIES = 65_536, 4
 
 # phase tiered (benchmarks/bench_tiered.py's serving premise): queries, batch,
@@ -305,6 +341,17 @@ SHARDED_SINGLE = 4
 # phase routed: the spilled batch (40 rows of one rank's demand spill into
 # two exchange rounds, 32 + 16) and the recall floor within the routed buckets
 ROUTED_SPILL, ROUTED_RECALL_FLOOR = 40, 0.99
+# phases lm and rag: the served LM at full width (f32, the reference
+# launcher's dtype), its requests, prompt and new tokens (cache_len as
+# ``launch/serve.py`` computes it); the RAG store's documents, their length,
+# the retrieval batch, the single queries, the documents added live, the
+# timed repetitions and the recall floors (fused-scan, fused-batch: the main
+# path's); the prefill + decode tolerance of the reference's teacher-forcing
+# test (tests/test_models_smoke.py)
+LM_ARCH, LM_REQUESTS, LM_PROMPT, LM_NEW = "llama3.2-3b", 8, 16, 16
+RAG_DOCS, RAG_DOC_LEN, RAG_BATCH, RAG_SINGLE, RAG_ADD, RAG_REPS = 4096, 32, 64, 16, 3, 5
+RAG_RECALL_FLOORS = (0.95, 0.99)
+TEACHER_RTOL, TEACHER_ATOL = 2e-2, 2e-3
 
 
 def emit(obj: dict) -> None:
@@ -1408,8 +1455,8 @@ def mutable_round(torch, eng, Q, Qd, Xall, gt, dead, own, own_ids, counters,
 
 
 def mutable_phase(torch, eng, Xd, Q, Qd, seed: int, counters: dict) -> tuple[list, dict, dict]:
-    """The mutable store on the main path's IVF engine: 10,000 ids chosen at
-    random from ``seed`` deleted, 10,000 new rows (``make_dataset``, the
+    """The mutable store on the main path's IVF engine: MUT_DELETE ids chosen
+    at random from ``seed`` deleted, MUT_INSERT new rows (``make_dataset``, the
     same kind, seed + 2) inserted in batches of 200 (flushes through
     free-slot fill), then ``mutable_round`` with live write-head rows, then
     ``compact()`` and ``mutable_round`` again.  The ground truth is that of
@@ -2746,6 +2793,291 @@ def routed_phase(torch, ref, eng, Q, Qd, Xd, seed: int, k2, mesh) -> tuple[list,
     return rows, by_row
 
 
+def synced(torch, fn):
+    """(fn(), host ms) with the card synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def lm_phase(torch, dev, cfg, seed: int) -> tuple[dict, object, dict]:
+    """The served LM at full width: params drawn on the card from a seeded
+    ``torch.Generator`` at f32, ``GenerationEngine.generate`` on LM_REQUESTS
+    prompts of LM_PROMPT tokens for LM_NEW new tokens.  Recorded: params and
+    their bytes, prefill ms, decode ms per token (median over the steps)
+    beside its byte bound (every weight read once a step), tokens/s, peak
+    device memory beside what was allocated before the params, one decode step's and one prefill's device time by
+    kernel (``device_profile``); the same generation with bf16 weights (its
+    tokens/s and the share of greedy tokens equal to f32's, not held).  Two
+    ``generate`` calls give equal tokens; prefill + one decode equals the
+    parallel forward at the reference test's tolerance.  -> (line, engine,
+    the request batch)."""
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import GenerationEngine
+
+    model = build_model(cfg)
+    before = torch.cuda.memory_allocated()  # what earlier phases left
+    params, init_ms = synced(torch, lambda: model.init(
+        torch.Generator(device=dev).manual_seed(seed), device=dev))
+    leaves = _tensors(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    cache_len = LM_PROMPT * 3 + LM_NEW + 8  # launch/serve.py
+    eng = GenerationEngine(model=model, params=params, cache_len=cache_len)
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)}
+    eng.generate(batch, max_new_tokens=2)  # warm the libraries, uncounted
+    torch.cuda.reset_peak_memory_stats()
+
+    with torch.no_grad():
+        (logits, caches), prefill_ms = synced(
+            torch, lambda: model.prefill(params, batch, cache_len))
+        step_ms = []
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        for t in range(LM_NEW - 1):
+            (logits, caches), ms = synced(torch, lambda: model.decode_step(
+                params, tok, caches, LM_PROMPT + t))
+            step_ms.append(ms)
+            tok = torch.argmax(logits, dim=-1)[:, None]
+        # where a step's time goes: one decode step (rewriting the last
+        # row) and one prefill under torch.profiler
+        prof_decode = device_profile(torch, lambda: model.decode_step(
+            params, tok, caches, LM_PROMPT + LM_NEW - 1))
+        prof_prefill = device_profile(torch, lambda: model.prefill(params, batch, cache_len))
+    del caches, logits
+    out, gen_ms = synced(torch, lambda: eng.generate(batch, max_new_tokens=LM_NEW))
+    again = eng.generate(batch, max_new_tokens=LM_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    assert np.array_equal(out, again), "two generate calls disagree"
+
+    # prefill of all but the last token + one decode of it == the parallel
+    # forward's last-token logits
+    with torch.no_grad():
+        h = model.forward_train(params, batch)
+        par = (h[:, -1, :] @ model._head(params)).cpu().numpy()
+        del h
+        _, caches = model.prefill(params, {"tokens": batch["tokens"][:, :-1]}, cache_len)
+        dec, _ = model.decode_step(params, batch["tokens"][:, -1:], caches, LM_PROMPT - 1)
+        dec = dec.cpu().numpy()
+        del caches
+    tf_err = float(np.abs(par - dec).max())
+    tf_ok = bool(np.allclose(dec, par, rtol=TEACHER_RTOL, atol=TEACHER_ATOL))
+
+    # the same generation with bf16 weights (the reference's init(dtype=))
+    p16 = model.init(torch.Generator(device=dev).manual_seed(seed), torch.bfloat16, device=dev)
+    eng16 = GenerationEngine(model=model, params=p16, cache_len=cache_len)
+    eng16.generate(batch, max_new_tokens=2)
+    out16, gen16_ms = synced(torch, lambda: eng16.generate(batch, max_new_tokens=LM_NEW))
+    del eng16, p16
+    torch.cuda.empty_cache()
+
+    decode_ms = statistics.median(step_ms)
+    bound, by = bound_ms(param_bytes, 2.0 * n_params * LM_REQUESTS)
+    line = {"phase": "lm", "arch": cfg.name, "dtype": "f32", "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+            "d_ff": cfg.d_ff, "vocab": cfg.vocab, "params": n_params,
+            "param_bytes": param_bytes, "init_ms": init_ms,
+            "requests": LM_REQUESTS, "prompt_tokens": LM_PROMPT, "new_tokens": LM_NEW,
+            "cache_len": cache_len, "prefill_ms": prefill_ms,
+            "decode_ms_per_token_median": decode_ms, "decode_ms_min": min(step_ms),
+            "decode_ms_max": max(step_ms), "decode_bound_ms": bound,
+            "decode_bound_by": by, "decode_share_of_bound": bound / decode_ms,
+            "generate_ms": gen_ms, "tokens_per_s": LM_REQUESTS * LM_NEW / (gen_ms / 1e3),
+            "peak_device_memory_gb": peak / 1e9,
+            "device_memory_before_init_gb": before / 1e9, "repeat_generate_equal": True,
+            "decode_profile": prof_decode, "prefill_profile": prof_prefill,
+            "teacher_forcing_max_abs_err": tf_err, "teacher_forcing_ok": tf_ok,
+            "bf16": {"generate_ms": gen16_ms,
+                     "tokens_per_s": LM_REQUESTS * LM_NEW / (gen16_ms / 1e3),
+                     "greedy_tokens_equal_to_f32": float((out16 == out).mean())},
+            "first_row": out[0].tolist()}
+    assert tf_ok, f"prefill + decode off the parallel forward by {tf_err}"
+    return line, eng, batch
+
+
+def _tensors(tree: dict) -> list:
+    """Every tensor of a nested param dict."""
+    return [t for v in tree.values() for t in (_tensors(v) if isinstance(v, dict) else [v])]
+
+
+def rag_phase(torch, ref, eng, batch, seed: int, counters: dict,
+              n_docs: int = RAG_DOCS) -> tuple[dict, list]:
+    """``RagPipeline.build`` over ``n_docs`` documents of RAG_DOC_LEN tokens
+    (the LM embeds them, the flat ADSampling store of capacity 256 takes the
+    embeddings on the LM's device), then ``answer`` on the lm phase's
+    requests with ``retrieve_k = 1``.  With the launch counters zeroed just
+    before each call and read just after: RAG_BATCH sampled documents as
+    one query batch (``fused-batch``, exactly one K2) and the first
+    RAG_SINGLE of them one at a time (``fused-scan``, one K1 each).  Held:
+    each document retrieves itself at rank 0; recall@10 against a ground
+    truth of direct f32 differences on the card at the main path's floors;
+    returned distances exact (1e-3 relative, where the direct distance is
+    0 within K2's rounding scale 1e-5 (||q||^2 + ||x||^2)); the retrieval
+    counter's executor label; ``add_documents`` of RAG_ADD documents returns
+    consecutive ids that each retrieve themselves; K1 and K2 at the store's
+    shape against their plain versions.  Recorded besides: the embedding's
+    and the store build's seconds, one embedding chunk's device profile,
+    retrieve and search walls at B = RAG_BATCH and 1, ``answer``'s wall.
+    -> (line, kernel rows)."""
+    import dataclasses
+
+    from repro_torch.core.engine import SearchSpec
+    from repro_torch.core.layout import device_mirror
+    from repro_torch.core.plan import _start
+    from repro_torch.core.topk import topk_threshold
+    from repro_torch.obs import metrics
+    from repro_torch.serve import RagPipeline
+
+    k1, k2 = counters["k1"], counters["k2"]
+    cfg = eng.model.cfg
+    dev = eng.device
+    rng = np.random.default_rng(seed + 3)
+    docs = rng.integers(0, cfg.vocab, (n_docs, RAG_DOC_LEN)).astype(np.int32)
+    sel = rng.choice(n_docs, RAG_BATCH, replace=False)
+
+    # build, with the LM's embedding calls timed (and their outputs kept:
+    # the ground truth's rows) apart from the store's build
+    embed = CallTimer(eng.embed)
+    rows = []
+
+    def recording(b):
+        rows.append(embed(b))
+        return rows[-1]
+
+    eng.embed = recording
+    try:
+        rag, build_ms = synced(torch, lambda: RagPipeline.build(eng, docs, device=dev))
+    finally:
+        del eng.embed
+    assert rag.store.device == dev and rag.store.store.data.shape[1:] == (cfg.d_model, 256)
+    Xd = torch.from_numpy(np.concatenate(rows)).to(dev)
+    del rows
+    prof_embed = device_profile(torch, lambda: eng.embed({"tokens": docs[:32]}))
+    rag10 = dataclasses.replace(rag, retrieve_k=K)
+
+    def counted(fn):
+        k1.launches = k2.launches = 0
+        out = fn()
+        return out, k1.launches, k2.launches
+
+    qbatch = {"tokens": docs[sel]}
+    metrics.set_enabled(True)
+    try:
+        before = metrics.get_registry().get("repro_rag_retrievals_total", executor="fused-batch")
+        ids_b, b_k1, b_k2 = counted(lambda: rag10.retrieve(qbatch))
+        counted_b = metrics.get_registry().get("repro_rag_retrievals_total",
+                                               executor="fused-batch") - before
+    finally:
+        metrics.set_enabled(False)
+    assert (b_k1, b_k2) == (0, 1), f"the batch of {RAG_BATCH} launched K1 {b_k1}, K2 {b_k2}"
+    assert counted_b == RAG_BATCH, f"retrievals counted as fused-batch: {counted_b}"
+    singles = []
+    for i in range(RAG_SINGLE):
+        ids_s, s_k1, s_k2 = counted(lambda: rag10.retrieve({"tokens": docs[sel[i:i + 1]]}))
+        assert (s_k1, s_k2) == (1, 0), f"single query {i}: K1 {s_k1}, K2 {s_k2}"
+        singles.append(ids_s[0])
+    ids_s = np.stack(singles)
+    Q = eng.embed(qbatch)
+    Qd = torch.from_numpy(Q).to(dev)
+    spec = rag.store.spec.replace(k=K)
+    plan_b = rag.store.plan(Q)
+    plan_s = rag.store.plan(Q[:1])
+    assert plan_b.executor == "fused-batch" and plan_s.executor == "fused-scan", (plan_b, plan_s)
+    res_b = rag.store.search(Q, spec)
+    res_s = [rag.store.search(Q[i], spec) for i in range(RAG_SINGLE)]
+    assert np.array_equal(res_b.ids, ids_b), "retrieve and search disagree on the batch"
+    self_b = int((ids_b[:, 0] == sel).sum())
+    self_s = int((ids_s[:, 0] == sel[:RAG_SINGLE]).sum())
+    gt = ground_truth(torch, Xd, Qd, K)
+    r_b, r_s = recall(ids_b, gt), recall(ids_s, gt[:RAG_SINGLE])
+    err_b = rag_dist_error(torch, Xd, Qd, res_b.ids, res_b.dists)
+    err_s = rag_dist_error(torch, Xd, Qd[:RAG_SINGLE], np.stack([r.ids for r in res_s]),
+                           np.stack([r.dists for r in res_s]))
+
+    # walls: retrieve (the LM's embedding included) and the search alone
+    def median_ms(fn):
+        return statistics.median(synced(torch, fn)[1] for _ in range(RAG_REPS))
+
+    walls = {"retrieve_ms_b64": median_ms(lambda: rag.retrieve(qbatch)),
+             "retrieve_ms_b1": median_ms(lambda: rag.retrieve({"tokens": docs[sel[:1]]})),
+             "search_ms_b64": median_ms(lambda: rag.store.search(Q, rag.store.spec)),
+             "search_ms_b1": median_ms(lambda: rag.store.search(Q[0], rag.store.spec))}
+    ((out, doc_ids), a_k1, a_k2), answer_ms = synced(
+        torch, lambda: counted(lambda: rag.answer(batch, LM_NEW)))
+    assert out.shape == (LM_REQUESTS, LM_NEW) and doc_ids.shape == (LM_REQUESTS, 1)
+    assert (a_k1, a_k2) == (0, 1), f"answer's retrieval launched K1 {a_k1}, K2 {a_k2}"
+
+    # K1 and K2 at the store's shape against their plain versions
+    store, pruner = rag.store.store, rag.store.pruner
+    m = device_mirror(store, "f32")
+    qt, p0, start = _start(store, pruner, Qd[0], spec, None)
+    ids_scan = store.ids.clone()
+    ids_scan[p0] = -1
+    tag = f"f32 rag D={store.dim} C={store.capacity}"
+    rows_k = [scan_kernel_row(torch, ref, m, ids_scan, qt, topk_threshold(start),
+                              float(pruner.aux["eps0"]), prefetch=False, launches=RAG_SINGLE,
+                              tag=tag)]
+    rows_k.append(k2_kernel_row(torch, ref, m.data, pruner.transform_batch(Qd), None, None,
+                                False, m.dim, "f32", f"K2 batched_distance_quant [{tag}]",
+                                b_k2 + a_k2, (store.ids >= 0).reshape(-1)))
+    del m, ids_scan
+
+    # documents added live: consecutive ids, each its own rank 0 (fused-scan
+    # on the mutable store's write-head)
+    new = rng.integers(0, cfg.vocab, (RAG_ADD, RAG_DOC_LEN)).astype(np.int32)
+    new_ids, add_ms = synced(torch, lambda: rag.add_documents(new))
+    new_self = []
+    for j in range(RAG_ADD):
+        got, n_k1, _ = counted(lambda: rag.retrieve({"tokens": new[j:j + 1]}))
+        assert n_k1 == 1, f"new document {j}: K1 launched {n_k1} times"
+        new_self.append(int(got[0, 0]))
+    # a row's launches: the phase's counted runs (K1: the singles and the
+    # added documents' queries; K2: the batch and answer's retrieval)
+    for row, n in zip(rows_k, (RAG_SINGLE + RAG_ADD, b_k2 + a_k2)):
+        row["launches"] = row["launches_rag"] = n
+
+    line = {"phase": "rag", "docs": n_docs, "doc_tokens": RAG_DOC_LEN, "dim": cfg.d_model,
+            "capacity": store.capacity, "partitions": store.num_partitions,
+            "pruner": pruner.name, "embed_s": embed.seconds, "embed_calls": embed.calls,
+            "embed_tokens_per_s": n_docs * RAG_DOC_LEN / embed.seconds,
+            "embed_chunk_profile": prof_embed,
+            "store_build_s": build_ms / 1e3 - embed.seconds, "build_s": build_ms / 1e3,
+            "batch_executor": plan_b.executor, "single_executor": plan_s.executor,
+            "batch_launches": {"k1": b_k1, "k2": b_k2}, "single_launches_each": {"k1": 1},
+            "self_retrieved_batch": self_b, "self_retrieved_single": self_s,
+            "recall_at_10_batch": r_b, "recall_at_10_single": r_s,
+            "dist_rel_err_batch": err_b, "dist_rel_err_single": err_s,
+            **walls, "answer_ms": answer_ms,
+            "answer_tokens_per_s": LM_REQUESTS * LM_NEW / (answer_ms / 1e3),
+            "answer_launches": {"k1": a_k1, "k2": a_k2}, "answer_doc_ids": doc_ids[:, 0].tolist(),
+            "added_ids": np.asarray(new_ids).tolist(), "added_self": new_self,
+            "add_documents_ms": add_ms}
+    emit(line)
+    assert self_b == RAG_BATCH and self_s == RAG_SINGLE, (self_b, self_s)
+    f_s, f_b = RAG_RECALL_FLOORS
+    assert r_b >= f_b and r_s >= f_s, f"RAG recall@10 batch {r_b}, single {r_s}"
+    assert max(err_b, err_s) <= 1e-3, f"RAG returned distances off: {err_b}, {err_s}"
+    assert np.asarray(new_ids).tolist() == list(range(n_docs, n_docs + RAG_ADD)), new_ids
+    assert new_self == list(range(n_docs, n_docs + RAG_ADD)), new_self
+    return line, rows_k
+
+
+def rag_dist_error(torch, X, Q, ids, dists) -> float:
+    """Largest |returned - direct f32 distance| / max(direct, 1e-2 (||q||^2 +
+    ||x||^2)): held to 1e-3, that is relative where the distance is not near
+    0, and within K2's rounding scale 1e-5 (||q||^2 + ||x||^2) where it is
+    (a document queried as itself)."""
+    ids_t = torch.from_numpy(ids.astype(np.int64)).to(X.device)
+    vecs = X[ids_t]                                         # (B, k, D)
+    diff = vecs - Q[:, None, :]
+    true = torch.sum(diff * diff, dim=2)
+    floor = 1e-2 * (torch.sum(Q * Q, dim=1)[:, None] + torch.sum(vecs * vecs, dim=2))
+    got = torch.from_numpy(dists).to(X.device)
+    return float(((got - true).abs() / torch.maximum(true, floor)).max())
+
+
 def recall(found, true) -> float:
     found, true = found.reshape(len(true), -1), true
     hits = sum(len(set(f.tolist()) & set(t.tolist())) for f, t in zip(found, true))
@@ -3057,6 +3389,20 @@ def main() -> int:
                 row.setdefault("launches_mutable", {})[tag] = counts[row["name"]]
         if row["name"] in serve_launches:
             row["launches_serve"] = serve_launches[row["name"]]
+
+    # --------------------------------------- 8. the served LM, 9. RAG
+    # the vector engine leaves the card: the LM's 12.85 GB of f32 take it
+    del eng
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    lm_line, lm_eng, lm_batch = lm_phase(torch, dev, get_config(LM_ARCH), args.seed)
+    emit({**lm_line, "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    _, rag_rows = rag_phase(torch, ref, lm_eng, lm_batch, args.seed, counters)
+    emit({"phase": "rag_done", "seconds": time.perf_counter() - t0})
+    kernels += rag_rows
+    del lm_eng
 
     # ----------------------------------------------------- 4. the record
     emit({"kernels": kernels + paper_rows})

@@ -1,0 +1,21 @@
+"""granite-3-8b [dense] — 40L d_model=4096 32H (GQA kv=8) d_ff=12800
+vocab=49155 [hf:ibm-granite/granite-3.0-8b-base; hf]."""
+from .base import ArchConfig, register
+
+
+@register
+def config() -> ArchConfig:
+    return ArchConfig(
+        name="granite-3-8b",
+        family="dense",
+        n_layers=40,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=12800,
+        vocab=49155,
+        act="silu",
+        rope_theta=10_000.0,
+        tie_embeddings=True,
+    )

@@ -22,6 +22,13 @@ no k-means or rotation of the port's own in between.  Keys:
 this package or of the reference, whose store keeps the same fields — as
 NumPy arrays, and ``mutable_store_from_arrays`` builds the port's store
 from them, so both packages can start from one churned state.
+
+``lm_params_from_arrays`` carries an LM's weights across: the reference's
+params pytree as NumPy arrays (``jax.tree.map(np.asarray, params)``) in,
+the port's params on ``device`` holding the same numbers out.  Both keep
+weights (in, out) and multiply ``x @ w``, so nothing is transposed.  This
+is the only place weights cross between the packages: the reference's
+``jax.random`` init cannot be reproduced in torch.
 """
 from __future__ import annotations
 
@@ -40,8 +47,9 @@ from .core.pruners import (
 )
 from .core.spec import SearchSpec
 from .index.ivf import IVFIndex
+from .models.lm import build_model
 
-__all__ = ["engine_from_arrays", "mutable_store_arrays",
+__all__ = ["engine_from_arrays", "lm_params_from_arrays", "mutable_store_arrays",
            "mutable_store_from_arrays"]
 
 # MutablePDXStore state: public attributes, then private ones (``_`` + key)
@@ -152,3 +160,34 @@ def engine_from_arrays(arrays: dict, *, device, spec: SearchSpec | None = None
         spec=spec if spec is not None else SearchSpec(), ivf=ivf,
         zone_size=int(arrays.get("zone_size", 0)),
     )
+
+
+def _tensor(a, dev) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: exact through f32
+        return torch.from_numpy(a.astype(np.float32)).to(dev, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def lm_params_from_arrays(cfg, arrays: dict, device=None) -> dict:
+    """The port's LM params on ``device`` (``None`` means the CUDA card)
+    holding exactly the reference's numbers.  ``arrays`` is the nested
+    params dict: ``embed`` (V, d), ``final_norm``, ``lm_head`` when the
+    embeddings are untied, ``stack{i}`` -> ``sub{j}`` -> ``{norm, wq, wk,
+    wv, wo, bq, bk, bv, w_gate, w_up, w_down}`` with a leading unit axis.
+    Keys and shapes are checked against the params ``build_model(cfg)``
+    draws; a missing, extra or misshapen array raises."""
+    dev = resolve_device(device)
+    want = build_model(cfg).param_shapes()
+
+    def convert(a, w, path):
+        if isinstance(w, dict):
+            if not isinstance(a, dict) or set(a) != set(w):
+                got = sorted(a) if isinstance(a, dict) else type(a).__name__
+                raise ValueError(f"{path or 'params'}: keys {got}, the model's are {sorted(w)}")
+            return {k: convert(a[k], w[k], f"{path}.{k}".lstrip(".")) for k in w}
+        if tuple(np.shape(a)) != w:
+            raise ValueError(f"{path}: shape {tuple(np.shape(a))}, the model's is {w}")
+        return _tensor(a, dev)
+
+    return convert(arrays, want, "")

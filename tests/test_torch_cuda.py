@@ -1125,3 +1125,74 @@ def test_routed_executors_on_a_world_of_one(dev):
                       {"all_to_all": 2, "all_gather": 1}]
     np.testing.assert_array_equal(t_got.ids, t_want.ids)
     np.testing.assert_array_equal(t_got.dists, t_want.dists)
+
+
+# ------------------------------------------------- LM serving and RAG
+def _lm_pair(dev, cache_len=96):
+    """A reduced llama3.2-3b drawn once on the CPU, and the same weights on
+    the card, each in a ``GenerationEngine``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import GenerationEngine
+
+    cfg = get_config("llama3.2-3b").reduced()
+    model = build_model(cfg)
+    cpu_p = model.init(torch.Generator().manual_seed(0), device="cpu")
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d) for k, v in tree.items()}
+
+    return (cfg, GenerationEngine(model=model, params=cpu_p, cache_len=cache_len),
+            GenerationEngine(model=model, params=to(cpu_p, dev), cache_len=cache_len))
+
+
+def test_generation_on_the_card_equals_the_cpu(dev):
+    """Greedy tokens equal, prefill and decode logits within 1e-5 + 1e-4
+    |cpu| (f32 with TF32 off: the same products summed in another order),
+    on the same weights."""
+    cfg, cpu, gpu = _lm_pair(dev)
+    batch = {"tokens": np.random.default_rng(0).integers(0, cfg.vocab, (3, 8)).astype(np.int32)}
+    np.testing.assert_array_equal(gpu.generate(batch, max_new_tokens=5),
+                                  cpu.generate(batch, max_new_tokens=5))
+    lc, cc = cpu.model.prefill(cpu.params, batch, 16)
+    lg, cg = gpu.model.prefill(gpu.params, batch, 16)
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4, atol=1e-5)
+    tok = torch.argmax(lc, -1)[:, None]
+    lc, _ = cpu.model.decode_step(cpu.params, tok, cc, 8)
+    lg, _ = gpu.model.decode_step(gpu.params, tok.to(dev), cg, 8)
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(gpu.embed(batch), cpu.embed(batch), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("pruner", ["adsampling", "bond"])
+def test_rag_on_the_card_retrieves_the_cpu_ids(dev, pruner):
+    """The same documents and queries: on the card a batch plans
+    ``fused-batch`` (one K2 launch) and a single query ``fused-scan`` (one
+    K1 launch); on the CPU ``batch-matmul`` and ``adaptive``.  Both return
+    the same ids, and the answers' doc ids and tokens are equal."""
+    from repro_torch.serve import RagPipeline
+
+    cfg, cpu, gpu = _lm_pair(dev)
+    rng = np.random.default_rng(1)
+    docs = rng.integers(0, cfg.vocab, (40, 12)).astype(np.int32)
+    crag = RagPipeline.build(cpu, docs, pruner=pruner, retrieve_k=3, device="cpu")
+    grag = RagPipeline.build(gpu, docs, pruner=pruner, retrieve_k=3, device=dev)
+    assert grag.store.device.type == "cuda"
+    q = {"tokens": rng.integers(0, cfg.vocab, (4, 8)).astype(np.int32)}
+    for batch, executor in ((q, "fused-batch"), ({"tokens": q["tokens"][:1]}, "fused-scan"),
+                            ({"tokens": docs[[2, 9, 31]]}, "fused-batch")):
+        emb = gpu.embed(batch)
+        assert grag.store.plan(emb).executor == executor
+        n0 = (pdx_prune_scan_multi_cuda.launches, batched_distance_quant_cuda.launches)
+        got = grag.retrieve(batch)
+        k1 = pdx_prune_scan_multi_cuda.launches - n0[0]
+        k2 = batched_distance_quant_cuda.launches - n0[1]
+        assert (k1, k2) == ((0, 1) if executor == "fused-batch" else (1, 0))
+        np.testing.assert_array_equal(got, crag.retrieve(batch))
+    out, ids = grag.answer(q, max_new_tokens=3)
+    want_out, want_ids = crag.answer(q, max_new_tokens=3)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(out, want_out)
+    new = rng.integers(0, cfg.vocab, (3, 12)).astype(np.int32)
+    assert grag.add_documents(new).tolist() == [40, 41, 42]
+    assert grag.retrieve({"tokens": new[1:2]})[0, 0] == 41

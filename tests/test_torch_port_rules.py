@@ -108,6 +108,46 @@ def test_every_builder_without_device_raises_when_cuda_is_absent(monkeypatch, bu
         calls[builder]()
 
 
+@pytest.mark.parametrize("builder", [
+    "LMModel.init", "lm_params_from_arrays", "RagPipeline.build", "make_concrete_batch",
+    "init_caches",
+])
+def test_every_lm_builder_without_device_raises_when_cuda_is_absent(monkeypatch, builder):
+    """The LM side keeps the rule: its params, batches, caches and the RAG
+    store go to the card unless ``device`` says otherwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import make_concrete_batch
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import GenerationEngine, RagPipeline
+
+    cfg = get_config("llama3.2-3b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    arrays = {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in params.items()}
+    docs = np.zeros((2, 4), np.int32)
+    calls = {
+        "LMModel.init": lambda: model.init(torch.Generator().manual_seed(0)),
+        "lm_params_from_arrays": lambda: convert.lm_params_from_arrays(cfg, arrays),
+        "RagPipeline.build": lambda: RagPipeline.build(
+            GenerationEngine(model=model, params=params, cache_len=16), docs),
+        "make_concrete_batch": lambda: make_concrete_batch(cfg, 8, 2, "train"),
+        "init_caches": lambda: model.init_caches(2, 16),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[builder]()
+
+
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "deepseek-v3-671b", "internvl2-1b",
+                                  "jamba-v0.1-52b", "mamba2-370m", "whisper-small"])
+def test_build_model_refuses_an_unported_family_naming_its_roadmap_item(name):
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules queue item 3"):
+        build_model(get_config(name))
+
+
 @pytest.fixture(scope="module")
 def cpu_engine():
     X, Q = make_dataset(300, 12, "normal", n_queries=2, seed=1)

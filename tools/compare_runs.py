@@ -9,9 +9,10 @@ ratio of the change's mean over the parent's (rows the parent lacks show
 the change's times alone), then each change run's ``tiered`` and
 ``tiered_tree`` phases: walls, hits, bytes and recall per scan dtype, and
 its ``serve`` and ``serve_churn`` phases: QPS, latency, recall, idle share,
-upload overlap and swaps, and its ``routing``, ``sharded`` and ``routed``
-phases and the ``fused_scan_wall`` medians, in each run given (parent
-runs too).
+upload overlap and swaps, its ``lm`` and ``rag`` phases with their
+profiles' busy and idle time, and its ``routing``, ``sharded`` and
+``routed`` phases and the ``fused_scan_wall`` medians, in each run given
+(parent runs too).
 """
 from __future__ import annotations
 
@@ -92,6 +93,14 @@ def main() -> None:
                     "clone_s", "repack_s", "swaps_adopted", "swaps_discarded",
                     "rows_replayed", "first_batch_after_swap_ms", "recall_at_10",
                     "setups_after_warmup_by_kind", "self_rank0", "deleted_ids_returned")})
+            elif line.get("phase") in ("lm", "rag"):
+                print(path, line["phase"], {k: v for k, v in line.items()
+                                            if k != "phase" and not k.endswith("profile")})
+                for k, prof in line.items():
+                    if k.endswith("profile"):
+                        print("   ", k, {f: prof[f] for f in ("wall_ms", "device_busy_ms",
+                                                              "device_idle_share")},
+                              [(t["kernel"][:40], round(t["ms"], 3)) for t in prof["top"][:4]])
             elif line.get("phase", "").endswith("_done") and "seconds" in line:
                 print(path, line["phase"], line["seconds"])
 
