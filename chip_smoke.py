@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one CUDA card: vector search,
-and the served LM with retrieval through it.
+the served LM with retrieval through it, and the LM's training.
 
     python3 chip_smoke.py [--n 1000000] [--dim 960] [--seed 0]
 
@@ -219,6 +219,29 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      retrieve themselves, and K1 and K2 at the store's shape against their
      plain versions.  Recorded: embed and store build seconds, retrieve
      and search ms at B = 64 and B = 1, ``answer``'s wall and tokens/s.
+  10. train (after 9, on phase 8's params; phase 9's store released) —
+     llama3.2-3b at full width trained by ``repro_torch.train``: AdamW
+     (lr 1e-4, no warmup) with remat, 8 steps on one
+     ``TokenStream(cfg, 256, 8, seed)`` batch placed on the main thread.
+     Held: the chunked loss equals ``F.cross_entropy`` over the full logits
+     of the same hidden states at rtol 1e-5, every loss and grad norm
+     finite, the last loss below the first, two ``generate`` calls on the
+     trained params equal, no kernel of the port launched.  Recorded: the
+     losses, the step's median ms (forward+backward and optimizer apart),
+     tokens/s, the share of the 67 TFLOP/s f32 peak at 6 N T and 8 N T
+     FLOP, the optimizer beside its byte bound (7 x 4 B a param at 3.35
+     TB/s), peak memory, the last step's device profile, the generated
+     tokens that changed from phase 8's.  ``train_2l``: the same width at
+     2 layers, B = 8, S = 256: ``accum_steps=4`` against 1 (loss and
+     grads rtol 1e-4; at lr 1e-4 the params' difference's ``global_norm``
+     < 1e-3, at the reference test's lr 1e-3 recorded), remat on against
+     off (grads allclose, the gap recorded), 3 ``compress_grads`` steps
+     holding the error-feedback identity within 1e-4, an Adafactor step
+     finite.  ``train_reduced``: ``cfg.reduced()`` overfits one batch in
+     20 steps by more than 0.5 (AdamW, ``compress_grads``), and
+     ``train_loop`` resumed from its ``ckpt_dir`` at step 3 equals the
+     uninterrupted 6 steps bit for bit (a subprocess under
+     ``torch.use_deterministic_algorithms(True)``).
   5. the kernels line: one JSON object per kernel and dtype (K4 and K5 by
      metric over the Table 4 sweep, K4 and K6 on the flat block, K7 by
      dtype and metric, K2 on the tiered pool by dtype); the K1, K2 and K3
@@ -240,6 +263,7 @@ repository beside it, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -352,6 +376,17 @@ LM_ARCH, LM_REQUESTS, LM_PROMPT, LM_NEW = "llama3.2-3b", 8, 16, 16
 RAG_DOCS, RAG_DOC_LEN, RAG_BATCH, RAG_SINGLE, RAG_ADD, RAG_REPS = 4096, 32, 64, 16, 3, 5
 RAG_RECALL_FLOORS = (0.95, 0.99)
 TEACHER_RTOL, TEACHER_ATOL = 2e-2, 2e-3
+# phase train: the full-width batch, sequence, steps and learning rate
+# (AdamW, no warmup, remat on); the chunked loss's tolerance against the
+# full logits; the 2-layer phase's accumulation bars (the reference's,
+# tests/test_train.py), compressed steps and error-feedback bar; the
+# reduced config's overfit steps and the loss drop they must reach;
+# AdamW's bytes a param (read p, g, mu, nu; write p, mu, nu; f32)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 256, 8, 1e-4
+CE_RTOL, ACCUM_RTOL, ACCUM_PARAM_BAR, ACCUM_REF_LR = 1e-5, 1e-4, 1e-3, 1e-3
+EF_STEPS, EF_BAR = 3, 1e-4
+OVERFIT_STEPS, OVERFIT_DROP = 20, 0.5
+OPT_BYTES_PER_PARAM = 7 * 4
 
 
 def emit(obj: dict) -> None:
@@ -2813,7 +2848,7 @@ def lm_phase(torch, dev, cfg, seed: int) -> tuple[dict, object, dict]:
     tokens/s and the share of greedy tokens equal to f32's, not held).  Two
     ``generate`` calls give equal tokens; prefill + one decode equals the
     parallel forward at the reference test's tolerance.  -> (line, engine,
-    the request batch)."""
+    the request batch, its generated tokens)."""
     from repro_torch.models.lm import build_model
     from repro_torch.serve import GenerationEngine
 
@@ -2894,7 +2929,7 @@ def lm_phase(torch, dev, cfg, seed: int) -> tuple[dict, object, dict]:
                      "greedy_tokens_equal_to_f32": float((out16 == out).mean())},
             "first_row": out[0].tolist()}
     assert tf_ok, f"prefill + decode off the parallel forward by {tf_err}"
-    return line, eng, batch
+    return line, eng, batch, out
 
 
 def _tensors(tree: dict) -> list:
@@ -3062,6 +3097,371 @@ def rag_phase(torch, ref, eng, batch, seed: int, counters: dict,
     assert np.asarray(new_ids).tolist() == list(range(n_docs, n_docs + RAG_ADD)), new_ids
     assert new_self == list(range(n_docs, n_docs + RAG_ADD)), new_self
     return line, rows_k
+
+
+# ------------------------------------------------------------------ training
+def _grad_step(torch, model, params, batch, remat: bool = True):
+    """(loss, grads in leaf order) of ``model.loss`` under autograd."""
+    from repro_torch.train._tree import leaves
+
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    try:
+        loss = model.loss(params, batch, remat=remat)
+        return loss.detach(), list(torch.autograd.grad(loss, flat))
+    finally:
+        for p in flat:
+            p.requires_grad_(False)
+
+
+def _clone(torch, tree: dict) -> dict:
+    return {k: _clone(torch, v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _finite(torch, tensors) -> bool:
+    return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+
+class _Recorded:
+    """Replaces ``module.name`` (looked up at each call) with a wrapper that
+    calls ``hook(result, *args)``; restores it on exit."""
+
+    def __init__(self, module, name: str, hook):
+        self.module, self.name, self.hook = module, name, hook
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def wrapped(*args, **kwargs):
+            return self.hook(real, *args, **kwargs)
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def train_phase(torch, cfg, params, lm_batch, lm_out, seed: int, counters: dict) -> dict:
+    """Full width: AdamW (lr 1e-4, no warmup) with remat, TRAIN_STEPS steps on
+    one fixed ``TokenStream(cfg, TRAIN_SEQ, TRAIN_BATCH, seed)`` batch placed
+    on the main thread, on phase 8's params (updated in place).  Held: the
+    chunked loss of the params' hidden states equals ``F.cross_entropy``
+    over their full logits at rtol CE_RTOL; every loss and grad norm finite;
+    the last loss below the first; two ``generate`` calls on the trained
+    params equal; no kernel of the port launched.  Recorded: the losses, the
+    step's median ms split into forward+backward and ``opt_update`` (timed
+    through ``trainer.opt_update``, synchronised around it), tokens/s, the
+    share of the f32 peak (6 N T and, with remat's recompute, 8 N T FLOP),
+    the optimizer beside its byte bound, peak memory, the last step's
+    device profile, and how many generated tokens differ from phase 8's."""
+    import torch.nn.functional as F
+
+    from repro_torch.data.pipeline import TokenStream, to_device
+    from repro_torch.models.lm import build_model, chunked_ce_loss
+    from repro_torch.serve import GenerationEngine
+    from repro_torch.train import trainer
+    from repro_torch.train._tree import leaves
+    from repro_torch.train.optimizer import OptConfig, opt_init
+
+    model = build_model(cfg)
+    dev = params["embed"].device
+    before = torch.cuda.memory_allocated()
+    n_params = sum(t.numel() for t in leaves(params))
+    batch = to_device(dev)(TokenStream(cfg, TRAIN_SEQ, TRAIN_BATCH, seed).batch_at(0))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    launched = {k: c.launches for k, c in counters.items()}
+
+    # the chunked loss against the full logits' cross entropy, same hidden states
+    with torch.no_grad():
+        h = model.forward_train(params, batch)
+        head = model._head(params)
+        chunked = float(chunked_ce_loss(h, batch["labels"], head))
+        full = float(F.cross_entropy((h @ head).reshape(-1, cfg.vocab),
+                                     batch["labels"].long().reshape(-1)))
+        del h
+    ce_rel = abs(chunked - full) / abs(full)
+
+    oc = OptConfig(lr=TRAIN_LR, warmup_steps=0)
+    state = opt_init(params, oc)
+    step = trainer.make_train_step(model, trainer.TrainConfig(opt=oc))
+    opt_ms = []
+
+    def timed_opt(real, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, step_ms = [], [], []
+    with _Recorded(trainer, "opt_update", timed_opt):
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_STEPS - 1:  # the last step under torch.profiler
+                box = []
+                prof = device_profile(torch, lambda: box.append(step(params, state, batch)))
+                (_, state, m), ms = box[0], prof["wall_ms"]
+            else:
+                (_, state, m), ms = synced(torch, lambda: step(params, state, batch))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            step_ms.append(ms)
+    peak = torch.cuda.max_memory_allocated()
+    del state, m
+    torch.cuda.empty_cache()
+
+    eng = GenerationEngine(model=model, params=params, cache_len=LM_PROMPT * 3 + LM_NEW + 8)
+    out = eng.generate(lm_batch, max_new_tokens=LM_NEW)
+    again = eng.generate(lm_batch, max_new_tokens=LM_NEW)
+    del eng
+    launched = {k: c.launches - launched[k] for k, c in counters.items()}
+
+    timed_steps = step_ms[1:-1]  # the first pays the allocator and libraries
+    med = statistics.median(timed_steps)
+    opt_med = statistics.median(opt_ms[1:-1])
+    opt_bound = OPT_BYTES_PER_PARAM * n_params / PEAK_BYTES_PER_S * 1e3
+    line = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers, "dtype": "f32",
+            "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "tokens": tokens,
+            "optimizer": "adamw", "lr": TRAIN_LR, "remat": True,
+            "chunked_loss": chunked, "full_logits_loss": full, "chunked_vs_full_rel": ce_rel,
+            "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+            "step_ms_median": med, "step_ms_min": min(timed_steps),
+            "step_ms_max": max(timed_steps), "opt_ms": opt_ms, "opt_ms_median": opt_med,
+            "fwd_bwd_ms_median": statistics.median(
+                s - o for s, o in zip(timed_steps, opt_ms[1:-1])),
+            "opt_bound_ms": opt_bound, "opt_share_of_bound": opt_bound / opt_med,
+            "tokens_per_s": tokens / (med / 1e3),
+            "f32_peak_share_6NT": 6.0 * n_params * tokens / (med / 1e3) / PEAK_F32_FLOPS,
+            "f32_peak_share_8NT": 8.0 * n_params * tokens / (med / 1e3) / PEAK_F32_FLOPS,
+            "peak_device_memory_gb": peak / 1e9,
+            "device_memory_before_gb": before / 1e9,
+            "profiled_step": prof,
+            "generate_equal": bool(np.array_equal(out, again)),
+            "tokens_changed_from_lm_phase": int((out != lm_out).sum()),
+            "tokens_generated": int(out.size), "kernel_launches": launched}
+    emit(line)
+    assert ce_rel <= CE_RTOL, f"chunked loss {chunked} against full logits {full}"
+    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms)
+    assert losses[-1] < losses[0], losses
+    assert line["generate_equal"], "two generate calls on the trained params disagree"
+    assert not any(launched.values()), f"training launched a kernel of the port: {launched}"
+    return line
+
+
+def train_two_layer_phase(torch, cfg, seed: int, dev) -> dict:
+    """Full width, 2 layers (``dataclasses.replace(cfg, n_layers=2)``),
+    B = TRAIN_BATCH, S = TRAIN_SEQ.  Held: ``accum_steps=4`` against 1 from
+    the same params (the loss and the grads' ``global_norm`` difference at
+    rtol ACCUM_RTOL; at TRAIN_LR the params' difference's ``global_norm``
+    below ACCUM_PARAM_BAR, the reference's bar; at the reference test's
+    ACCUM_REF_LR it is recorded: Adam's first step moves an element by
+    about lr sign(g) however small g is, so where a grad is near 0 the f32
+    noise of summing it in another order moves it by up to 2 lr); remat on
+    against off (losses rtol 1e-6, grads within rtol 1e-5 and 1e-6 x each
+    leaf's largest |grad|); EF_STEPS ``compress_grads`` steps keep the
+    error-feedback identity, sum of delivered grads + residual = sum of raw
+    grads within EF_BAR (both read through ``trainer.ef_compress``); an
+    Adafactor step is finite.  Recorded: step walls, the remat gaps."""
+    import dataclasses
+
+    from repro_torch.data.pipeline import TokenStream, to_device
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import trainer
+    from repro_torch.train._tree import leaves
+    from repro_torch.train.compression import ef_init
+    from repro_torch.train.optimizer import OptConfig, global_norm, opt_init
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    model = build_model(cfg2)
+    batch = to_device(dev)(TokenStream(cfg2, TRAIN_SEQ, TRAIN_BATCH, seed).batch_at(0))
+
+    def fresh():
+        return model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+    # accumulation against the full batch, at the phase's learning rate
+    # (held) and at the reference test's 1e-3 (recorded)
+    accum = {}
+    for lr in (TRAIN_LR, ACCUM_REF_LR):
+        oc = OptConfig(lr=lr, warmup_steps=0)
+        p1 = fresh()
+        p4 = _clone(torch, p1)
+        seen = []
+
+        def grab(real, grads, *args):
+            seen.append(leaves(grads))  # read, never written by opt_update
+            return real(grads, *args)
+
+        with _Recorded(trainer, "opt_update", grab):
+            (p1, _, m1), ms1 = synced(torch, lambda: trainer.make_train_step(
+                model, trainer.TrainConfig(opt=oc))(p1, opt_init(p1, oc), batch))
+            (p4, _, m4), ms4 = synced(torch, lambda: trainer.make_train_step(
+                model, trainer.TrainConfig(opt=oc, accum_steps=4))(p4, opt_init(p4, oc), batch))
+        l1, l4 = float(m1["loss"]), float(m4["loss"])
+        accum[lr] = {
+            "lr": lr, "loss_1": l1, "loss_4": l4, "loss_rel": abs(l1 - l4) / abs(l1),
+            "grads_rel_diff": float(global_norm([a - b for a, b in zip(*seen)])
+                                    / global_norm(seen[0])),
+            "params_diff_global_norm": float(global_norm(
+                [a - b for a, b in zip(leaves(p1), leaves(p4))])),
+            "step_ms_1": ms1, "step_ms_4": ms4}
+        n_params = sum(t.numel() for t in leaves(p1))
+        del p1, p4, m1, m4, seen
+        torch.cuda.empty_cache()
+    held = accum[TRAIN_LR]
+
+    # remat on against off
+    p1 = fresh()
+    lr_on, g_on = _grad_step(torch, model, p1, batch, remat=True)
+    lr_off, g_off = _grad_step(torch, model, p1, batch, remat=False)
+    remat_max_abs = max(float((a - b).abs().max()) for a, b in zip(g_on, g_off))
+    remat_bitwise = all(torch.equal(a, b) for a, b in zip(g_on, g_off)) and bool(lr_on == lr_off)
+    remat_ok = abs(float(lr_on) - float(lr_off)) <= 1e-6 * abs(float(lr_off)) and all(
+        bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max())))
+        for a, b in zip(g_on, g_off))
+    del g_on, g_off, p1
+    torch.cuda.empty_cache()
+
+    # compression: the error-feedback identity over EF_STEPS steps
+    oc = OptConfig(lr=1e-3, warmup_steps=0)
+    pc = fresh()
+    sums = {"raw": [torch.zeros_like(t) for t in leaves(pc)],
+            "out": [torch.zeros_like(t) for t in leaves(pc)]}
+
+    def recording(real, grads, residual):
+        for a, g in zip(sums["raw"], leaves(grads)):
+            a.add_(g)
+        out, res = real(grads, residual)
+        for a, g in zip(sums["out"], leaves(out)):
+            a.add_(g)
+        return out, res
+
+    step_c = trainer.make_train_step(model, trainer.TrainConfig(opt=oc, compress_grads=True))
+    sc, ef = opt_init(pc, oc), ef_init(pc)
+    comp_losses, comp_ms = [], []
+    with _Recorded(trainer, "ef_compress", recording):
+        for _ in range(EF_STEPS):
+            (pc, sc, mc, ef), ms = synced(torch, lambda: step_c(pc, sc, batch, ef))
+            comp_losses.append(float(mc["loss"]))
+            comp_ms.append(ms)
+    ef_err = max(float((o + e - r).abs().max())
+                 for o, e, r in zip(sums["out"], leaves(ef), sums["raw"]))
+    ef_finite = _finite(torch, leaves(ef))
+    del pc, sc, ef, sums, mc
+    torch.cuda.empty_cache()
+
+    # one Adafactor step
+    oa = OptConfig(lr=2e-2, warmup_steps=0, kind="adafactor")
+    pa = fresh()
+    (pa, _, ma), ms_a = synced(torch, lambda: trainer.make_train_step(
+        model, trainer.TrainConfig(opt=oa))(pa, opt_init(pa, oa), batch))
+    ada = {"loss": float(ma["loss"]), "grad_norm": float(ma["grad_norm"]),
+           "params_finite": _finite(torch, leaves(pa)), "step_ms": ms_a}
+    del pa, ma
+    torch.cuda.empty_cache()
+
+    line = {"phase": "train_2l", "arch": cfg2.name, "layers": 2, "params": n_params,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "accum": list(accum.values()),
+            "remat": {"loss_on": float(lr_on), "loss_off": float(lr_off),
+                      "grads_max_abs_diff": remat_max_abs, "bitwise": remat_bitwise},
+            "compress": {"losses": comp_losses, "step_ms": comp_ms,
+                         "ef_identity_max_abs_err": ef_err, "residual_finite": ef_finite},
+            "adafactor": ada}
+    emit(line)
+    assert held["loss_rel"] <= ACCUM_RTOL, held
+    assert held["params_diff_global_norm"] < ACCUM_PARAM_BAR, held
+    assert all(rec["grads_rel_diff"] <= ACCUM_RTOL for rec in accum.values()), accum
+    assert remat_ok, f"remat on and off differ: {remat_max_abs}"
+    assert all(np.isfinite(comp_losses)) and ef_finite, comp_losses
+    assert ef_err < EF_BAR, f"error feedback: out + residual - raw = {ef_err}"
+    assert np.isfinite(ada["loss"]) and np.isfinite(ada["grad_norm"]) and ada["params_finite"]
+    return line
+
+
+RESUME_CODE = r"""
+import json, sys, tempfile
+import numpy as np
+import torch
+torch.use_deterministic_algorithms(True)
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch.train import train_loop
+
+seed, device = int(sys.argv[2]), sys.argv[3]
+kw = dict(reduced=True, batch=2, seq=16, lr=1e-2, ckpt_every=3, log_every=100,
+          seed=seed, device=device)
+with tempfile.TemporaryDirectory() as root:
+    full = train_loop("llama3.2-3b", steps=6, ckpt_dir=root + "/a", **kw)
+    train_loop("llama3.2-3b", steps=3, ckpt_dir=root + "/b", **kw)
+    resumed = train_loop("llama3.2-3b", steps=6, ckpt_dir=root + "/b", **kw)
+    with np.load(root + "/a/step_0000000006/arrays.npz") as a, \
+            np.load(root + "/b/step_0000000006/arrays.npz") as b:
+        keys = sorted(a.files)
+        same_keys = keys == sorted(b.files)
+        diff = max(float(np.abs(a[k].astype(np.float64) - b[k]).max()) for k in keys)
+print(json.dumps({"device": device, "keys": len(keys),
+                  "same_keys": same_keys, "max_abs_diff": diff,
+                  "history_full": full["history"], "history_resumed": resumed["history"]}))
+"""
+
+
+def train_reduced_phase(torch, seed: int, dev) -> dict:
+    """The reduced config (``cfg.reduced()``): OVERFIT_STEPS steps on one
+    batch drop the loss by more than OVERFIT_DROP for AdamW and for
+    ``compress_grads`` (lr 1e-2, the reference's bar); then ``train_loop``
+    for 6 steps in one go against 3, a restart from its ``ckpt_dir`` and 3
+    more (checkpoints every 3), in a subprocess under
+    ``torch.use_deterministic_algorithms(True)`` with
+    ``CUBLAS_WORKSPACE_CONFIG`` set before its first cuBLAS handle (this
+    process has made one): the step-6 checkpoints equal bit for bit and the
+    resumed losses equal the uninterrupted run's."""
+    import os
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import trainer
+    from repro_torch.train.compression import ef_init
+    from repro_torch.train.optimizer import OptConfig, opt_init
+
+    cfg = get_config(LM_ARCH).reduced()
+    model = build_model(cfg)
+    batch = TokenStream(cfg, 16, 4, seed).batch_at(0)
+    overfit = {}
+    for name, compress in (("adamw", False), ("compress", True)):
+        oc = OptConfig(lr=1e-2, warmup_steps=0)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+        state = opt_init(params, oc)
+        step = trainer.make_train_step(model, trainer.TrainConfig(opt=oc, compress_grads=compress))
+        extra = (ef_init(params),) if compress else ()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(OVERFIT_STEPS):
+            out = step(params, state, batch, *extra)
+            params, state, m = out[:3]
+            extra = out[3:]
+            losses.append(float(m["loss"]))
+        overfit[name] = {"losses": losses, "drop": losses[0] - losses[-1],
+                         "ms_per_step": (time.perf_counter() - t0) / OVERFIT_STEPS * 1e3}
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", RESUME_CODE, str(ROOT / "src"), str(seed),
+                          str(dev)],
+                         env=env, capture_output=True, text=True, timeout=600)
+    resume_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"the resume subprocess failed: {run.stderr[-3000:]}")
+    resume = json.loads(run.stdout.strip().splitlines()[-1])
+    resume["seconds"] = resume_s
+    line = {"phase": "train_reduced", "arch": cfg.name, "overfit": overfit, "resume": resume}
+    emit(line)
+    for name, rec in overfit.items():
+        assert rec["drop"] > OVERFIT_DROP, (name, rec["losses"])
+    assert resume["same_keys"] and resume["max_abs_diff"] == 0.0, resume
+    assert resume["history_resumed"] == resume["history_full"][3:], resume
+    return line
 
 
 def rag_dist_error(torch, X, Q, ids, dists) -> float:
@@ -3396,13 +3796,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
-    lm_line, lm_eng, lm_batch = lm_phase(torch, dev, get_config(LM_ARCH), args.seed)
+    lm_line, lm_eng, lm_batch, lm_out = lm_phase(torch, dev, get_config(LM_ARCH), args.seed)
     emit({**lm_line, "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     _, rag_rows = rag_phase(torch, ref, lm_eng, lm_batch, args.seed, counters)
     emit({"phase": "rag_done", "seconds": time.perf_counter() - t0})
     kernels += rag_rows
+
+    # ---------------------------------------------------------- 10. train
+    # phase 9's store is gone with its pipeline; the LM's params stay
+    params = lm_eng.params
     del lm_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_phase(torch, get_config(LM_ARCH), params, lm_batch, lm_out, args.seed, counters)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    train_two_layer_phase(torch, get_config(LM_ARCH), args.seed, dev)
+    t2 = time.perf_counter()
+    train_reduced_phase(torch, args.seed, dev)
+    emit({"phase": "train_done", "full_width_s": t1 - t0, "two_layer_s": t2 - t1,
+          "reduced_s": time.perf_counter() - t2, "seconds": time.perf_counter() - t0})
 
     # ----------------------------------------------------- 4. the record
     emit({"kernels": kernels + paper_rows})

@@ -28,7 +28,10 @@ params pytree as NumPy arrays (``jax.tree.map(np.asarray, params)``) in,
 the port's params on ``device`` holding the same numbers out.  Both keep
 weights (in, out) and multiply ``x @ w``, so nothing is transposed.  This
 is the only place weights cross between the packages: the reference's
-``jax.random`` init cannot be reproduced in torch.
+``jax.random`` init cannot be reproduced in torch.  ``opt_state_from_arrays``
+carries the optimizer state beside them: the reference's AdamW (``mu``,
+``nu``, ``step``) or Adafactor (``vr``, ``vc``, ``v``, ``step``) state as
+NumPy arrays in, the port's on ``device`` out.
 """
 from __future__ import annotations
 
@@ -50,7 +53,7 @@ from .index.ivf import IVFIndex
 from .models.lm import build_model
 
 __all__ = ["engine_from_arrays", "lm_params_from_arrays", "mutable_store_arrays",
-           "mutable_store_from_arrays"]
+           "mutable_store_from_arrays", "opt_state_from_arrays"]
 
 # MutablePDXStore state: public attributes, then private ones (``_`` + key)
 _PUBLIC_FIELDS = ("head_capacity", "num_buckets", "meta_staleness", "version",
@@ -191,3 +194,27 @@ def lm_params_from_arrays(cfg, arrays: dict, device=None) -> dict:
         return _tensor(a, dev)
 
     return convert(arrays, want, "")
+
+
+_OPT_KEYS = ({"mu", "nu", "step"}, {"vr", "vc", "v", "step"})
+
+
+def opt_state_from_arrays(arrays: dict, device=None) -> dict:
+    """The port's optimizer state on ``device`` (``None`` means the CUDA
+    card) holding exactly the reference's numbers: ``arrays`` is the
+    reference's state as NumPy (``jax.tree.map(np.asarray, state)``), AdamW's
+    ``{mu, nu, step}`` or Adafactor's ``{vr, vc, v, step}``, the moments
+    nested like the params.  ``step`` becomes a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    if set(arrays) not in _OPT_KEYS:
+        raise ValueError(f"optimizer state keys {sorted(arrays)}: expected AdamW's "
+                         f"{sorted(_OPT_KEYS[0])} or Adafactor's {sorted(_OPT_KEYS[1])}")
+
+    def convert(a):
+        if isinstance(a, dict):
+            return {k: convert(v) for k, v in a.items()}
+        return _tensor(a, dev)
+
+    out = {k: convert(v) for k, v in arrays.items() if k != "step"}
+    out["step"] = torch.tensor(int(np.asarray(arrays["step"])), dtype=torch.int32, device=dev)
+    return out

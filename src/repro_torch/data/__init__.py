@@ -1,1 +1,2 @@
-"""Synthetic collections (a copy of the reference's NumPy-only module)."""
+"""Data (counterpart of ``repro.data``): synthetic collections and the
+training token stream, copies of the reference's NumPy-only modules."""

@@ -15,10 +15,11 @@ rank gets the same, replicated result.  This stands in for ``shard_map``'s
 store: ``placement.Placement.local``) and ``out_specs`` of ``P()`` (the
 collectives leave every rank with the whole answer).
 
-Every collective the executors issue goes through ``all_gather``,
-``all_to_all`` and ``psum`` below, which count each call under the reference's primitive
-name; ``repro_torch.obs.meters.collective_counts`` reads those counts
-around a call.
+Every collective the executors and ``train.compression.compressed_psum``
+issue goes through ``all_gather``, ``all_to_all``, ``psum`` and ``pmax``
+below, which count each call under the reference's primitive name;
+``repro_torch.obs.meters.collective_counts`` reads those counts around a
+call.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ import torch.distributed as dist
 
 __all__ = [
     "make_mesh", "mesh_shape", "axis_size", "axis_rank", "mesh_device",
-    "all_gather", "all_to_all", "psum", "issued_counts",
+    "all_gather", "all_to_all", "psum", "pmax", "issued_counts",
 ]
 
 
@@ -130,4 +131,13 @@ def psum(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     out = t.clone().contiguous()
     _count("psum")
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=mesh.get_group(mesh_dim=axis))
+    return out
+
+
+def pmax(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Elementwise maximum over the ranks of ``axis``, the same result on
+    every rank (``lax.pmax``)."""
+    out = t.clone().contiguous()
+    _count("pmax")
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.get_group(mesh_dim=axis))
     return out

@@ -1,2 +1,2 @@
-"""Entry points (counterpart of ``repro.launch``): serving, and the
-concrete input batches it and the tests use."""
+"""Entry points (counterpart of ``repro.launch``): serving, training, and
+the concrete input batches they and the tests use."""

@@ -8,15 +8,18 @@ The dense LM is one stack whose unit is ``[gqa, ffn]``, ``n_layers`` times.
 Params are the reference's pytree as tensors: ``embed`` (V, d),
 ``final_norm``, ``lm_head`` (d, V) when the embeddings are untied, and
 ``stack{i}.sub{j}.{norm, wq, ...}`` with a leading unit axis.  Where the
-reference scans a stack, the port loops over its units in Python (each
-unit's params are views of the stacked tensors), with no remat: that is
-the training side's.  Caches are per-stack dicts with the same leading unit
-axis; ``decode_step`` writes each unit's new row into them in place and
-returns them.
+reference scans a stack, the port loops over its units in Python; each
+unit's params are views of the stacked tensors (``torch.unbind``, whose
+backward stacks the units' gradients into the stacked leaf once).
+Training recomputes each unit in the backward pass (``remat``,
+``torch.utils.checkpoint``), and the loss is sequence-chunked
+(``chunked_ce_loss``): it never holds (B, S, V) logits.  Caches are
+per-stack dicts with the same leading unit axis; ``decode_step`` writes
+each unit's new row into them in place and returns them.
 
 Only the dense family is ported.  MoE, MLA, SSM, hybrid, encoder-decoder
-and VLM models are ROADMAP.md's modules item 3, and ``build_model``
-refuses them; the loss is the training side's (item 2).
+and VLM models are ROADMAP.md's modules item 2, and ``build_model``
+refuses them.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
@@ -31,13 +35,13 @@ from .attention import gqa
 from .common import dense_init, rms_norm
 from .moe import dense_ffn
 
-__all__ = ["LayerSpec", "StackDef", "LMModel", "build_model", "init_unit",
-           "init_unit_cache", "apply_unit"]
+__all__ = ["LayerSpec", "StackDef", "LMModel", "build_model", "chunked_ce_loss",
+           "init_unit", "init_unit_cache", "apply_unit"]
 
 # A sub-block: (kind, options). kinds ported: gqa | ffn
 LayerSpec = tuple[tuple[str, dict], ...]
 
-_FAMILY_ITEM = ("ROADMAP.md, modules queue item 3 (the other families' serving: "
+_FAMILY_ITEM = ("ROADMAP.md, modules queue item 2 (the other families' serving: "
                 "vlm, moe, mla, ssm and hybrid, encdec)")
 
 
@@ -119,13 +123,91 @@ def apply_unit(
 
 
 def _unit(tree: dict, u: int) -> dict:
-    """Unit ``u``'s view of a stacked param or cache dict."""
+    """Unit ``u``'s view of a stacked cache dict."""
     return {k: _unit(v, u) if isinstance(v, dict) else v[u] for k, v in tree.items()}
+
+
+def _units(tree: dict, count: int) -> list:
+    """Every unit's views of a stacked param dict, from one ``unbind`` per
+    leaf: its backward stacks the ``count`` gradients into the leaf's once,
+    where ``count`` selects would each add a zero-filled copy of the
+    whole stack."""
+    out = [{} for _ in range(count)]
+    for k, v in tree.items():
+        parts = _units(v, count) if isinstance(v, dict) else torch.unbind(v, 0)
+        for u in range(count):
+            out[u][k] = parts[u]
+    return out
 
 
 def _stack(trees: list) -> dict:
     return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
             else torch.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+
+
+# --------------------------------------------------------------------------
+# Loss (sequence-chunked CE: never holds (B, S, V) logits).
+# --------------------------------------------------------------------------
+class _ChunkedCE(torch.autograd.Function):
+    """Mean next-token CE over sequence chunks.  The forward keeps only the
+    running sum; the backward recomputes one chunk's logits at a time and
+    turns them into their gradient in place, so at most one chunk's
+    (B, chunk, V) f32 logits live in either pass."""
+
+    @staticmethod
+    def forward(ctx, h, labels, w_head, chunk: int):
+        B, S, _ = h.shape
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, S, chunk):
+            logits = (h[:, c0:c0 + chunk] @ w_head).to(torch.float32)  # (B, chunk, V)
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, labels[:, c0:c0 + chunk, None])[..., 0]
+            tot = tot + torch.sum(lse - gold)
+        ctx.save_for_backward(h, labels, w_head)
+        ctx.chunk = chunk
+        return tot / (B * S)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, labels, w_head = ctx.saved_tensors
+        B, S, d = h.shape
+        V = w_head.shape[1]
+        scale = g.to(torch.float32) / (B * S)
+        need_h, _, need_w, _ = ctx.needs_input_grad
+        gh = torch.empty_like(h) if need_h else None
+        gw = torch.zeros_like(w_head) if need_w else None
+        for c0 in range(0, S, ctx.chunk):
+            hc, lc = h[:, c0:c0 + ctx.chunk], labels[:, c0:c0 + ctx.chunk]
+            n = hc.shape[0] * hc.shape[1]
+            logits = (hc @ w_head).to(torch.float32)
+            lse = torch.logsumexp(logits, dim=-1)
+            # d/dlogits = (softmax - onehot(label)) * g / (B S), in place
+            p = logits.sub_(lse[..., None]).exp_().view(n, V)
+            rows = torch.arange(n, device=p.device)
+            gold = lc.reshape(n)
+            p.index_put_((rows, gold), p[rows, gold] - 1.0)
+            dl = p.mul_(scale).to(h.dtype)
+            if need_h:
+                gh[:, c0:c0 + ctx.chunk] = (dl @ w_head.T).view(hc.shape)
+            if need_w:
+                gw.addmm_(hc.reshape(n, d).T, dl)
+            del logits, p, dl
+        return gh, None, gw, None
+
+
+def chunked_ce_loss(h: torch.Tensor, labels, w_head: torch.Tensor,
+                    chunk: int = 512) -> torch.Tensor:
+    """h (B, S, d), labels (B, S) -> mean next-token CE (logits from w_head).
+
+    ``chunk`` becomes the largest divisor of S at most the requested chunk,
+    as in the reference.  Logits are ``(h @ w_head)`` cast to f32, one
+    chunk at a time, in the forward and again in the backward."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    while S % chunk:  # largest divisor of S at most the requested chunk
+        chunk -= 1
+    labels = torch.as_tensor(labels, device=h.device).long()
+    return _ChunkedCE.apply(h, labels, w_head, chunk)
 
 
 # --------------------------------------------------------------------------
@@ -186,15 +268,28 @@ class LMModel:
 
     # --------------------------------------------------------------- runs
     def _run_stacks(self, params, x, mode, positions, caches=None, pos: int = 0,
-                    cache_len: int = 0):
+                    cache_len: int = 0, remat: bool = False):
+        """``remat`` (train mode, where autograd records): each unit runs
+        under ``torch.utils.checkpoint``, which keeps only the unit's input
+        and recomputes the unit in the backward pass.  The reference's
+        ``jax.checkpoint`` policy (``dots_with_no_batch_dims_saveable``)
+        also keeps some products; recomputing all of them changes memory
+        and time, not values."""
+        remat = remat and mode == "train" and torch.is_grad_enabled()
         new_caches = []
         for si, sd in enumerate(self.stacks):
-            stack_p = params[f"stack{si}"]
+            units = _units(params[f"stack{si}"], sd.count)
             unit_caches = []
             for u in range(sd.count):
+                if remat:
+                    x = checkpoint(
+                        lambda h, p=units[u], spec=sd.spec: apply_unit(
+                            p, h, spec, self.cfg, "train", positions)[0],
+                        x, use_reentrant=False)
+                    continue
                 unit_c = _unit(caches[si], u) if mode == "decode" else None
                 x, nc = apply_unit(
-                    _unit(stack_p, u), x, sd.spec, self.cfg, mode, positions,
+                    units[u], x, sd.spec, self.cfg, mode, positions,
                     cache=unit_c, pos=pos, cache_len=cache_len,
                 )
                 unit_caches.append(nc)
@@ -216,11 +311,19 @@ class LMModel:
         return x, positions
 
     # --------------------------------------------------------------- API
-    def forward_train(self, params, batch) -> torch.Tensor:
-        """-> final hidden states (B, S, d)."""
+    def forward_train(self, params, batch, remat: bool = True) -> torch.Tensor:
+        """-> final hidden states (B, S, d).  ``remat`` recomputes each unit
+        in the backward pass (it has no effect where autograd records
+        nothing, as in serving)."""
         x, positions = self._inputs_to_x(params, batch)
-        x, _ = self._run_stacks(params, x, "train", positions)
+        x, _ = self._run_stacks(params, x, "train", positions, remat=remat)
         return rms_norm(x, params["final_norm"], self.cfg.rms_eps)
+
+    def loss(self, params, batch, remat: bool = True) -> torch.Tensor:
+        """Mean next-token CE of ``batch`` (``tokens``, ``labels``), a 0-d f32
+        tensor; differentiate it with autograd."""
+        h = self.forward_train(params, batch, remat=remat)
+        return chunked_ce_loss(h, self._tokens(params, batch["labels"]), self._head(params))
 
     def prefill(self, params, batch, cache_len: int):
         """-> (last-token logits (B, V), caches)."""

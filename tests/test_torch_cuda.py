@@ -1196,3 +1196,128 @@ def test_rag_on_the_card_retrieves_the_cpu_ids(dev, pruner):
     new = rng.integers(0, cfg.vocab, (3, 12)).astype(np.int32)
     assert grag.add_documents(new).tolist() == [40, 41, 42]
     assert grag.retrieve({"tokens": new[1:2]})[0, 0] == 41
+
+
+# ------------------------------------------------------------------ training
+def test_chunked_loss_and_its_grads_on_the_card_equal_the_full_logits(dev):
+    """``chunked_ce_loss`` (chunks of 64 over S = 256, V = 4099) against
+    ``F.cross_entropy`` over the full logits under autograd, on the card:
+    the loss at rtol 1e-5, the grads of h and the head within rtol 1e-4
+    and atol 1e-5 x their largest |grad|."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.lm import chunked_ce_loss
+
+    rng = np.random.default_rng(0)
+    B, S, d, V = 4, 256, 96, 4099
+    h = torch.from_numpy(rng.standard_normal((B, S, d)).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.standard_normal((d, V)) * 0.1).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, V, (B, S))).to(dev)
+    h.requires_grad_()
+    w.requires_grad_()
+    loss = chunked_ce_loss(h, labels, w, chunk=64)
+    gh, gw = torch.autograd.grad(loss, (h, w))
+    full = F.cross_entropy((h @ w).reshape(-1, V), labels.reshape(-1))
+    fh, fw = torch.autograd.grad(full, (h, w))
+    np.testing.assert_allclose(loss.item(), full.item(), rtol=1e-5)
+    for got, want in ((gh, fh), (gw, fw)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-4,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def _plain_update(kind, p, g, s, cfg):
+    """The reference's functional update (``repro/train/optimizer.py``),
+    out of place in plain PyTorch, one leaf: -> (new p, new state)."""
+    from repro_torch.train.optimizer import _factored
+
+    norm = torch.sqrt(torch.sum(torch.square(g)))
+    g = g * torch.clamp(cfg.grad_clip / torch.clamp(norm, min=1e-9), max=1.0)
+    step = s["step"] + 1
+    lr = cfg.lr * torch.clamp(step.to(torch.float32) / max(cfg.warmup_steps, 1), max=1.0)
+    t = step.to(torch.float32)
+    if kind == "adamw":
+        mu = s["mu"] * cfg.b1 + g * (1 - cfg.b1)
+        nu = s["nu"] * cfg.b2 + g * g * (1 - cfg.b2)
+        delta = (mu / (1.0 - cfg.b1 ** t)) / (torch.sqrt(nu / (1.0 - cfg.b2 ** t)) + cfg.eps)
+        delta = delta + cfg.weight_decay * p
+        return p - lr * delta, {"mu": mu, "nu": nu, "step": step}
+    beta2 = 1.0 - t ** (-0.8)
+    g2 = g * g + 1e-30
+    vr, vc, v = s["vr"], s["vc"], s["v"]
+    if _factored(p.shape):
+        vr = beta2 * vr + (1 - beta2) * torch.mean(g2, dim=-1)
+        vc = beta2 * vc + (1 - beta2) * torch.mean(g2, dim=-2)
+        r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True), min=1e-30)
+        update = g * torch.rsqrt(r[..., None] * vc[..., None, :] + 1e-30)
+    else:
+        v = beta2 * v + (1 - beta2) * g2
+        update = g * torch.rsqrt(v + 1e-30)
+    update = update / torch.clamp(torch.sqrt(torch.mean(update * update) + 1e-30), min=1.0)
+    return p - lr * update - lr * cfg.weight_decay * p, {"vr": vr, "vc": vc, "v": v,
+                                                         "step": step}
+
+
+@pytest.mark.parametrize("kind", ["adamw", "adafactor"])
+@pytest.mark.parametrize("shape", [(3, 257, 130), (1000,)])
+def test_in_place_update_on_the_card_equals_a_plain_update(dev, kind, shape):
+    """``opt_update``'s in-place leaf update against the reference's math
+    out of place, on card tensors, over three steps (clipped and not):
+    the same elementwise operations in the same order, so equal to 1e-6
+    relative (the only freedom is the reductions' order)."""
+    from repro_torch.train.optimizer import OptConfig, opt_init, opt_update
+
+    cfg = OptConfig(lr=1e-2, warmup_steps=2, kind=kind)
+    rng = np.random.default_rng(len(shape))
+    p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    params = {"w": p.clone()}
+    state = opt_init(params, cfg)
+    plain_p, plain_s = p, {k: (v["w"] if isinstance(v, dict) else v) for k, v in state.items()}
+    plain_s = {k: v.clone() for k, v in plain_s.items()}
+    for i, scale in enumerate((1e-4, 3.0, 0.01)):
+        g = torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(dev)
+        params, state, m = opt_update({"w": g}, state, params, cfg)
+        plain_p, plain_s = _plain_update(kind, plain_p, g, plain_s, cfg)
+        assert params["w"].device.type == dev.type and int(state["step"]) == i + 1
+        np.testing.assert_allclose(params["w"].cpu().numpy(), plain_p.cpu().numpy(),
+                                   rtol=1e-6, atol=1e-7)
+        for k, v in plain_s.items():
+            got = state[k] if k == "step" else state[k]["w"]
+            np.testing.assert_allclose(got.cpu().numpy(), v.cpu().numpy(), rtol=1e-6,
+                                       atol=1e-30)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """Two AdamW steps (remat on) of the reduced llama on the same weights
+    and batches: losses at rtol 1e-5, the params' difference's
+    ``global_norm`` below 1e-3 (the reference's accumulation bar)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.optimizer import OptConfig, global_norm, opt_init
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+
+    cfg = get_config("llama3.2-3b").reduced()
+    model = build_model(cfg)
+    oc = OptConfig(lr=1e-2, warmup_steps=0)
+    cpu_p = model.init(torch.Generator().manual_seed(0), device="cpu")
+
+    def to(tree, d):
+        return {k: to(v, d) if isinstance(v, dict) else v.to(d, copy=True)
+                for k, v in tree.items()}
+
+    gpu_p = to(cpu_p, dev)
+    cpu_s, gpu_s = opt_init(cpu_p, oc), opt_init(gpu_p, oc)
+    step = make_train_step(model, TrainConfig(opt=oc))
+    stream = TokenStream(cfg, 32, 4, seed=1)
+    for i in range(2):
+        b = stream.batch_at(i)
+        cpu_p, cpu_s, mc = step(cpu_p, cpu_s, b)
+        gpu_p, gpu_s, mg = step(gpu_p, gpu_s, b)
+        assert mg["loss"].device.type == dev.type
+        np.testing.assert_allclose(mg["loss"].item(), mc["loss"].item(), rtol=1e-5)
+    d = global_norm(_sub(to(gpu_p, "cpu"), cpu_p))
+    assert float(d) < 1e-3
+
+
+def _sub(a, b):
+    return {k: _sub(v, b[k]) if isinstance(v, dict) else v - b[k] for k, v in a.items()}

@@ -144,8 +144,46 @@ def test_build_model_refuses_an_unported_family_naming_its_roadmap_item(name):
     from repro_torch.configs import get_config
     from repro_torch.models.lm import build_model
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules queue item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules queue item 2"):
         build_model(get_config(name))
+
+
+@pytest.mark.parametrize("entry", ["train_loop", "main", "init_train_state",
+                                   "opt_state_from_arrays"])
+def test_every_train_entry_point_without_device_raises_when_cuda_is_absent(
+        monkeypatch, entry):
+    """Training keeps the rule: ``train_loop`` (and its CLI without
+    ``--device``), ``init_train_state`` and the carried-over optimizer
+    state go to the card unless ``device`` says otherwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models.lm import build_model
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import init_train_state
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(get_config("llama3.2-3b").reduced())
+    calls = {
+        "train_loop": lambda: train.train_loop("llama3.2-3b", steps=1),
+        "main": lambda: train.main(["--arch", "llama3.2-3b", "--reduced", "--steps", "1"]),
+        "init_train_state": lambda: init_train_state(
+            model, torch.Generator().manual_seed(0), OptConfig()),
+        "opt_state_from_arrays": lambda: convert.opt_state_from_arrays(
+            {"mu": {}, "nu": {}, "step": np.int32(0)}),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+def test_elastic_restore_onto_a_mesh_names_its_roadmap_item(tmp_path):
+    """``restore(shardings=...)`` raises until the FSDP x TP step is ported,
+    rather than ignoring the shardings."""
+    from repro_torch.train import checkpoint
+
+    tree = {"w": torch.zeros(3)}
+    checkpoint.save(str(tmp_path), 1, tree)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules queue item 3"):
+        checkpoint.restore(str(tmp_path), tree, shardings={"w": None})
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,8 @@ the change's times alone), then each change run's ``tiered`` and
 ``tiered_tree`` phases: walls, hits, bytes and recall per scan dtype, and
 its ``serve`` and ``serve_churn`` phases: QPS, latency, recall, idle share,
 upload overlap and swaps, its ``lm`` and ``rag`` phases with their
-profiles' busy and idle time, and its ``routing``, ``sharded`` and
+profiles' busy and idle time, its ``train``, ``train_2l`` and
+``train_reduced`` phases, and its ``routing``, ``sharded`` and
 ``routed`` phases and the ``fused_scan_wall`` medians, in each run given
 (parent runs too).
 """
@@ -101,6 +102,15 @@ def main() -> None:
                         print("   ", k, {f: prof[f] for f in ("wall_ms", "device_busy_ms",
                                                               "device_idle_share")},
                               [(t["kernel"][:40], round(t["ms"], 3)) for t in prof["top"][:4]])
+            elif line.get("phase") == "train":
+                print(path, "train", {k: v for k, v in line.items() if k not in (
+                    "phase", "profiled_step", "step_ms", "opt_ms", "grad_norms")})
+                prof = line["profiled_step"]
+                print("    profiled_step", {f: prof[f] for f in (
+                    "wall_ms", "device_busy_ms", "device_idle_share")},
+                    [(t["kernel"][:40], round(t["ms"], 3)) for t in prof["top"][:4]])
+            elif line.get("phase") in ("train_2l", "train_reduced"):
+                print(path, line["phase"], {k: v for k, v in line.items() if k != "phase"})
             elif line.get("phase", "").endswith("_done") and "seconds" in line:
                 print(path, line["phase"], line["seconds"])
 
