@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one CUDA card: vector search,
-the served LM with retrieval through it, and the LM's training.
+the served LM with retrieval through it, the LM's training, and the other
+model families' serving.
 
     python3 chip_smoke.py [--n 1000000] [--dim 960] [--seed 0]
 
@@ -242,6 +243,29 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      ``train_loop`` resumed from its ``ckpt_dir`` at step 3 equals the
      uninterrupted 6 steps bit for bit (a subprocess under
      ``torch.use_deterministic_algorithms(True)``).
+  11. families (after 10; llama's params and train state freed) — every
+     other registered family served through ``GenerationEngine`` at full
+     width, f32, one model on the card at a time, params drawn on the card
+     from ``--seed``, phase 8's 8 requests of 16 tokens and 16 new:
+     deepseek-moe-16b (28 layers unless the card's free memory forces a
+     cut), deepseek-v3 cut to 4 layers (its 3 dense layers and 1 MoE
+     layer of 256 experts, MLA), jamba cut to 8 (one period: 1 attention
+     and 7 Mamba layers, MoE on every second), internvl2-1b (256 patch
+     embeddings before the prompt), mamba2-370m, whisper-small (1,500
+     encoder frames); each cut is listed in the line's ``reduced``.  Held:
+     two ``generate`` calls equal, every logit finite; internvl2, mamba2
+     and whisper: prefill of 15 tokens + one decode equals the parallel
+     forward (rtol 2e-2 / atol 2e-3); each MoE layer's output in a decode
+     step equals a plain loop over each token's top-k experts (plus the
+     shared ones) at MOE_RTOL / MOE_ATOL, with no token dropped; one
+     full-width MLA layer of deepseek-v3's draw: prefill + the absorbed
+     decode equals ``forward_train``.  Recorded: params and bytes, prefill
+     ms, decode ms a token beside two byte bounds (every weight once a
+     step, what the capacity dispatch reads; the experts the step routes
+     to only), tokens/s, peak memory beside what was allocated before,
+     the drops at prefill, a decode step's device profile.  No kernel of
+     the port runs here: the reference computes these models in plain
+     JAX.
   5. the kernels line: one JSON object per kernel and dtype (K4 and K5 by
      metric over the Table 4 sweep, K4 and K6 on the flat block, K7 by
      dtype and metric, K2 on the tiered pool by dtype); the K1, K2 and K3
@@ -387,6 +411,23 @@ CE_RTOL, ACCUM_RTOL, ACCUM_PARAM_BAR, ACCUM_REF_LR = 1e-5, 1e-4, 1e-3, 1e-3
 EF_STEPS, EF_BAR = 3, 1e-4
 OVERFIT_STEPS, OVERFIT_DROP = 20, 0.5
 OPT_BYTES_PER_PARAM = 7 * 4
+# phase families: the other model families served at full width (f32, the
+# lm phase's requests, prompt and new tokens), deepest first while the card
+# is emptiest; the depth cuts that memory forces (deepseek-v3: its 3 dense
+# layers and 1 MoE layer; jamba: one period of 8), and the headroom a model
+# leaves free beyond its params (a deeper model is cut further to keep it;
+# deepseek-moe-16b's phase peaked 0.56 GB above its 65.5 GB of params on
+# the card, and 68.8 GB were free after the train phases);
+# the teacher-forcing holds (the MoE models' prefill and decode get other
+# capacities, so they may drop other tokens: each MoE layer's decode output
+# is held to a plain loop over its top-k experts instead, at MOE_RTOL /
+# MOE_ATOL: the same f32 products, one token at a time)
+FAMILY_ARCHS = ("deepseek-moe-16b", "deepseek-v3-671b", "jamba-v0.1-52b", "internvl2-1b",
+                "mamba2-370m", "whisper-small")
+FAMILY_LAYERS = {"deepseek-v3-671b": 4, "jamba-v0.1-52b": 8}
+FAMILY_HEADROOM_BYTES = 2e9
+FAMILY_TEACHER = ("internvl2-1b", "mamba2-370m", "whisper-small")
+MOE_RTOL, MOE_ATOL = 1e-4, 1e-5
 
 
 def emit(obj: dict) -> None:
@@ -3464,6 +3505,292 @@ def train_reduced_phase(torch, seed: int, dev) -> dict:
     return line
 
 
+# ------------------------------------------------------------ the families
+def moe_loop(torch, p, x, cfg):
+    """The plain MoE of one decode-shape input x (B, 1, d): per token, its
+    top-k experts by selection logit (``torch.topk``), each weighted by its
+    renormalised router probability, plus the shared experts."""
+    from repro_torch.models.common import act_fn
+
+    B, _, d = x.shape
+    xf = x.reshape(B, d)
+    logits = (xf @ p["router"]).to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)
+    select = logits + p["router_bias"] if cfg.router_aux_free else logits
+    top = torch.topk(select, cfg.top_k, dim=-1).indices
+    w = torch.gather(probs, -1, top)
+    w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+    rows = []
+    for b in range(B):
+        y = torch.zeros(d, dtype=x.dtype, device=x.device)
+        for j in range(cfg.top_k):
+            e = int(top[b, j])
+            h = act_fn(cfg.act, xf[b] @ p["w_gate"][e]) * (xf[b] @ p["w_up"][e])
+            y = y + w[b, j].to(x.dtype) * (h @ p["w_down"][e])
+        rows.append(y)
+    y = torch.stack(rows)[:, None, :]
+    if cfg.n_shared:
+        s = p["shared"]
+        y = y + (act_fn(cfg.act, x @ s["w_gate"]) * (x @ s["w_up"])) @ s["w_down"]
+    return y
+
+
+def moe_record(torch, run):
+    """(run(), [(params, input)] of every ``moe_ffn.forward`` call in it)."""
+    from repro_torch.models.moe import moe_ffn
+
+    calls = []
+    real = moe_ffn.__dict__["forward"]  # the staticmethod, restored as it was
+
+    def recorded(p, x, cfg):
+        calls.append((p, x))
+        return real.__func__(p, x, cfg)
+    moe_ffn.forward = staticmethod(recorded)
+    try:
+        out = run()
+    finally:
+        moe_ffn.forward = real
+    return out, calls
+
+
+def moe_holds(torch, cfg, prefill_calls, decode_calls) -> dict:
+    """Each MoE layer at the decode shape against ``moe_loop`` (its dispatch
+    must drop nothing), the drops at prefill, and the experts a decode step
+    really routes to (distinct over the batch, per layer)."""
+    from repro_torch.models.moe import moe_ffn
+
+    errs, ok, active, drops_dec = [], True, [], 0
+    with torch.no_grad():
+        for p, x in decode_calls:
+            idx, _, C_dec = moe_ffn.route(p, x, cfg)
+            _, _, keep = moe_ffn.dispatch(idx, C_dec, cfg.n_experts)
+            drops_dec += int((~keep).sum())
+            active.append(int(torch.unique(idx).numel()))
+            got, want = moe_ffn.forward(p, x, cfg), moe_loop(torch, p, x, cfg)
+            errs.append(float((got - want).abs().max()))
+            ok = ok and bool(torch.allclose(got, want, rtol=MOE_RTOL, atol=MOE_ATOL))
+        drops_pre, pairs_pre = [], 0
+        for p, x in prefill_calls:
+            idx, _, C_pre = moe_ffn.route(p, x, cfg)
+            _, _, keep = moe_ffn.dispatch(idx, C_pre, cfg.n_experts)
+            drops_pre.append(int((~keep).sum()))
+            pairs_pre += keep.numel()
+    return {"layers": len(decode_calls), "experts": cfg.n_experts, "top_k": cfg.top_k,
+            "shared": cfg.n_shared, "capacity_decode": C_dec, "capacity_prefill": C_pre,
+            "drops_decode": drops_dec, "drops_prefill": sum(drops_pre),
+            "drops_prefill_by_layer": drops_pre, "pairs_prefill": pairs_pre,
+            "active_experts_decode": active, "loop_max_abs_err": max(errs),
+            "loop_rtol": MOE_RTOL, "loop_atol": MOE_ATOL, "loop_ok": ok}
+
+
+def mla_hold(torch, cfg, params, seed: int) -> dict:
+    """One full-width MLA layer of the draw (stack 0, unit 0): prefill of
+    LM_PROMPT - 1 rows and one absorbed-latent decode against
+    ``forward_train``'s last row on the same LM_REQUESTS x LM_PROMPT inputs,
+    at the teacher-forcing tolerance."""
+    from repro_torch.models.attention import mla
+
+    p = {k: v[0] for k, v in params["stack0"]["sub0"].items()}
+    dev = p["wo"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((LM_REQUESTS, LM_PROMPT, cfg.d_model), generator=g, device=dev)
+    with torch.no_grad():
+        full = mla.forward_train(p, x, cfg, torch.arange(LM_PROMPT, device=dev))
+        _, cache = mla.forward_prefill(p, x[:, :-1], cfg, torch.arange(LM_PROMPT - 1, device=dev),
+                                       LM_PROMPT + 8)
+        y, _ = mla.forward_decode(p, x[:, -1:], cfg, cache, LM_PROMPT - 1)
+    err = float((y[:, 0] - full[:, -1]).abs().max())
+    return {"layer": "stack0.sub0", "kv_lora_rank": cfg.kv_lora_rank,
+            "q_lora_rank": cfg.q_lora_rank, "heads": cfg.n_heads, "max_abs_err": err,
+            "ok": bool(torch.allclose(y[:, 0], full[:, -1], rtol=TEACHER_RTOL,
+                                      atol=TEACHER_ATOL))}
+
+
+def _fit_depth(cfg, build_model, free_bytes: float) -> tuple:
+    """``cfg`` cut (MoE layers first, keeping the dense ones) until its f32
+    params leave FAMILY_HEADROOM_BYTES of ``free_bytes``: -> (cfg, bytes)."""
+    import dataclasses
+    from math import prod
+
+    def nbytes(c):
+        return 4 * sum(prod(s) for s in _shape_leaves(build_model(c).param_shapes()))
+    b = nbytes(cfg)
+    while b + FAMILY_HEADROOM_BYTES > free_bytes and cfg.n_layers > cfg.n_dense_layers + 1:
+        cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers - 1)
+        b = nbytes(cfg)
+    return cfg, b
+
+
+def _shape_leaves(tree: dict) -> list:
+    return [s for v in tree.values()
+            for s in (_shape_leaves(v) if isinstance(v, dict) else [v])]
+
+
+def family_phase(torch, dev, name: str, seed: int) -> dict:
+    """One family served at full width (f32, params drawn on the card from
+    ``--seed``): ``GenerationEngine.generate`` on LM_REQUESTS prompts of
+    LM_PROMPT tokens (after a VLM's patch embeddings, beside an
+    encoder-decoder's frames, drawn as ``launch/serve.py`` draws them) for
+    LM_NEW new tokens.  Held: two ``generate`` calls equal, every logit
+    finite; FAMILY_TEACHER: prefill + one decode equals the parallel
+    forward; MoE: every layer's decode output equals ``moe_loop`` with no
+    drop; deepseek-v3: ``mla_hold``.  Recorded: the depth cut (``reduced``),
+    params and bytes, prefill ms, decode ms a token beside two byte bounds
+    (every weight read once a step, which the capacity dispatch does; the
+    experts a step routes to only), tokens/s, peak memory beside what was
+    allocated before, a decode step's device profile, the drops at
+    prefill."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import GenerationEngine
+
+    full = get_config(name)
+    cfg = full
+    if name in FAMILY_LAYERS:
+        cfg = dataclasses.replace(full, n_layers=FAMILY_LAYERS[name])
+    free, total = torch.cuda.mem_get_info()
+    reserved = torch.cuda.memory_reserved()
+    cfg, _ = _fit_depth(cfg, build_model, free)
+    _, published_bytes = _fit_depth(full, build_model, float("inf"))
+    reduced = ({"n_layers": [full.n_layers, cfg.n_layers],
+                "why": f"device memory: {published_bytes / 1e9:.1f} GB of f32 params at "
+                       f"the published depth, {free / 1e9:.1f} GB free on the card"}
+               if cfg.n_layers != full.n_layers else {})
+    model = build_model(cfg)
+    before = torch.cuda.memory_allocated()
+    params, init_ms = synced(torch, lambda: model.init(
+        torch.Generator(device=dev).manual_seed(seed), device=dev))
+    leaves = _tensors(params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    pos0 = LM_PROMPT + (cfg.n_patches if cfg.vlm else 0)
+    cache_len = pos0 + LM_PROMPT * 2 + LM_NEW + 8  # launch/serve.py's, past the patches
+    eng = GenerationEngine(model=model, params=params, cache_len=cache_len)
+    rng = np.random.default_rng(seed)
+    host = {"tokens": rng.integers(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)}
+    if cfg.vlm:
+        host["vision_embeds"] = rng.standard_normal(
+            (LM_REQUESTS, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.encdec:
+        host["enc_frames"] = rng.standard_normal(
+            (LM_REQUESTS, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in host.items()}
+    eng.generate(batch, max_new_tokens=2)  # warm the libraries, uncounted
+    torch.cuda.reset_peak_memory_stats()
+
+    finite = True
+    with torch.no_grad():
+        (logits, caches), prefill_ms = synced(
+            torch, lambda: model.prefill(params, batch, cache_len))
+        finite = finite and bool(torch.isfinite(logits).all())
+        step_ms = []
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        for t in range(LM_NEW - 1):
+            (logits, caches), ms = synced(torch, lambda: model.decode_step(
+                params, tok, caches, pos0 + t))
+            step_ms.append(ms)
+            finite = finite and bool(torch.isfinite(logits).all())
+            tok = torch.argmax(logits, dim=-1)[:, None]
+        prof_decode = device_profile(torch, lambda: model.decode_step(
+            params, tok, caches, pos0 + LM_NEW - 1))
+    del caches, logits
+    out, gen_ms = synced(torch, lambda: eng.generate(batch, max_new_tokens=LM_NEW))
+    again = eng.generate(batch, max_new_tokens=LM_NEW)
+    peak = torch.cuda.max_memory_allocated()
+
+    line = {"phase": "families", "arch": cfg.name, "family": cfg.family, "dtype": "f32",
+            "layers": cfg.n_layers, "layers_published": full.n_layers, "reduced": reduced,
+            "d_model": cfg.d_model, "vocab": cfg.vocab, "params": n_params,
+            "param_bytes": param_bytes, "init_ms": init_ms, "requests": LM_REQUESTS,
+            "prompt_tokens": LM_PROMPT, "new_tokens": LM_NEW, "pos0": pos0,
+            "cache_len": cache_len, "prefill_ms": prefill_ms,
+            "decode_ms_per_token_median": statistics.median(step_ms),
+            "decode_ms_min": min(step_ms), "decode_ms_max": max(step_ms),
+            "generate_ms": gen_ms, "tokens_per_s": LM_REQUESTS * LM_NEW / (gen_ms / 1e3),
+            "peak_device_memory_gb": peak / 1e9, "device_memory_before_gb": before / 1e9,
+            "device_free_gb_before": free / 1e9, "device_total_gb": total / 1e9,
+            "allocator_reserved_gb_before": reserved / 1e9,
+            "repeat_generate_equal": bool(np.array_equal(out, again)),
+            "logits_finite": finite, "decode_profile": prof_decode,
+            "first_row": out[0].tolist()}
+    if cfg.vlm:
+        line["patches"] = cfg.n_patches
+    if cfg.encdec:
+        line["encoder_frames"] = cfg.enc_seq
+        line["encoder_layers"] = cfg.n_enc_layers
+
+    read_bytes = param_bytes
+    active_bytes = param_bytes
+    if cfg.moe:
+        with torch.no_grad():
+            (_, caches), pre_calls = moe_record(
+                torch, lambda: model.prefill(params, batch, cache_len))
+            tok = torch.as_tensor(out[:, :1], device=dev)
+            _, dec_calls = moe_record(torch, lambda: model.decode_step(
+                params, tok, caches, pos0))
+            del caches
+        line["moe"] = moe_holds(torch, cfg, pre_calls, dec_calls)
+        del pre_calls, dec_calls
+        per_expert = 3 * cfg.d_model * cfg.d_ff_expert * 4
+        active_bytes -= sum(cfg.n_experts - a for a in line["moe"]["active_experts_decode"]
+                            ) * per_expert
+    if cfg.mla:
+        line["mla"] = mla_hold(torch, cfg, params, seed)
+    if name in FAMILY_TEACHER:
+        with torch.no_grad():
+            h = model.forward_train(params, batch)
+            par = (h[:, -1, :] @ model._head(params)).cpu().numpy()
+            del h
+            pre = dict(batch, tokens=batch["tokens"][:, :-1])
+            _, caches = model.prefill(params, pre, cache_len)
+            dec, _ = model.decode_step(params, batch["tokens"][:, -1:], caches, pos0 - 1)
+            dec = dec.cpu().numpy()
+            del caches
+        line["teacher_forcing_max_abs_err"] = float(np.abs(par - dec).max())
+        line["teacher_forcing_ok"] = bool(np.allclose(dec, par, rtol=TEACHER_RTOL,
+                                                      atol=TEACHER_ATOL))
+    decode_ms = line["decode_ms_per_token_median"]
+    for tag, nbytes in (("read", read_bytes), ("active", active_bytes)):
+        # every param f32; a weight's product takes 2 flops a row, and the
+        # capacity dispatch runs LM_REQUESTS rows (C = 8) through each expert
+        bound, by = bound_ms(nbytes, 2.0 * nbytes / 4 * LM_REQUESTS)
+        line[f"decode_bound_ms_{tag}"] = bound
+        line[f"decode_bound_by_{tag}"] = by
+        line[f"decode_share_of_bound_{tag}"] = bound / decode_ms
+    line["decode_bytes_read"], line["decode_bytes_active"] = read_bytes, active_bytes
+    del eng, params, leaves, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def families_phase(torch, dev, seed: int) -> list:
+    """``family_phase`` for each of FAMILY_ARCHS in turn, one model on the
+    card at a time; every line is printed before its holds are checked."""
+    lines = []
+    for name in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        line = family_phase(torch, dev, name, seed)
+        line["seconds"] = time.perf_counter() - t0
+        emit(line)
+        lines.append(line)
+        assert line["repeat_generate_equal"], f"{name}: two generate calls disagree"
+        assert line["logits_finite"], f"{name}: a logit is not finite"
+        if "teacher_forcing_ok" in line:
+            assert line["teacher_forcing_ok"], (
+                f"{name}: prefill + decode off the parallel forward by "
+                f"{line['teacher_forcing_max_abs_err']}")
+        if "moe" in line:
+            moe = line["moe"]
+            assert moe["drops_decode"] == 0, f"{name}: the decode dispatch dropped {moe}"
+            assert moe["loop_ok"], f"{name}: MoE off the per-token loop by {moe}"
+        if "mla" in line:
+            assert line["mla"]["ok"], f"{name}: absorbed MLA decode off {line['mla']}"
+    return lines
+
+
 def rag_dist_error(torch, X, Q, ids, dists) -> float:
     """Largest |returned - direct f32 distance| / max(direct, 1e-2 (||q||^2 +
     ||x||^2)): held to 1e-3, that is relative where the distance is not near
@@ -3820,6 +4147,16 @@ def main() -> int:
     train_reduced_phase(torch, args.seed, dev)
     emit({"phase": "train_done", "full_width_s": t1 - t0, "two_layer_s": t2 - t1,
           "reduced_s": time.perf_counter() - t2, "seconds": time.perf_counter() - t0})
+
+    # ------------------------------------------------------- 11. families
+    # llama's params and train state are gone: one family at a time
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fam = families_phase(torch, dev, args.seed)
+    emit({"phase": "families_done", "models": [f["arch"] for f in fam],
+          "seconds_by_model": {f["arch"]: f["seconds"] for f in fam},
+          "seconds": time.perf_counter() - t0})
 
     # ----------------------------------------------------- 4. the record
     emit({"kernels": kernels + paper_rows})

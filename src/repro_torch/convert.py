@@ -176,10 +176,13 @@ def lm_params_from_arrays(cfg, arrays: dict, device=None) -> dict:
     """The port's LM params on ``device`` (``None`` means the CUDA card)
     holding exactly the reference's numbers.  ``arrays`` is the nested
     params dict: ``embed`` (V, d), ``final_norm``, ``lm_head`` when the
-    embeddings are untied, ``stack{i}`` -> ``sub{j}`` -> ``{norm, wq, wk,
-    wv, wo, bq, bk, bv, w_gate, w_up, w_down}`` with a leading unit axis.
+    embeddings are untied, ``enc_final_norm`` for an encoder-decoder,
+    ``stack{i}`` -> ``sub{j}`` -> the sub-block's leaves (``norm``, ``wq``,
+    ..., ``router``, ``w_dkv``, ``in_proj``, ...) with a leading unit axis.
     Keys and shapes are checked against the params ``build_model(cfg)``
-    draws; a missing, extra or misshapen array raises."""
+    draws; a missing, extra or misshapen array raises.  Each leaf keeps
+    its array's dtype, so a bf16 model's f32 leaves (``router_bias``,
+    ``A_log``, ``dt_bias``, ``D``) stay f32."""
     dev = resolve_device(device)
     want = build_model(cfg).param_shapes()
 

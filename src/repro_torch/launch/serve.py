@@ -47,7 +47,8 @@ def main(argv=None):
         cfg = cfg.reduced()
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0), device=dev)
-    cache_len = args.prompt_len * 3 + args.max_new + 8
+    # a VLM's patch embeddings take cache rows before the prompt
+    cache_len = args.prompt_len * 3 + args.max_new + 8 + (cfg.n_patches if cfg.vlm else 0)
     eng = GenerationEngine(model=model, params=params, cache_len=cache_len)
 
     rng = np.random.default_rng(0)
@@ -56,6 +57,14 @@ def main(argv=None):
             0, cfg.vocab, (args.requests, args.prompt_len)
         ).astype(np.int32)
     }
+    if cfg.vlm:
+        batch["vision_embeds"] = rng.standard_normal(
+            (args.requests, cfg.n_patches, cfg.d_model)
+        ).astype(np.float32)
+    if cfg.encdec:
+        batch["enc_frames"] = rng.standard_normal(
+            (args.requests, cfg.enc_seq, cfg.d_model)
+        ).astype(np.float32)
 
     if args.rag:
         docs = rng.integers(0, cfg.vocab, (args.docs, args.prompt_len)).astype(

@@ -2,7 +2,7 @@
 ``repro.launch.specs``): ``text_len`` and ``make_concrete_batch``, drawing
 from ``np.random.default_rng(seed)`` in the reference's order, so both
 packages see identical batches.  ``input_specs`` (the dry-run's
-ShapeDtypeStructs) waits with the dry-run (ROADMAP.md, modules item 4).
+ShapeDtypeStructs) waits with the dry-run (ROADMAP.md, modules item 3).
 """
 from __future__ import annotations
 

@@ -34,8 +34,10 @@ NEG_INF = -1e30
 def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
                std: float = DEFAULT_INIT_STD) -> torch.Tensor:
     """Normal(0, std) weights drawn in f32 from ``generator``, then cast to
-    ``dtype``, on the default device (the caller's ``with torch.device``)."""
-    return (torch.randn(shape, generator=generator, dtype=torch.float32) * std).to(dtype)
+    ``dtype``, on the default device (the caller's ``with torch.device``).
+    The scale is applied in place: the same bits as ``randn * std`` without
+    a second copy of the leaf (deepseek-v3's expert tensor is 15 GB)."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32).mul_(std).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -2,24 +2,31 @@
 -> stacks of identical units -> the model.
 
 A model is a sequence of *stacks*; each stack holds ``count`` identical
-*units*; a unit is an ordered list of sub-blocks (pre-norm residual each).
-The dense LM is one stack whose unit is ``[gqa, ffn]``, ``n_layers`` times.
+*units*; a unit is an ordered list of sub-blocks (pre-norm residual each):
+
+    dense LM            : 1 stack,  unit = [gqa, ffn]            x n_layers
+    deepseek-moe        : 2 stacks, [gqa, ffn] x 1 ; [gqa, moe]  x 27
+    deepseek-v3         : 2 stacks, [mla, ffn] x 3 ; [mla, moe]  x 58
+    jamba               : 1 stack,  unit = 8 sub-layer pairs (1 gqa : 7
+                          mamba, MoE every 2nd)                  x 4
+    mamba2              : 1 stack,  unit = [mamba]                x 48
+    whisper (enc-dec)   : an encoder stack [gqa, ffn] (not causal) and a
+                          decoder stack [gqa, cross, ffn]
+    internvl2 (vlm)     : the dense LM over [patch embeds ; token embeds]
 
 Params are the reference's pytree as tensors: ``embed`` (V, d),
-``final_norm``, ``lm_head`` (d, V) when the embeddings are untied, and
-``stack{i}.sub{j}.{norm, wq, ...}`` with a leading unit axis.  Where the
-reference scans a stack, the port loops over its units in Python; each
-unit's params are views of the stacked tensors (``torch.unbind``, whose
-backward stacks the units' gradients into the stacked leaf once).
-Training recomputes each unit in the backward pass (``remat``,
-``torch.utils.checkpoint``), and the loss is sequence-chunked
-(``chunked_ce_loss``): it never holds (B, S, V) logits.  Caches are
-per-stack dicts with the same leading unit axis; ``decode_step`` writes
-each unit's new row into them in place and returns them.
-
-Only the dense family is ported.  MoE, MLA, SSM, hybrid, encoder-decoder
-and VLM models are ROADMAP.md's modules item 2, and ``build_model``
-refuses them.
+``final_norm``, ``lm_head`` (d, V) when the embeddings are untied,
+``enc_final_norm`` for an encoder-decoder, and ``stack{i}.sub{j}.{norm,
+wq, ...}`` with a leading unit axis.  Where the reference scans a stack,
+the port loops over its units in Python; each unit's params are views of
+the stacked tensors (``torch.unbind``, whose backward stacks the units'
+gradients into the stacked leaf once).  Training recomputes each unit in
+the backward pass (``remat``, ``torch.utils.checkpoint``), and the loss is
+sequence-chunked (``chunked_ce_loss``): it never holds (B, S, V) logits.
+Caches are per-stack dicts with the same leading unit axis (``None`` for
+an encoder stack); ``decode_step`` has every sub-block write its new state
+into them in place (a GQA or MLA row, a Mamba state and conv window; a
+cross-attention cache is left as it is) and returns them.
 """
 from __future__ import annotations
 
@@ -31,22 +38,16 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
-from .attention import gqa
+from .attention import gqa, mla
 from .common import dense_init, rms_norm
-from .moe import dense_ffn
+from .mamba import mamba2
+from .moe import dense_ffn, moe_ffn
 
 __all__ = ["LayerSpec", "StackDef", "LMModel", "build_model", "chunked_ce_loss",
            "init_unit", "init_unit_cache", "apply_unit"]
 
-# A sub-block: (kind, options). kinds ported: gqa | ffn
+# A sub-block: (kind, options). kinds: gqa | mla | mamba | ffn | moe | cross
 LayerSpec = tuple[tuple[str, dict], ...]
-
-_FAMILY_ITEM = ("ROADMAP.md, modules queue item 2 (the other families' serving: "
-                "vlm, moe, mla, ssm and hybrid, encdec)")
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: {_FAMILY_ITEM}")
 
 
 # --------------------------------------------------------------------------
@@ -54,12 +55,18 @@ def _unported(what: str) -> NotImplementedError:
 # --------------------------------------------------------------------------
 def _init_sub(generator, kind: str, opt: dict, cfg: ArchConfig, dtype, lead: tuple):
     norm = torch.ones(lead + (cfg.d_model,), dtype=dtype)
-    if kind == "gqa":
+    if kind in ("gqa", "cross"):
         return {"norm": norm, **gqa.init(generator, cfg, dtype, lead)}
+    if kind == "mla":
+        return {"norm": norm, **mla.init(generator, cfg, dtype, lead)}
+    if kind == "mamba":
+        return {"norm": norm, **mamba2.init(generator, cfg, cfg.d_model, dtype, lead)}
     if kind == "ffn":
         d_ff = opt.get("d_ff", cfg.d_ff)
         return {"norm": norm, **dense_ffn.init(generator, cfg.d_model, d_ff, dtype, lead)}
-    raise _unported(f"sub-block {kind!r}")
+    if kind == "moe":
+        return {"norm": norm, **moe_ffn.init(generator, cfg, dtype, lead)}
+    raise ValueError(kind)
 
 
 def init_unit(generator, spec: LayerSpec, cfg: ArchConfig, dtype, lead: tuple = ()) -> dict:
@@ -76,16 +83,27 @@ def init_unit_cache(
     *, device=None, lead: tuple = (),
 ) -> dict:
     dev = resolve_device(device)
+
+    def zeros(*shape):
+        return torch.zeros(lead + shape, dtype=dtype, device=dev)
+
     out = {}
     for i, (kind, _) in enumerate(spec):
+        hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
         if kind == "gqa":
-            shape = lead + (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-            out[f"sub{i}"] = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                              "v": torch.zeros(shape, dtype=dtype, device=dev)}
-        elif kind == "ffn":
-            out[f"sub{i}"] = {}
+            out[f"sub{i}"] = {"k": zeros(batch, cache_len, hkv, hd),
+                              "v": zeros(batch, cache_len, hkv, hd)}
+        elif kind == "mla":
+            out[f"sub{i}"] = {"c_kv": zeros(batch, cache_len, cfg.kv_lora_rank),
+                              "k_rope": zeros(batch, cache_len, cfg.qk_rope_head_dim)}
+        elif kind == "mamba":
+            out[f"sub{i}"] = mamba2.init_cache(cfg, cfg.d_model, batch, dtype, device=dev,
+                                               lead=lead)
+        elif kind == "cross":
+            out[f"sub{i}"] = {"ck": zeros(batch, cfg.enc_seq, hkv, hd),
+                              "cv": zeros(batch, cfg.enc_seq, hkv, hd)}
         else:
-            raise _unported(f"the {kind!r} cache")
+            out[f"sub{i}"] = {}
     return out
 
 
@@ -99,7 +117,11 @@ def apply_unit(
     cache: Optional[dict] = None,
     pos: int = 0,
     cache_len: int = 0,
+    enc_out: Optional[torch.Tensor] = None,
+    causal: bool = True,
 ):
+    """One unit.  In decode mode every sub-block writes its new state into
+    ``cache`` in place; the returned caches are the same tensors."""
     new_cache = {}
     for i, (kind, _) in enumerate(spec):
         p = params[f"sub{i}"]
@@ -108,15 +130,41 @@ def apply_unit(
         nc = {}
         if kind == "gqa":
             if mode == "train":
-                y = gqa.forward_train(p, h, cfg, positions)
+                y = gqa.forward_train(p, h, cfg, positions, causal=causal)
             elif mode == "prefill":
                 y, nc = gqa.forward_prefill(p, h, cfg, positions, cache_len)
             else:
                 y, nc = gqa.forward_decode(p, h, cfg, c, pos)
+        elif kind == "mla":
+            if mode == "train":
+                y = mla.forward_train(p, h, cfg, positions)
+            elif mode == "prefill":
+                y, nc = mla.forward_prefill(p, h, cfg, positions, cache_len)
+            else:
+                y, nc = mla.forward_decode(p, h, cfg, c, pos)
+        elif kind == "mamba":
+            if mode == "train":
+                y = mamba2.forward_train(p, h, cfg, cfg.d_model)
+            elif mode == "prefill":
+                y, nc = mamba2.forward_train(p, h, cfg, cfg.d_model, return_state=True)
+            else:
+                y, nc = mamba2.forward_decode(p, h, cfg, c, cfg.d_model)
+        elif kind == "cross":
+            if mode == "train":
+                y = gqa.forward_cross(p, h, enc_out, cfg)
+            elif mode == "prefill":
+                ck, cv = gqa.cross_kv(p, enc_out, cfg)
+                y = gqa.forward_cross(p, h, enc_out, cfg)
+                nc = {"ck": ck, "cv": cv}
+            else:
+                y = gqa.forward_cross_cached(p, h, c["ck"], c["cv"], cfg)
+                nc = c
         elif kind == "ffn":
             y = dense_ffn.forward(p, h, cfg.act)
+        elif kind == "moe":
+            y = moe_ffn.forward(p, h, cfg)
         else:
-            raise _unported(f"sub-block {kind!r}")
+            raise ValueError(kind)
         x = x + y
         new_cache[f"sub{i}"] = nc
     return x, new_cache
@@ -217,6 +265,7 @@ def chunked_ce_loss(h: torch.Tensor, labels, w_head: torch.Tensor,
 class StackDef:
     count: int
     spec: LayerSpec
+    role: str = "decoder"  # decoder | encoder
 
 
 @dataclasses.dataclass(frozen=True)
@@ -252,6 +301,8 @@ class LMModel:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab), dtype)
+        if cfg.encdec:
+            params["enc_final_norm"] = torch.ones((cfg.d_model,), dtype=dtype)
         for si, sd in enumerate(self.stacks):
             params[f"stack{si}"] = init_unit(generator, sd.spec, cfg, dtype, lead=(sd.count,))
         return params
@@ -268,29 +319,36 @@ class LMModel:
 
     # --------------------------------------------------------------- runs
     def _run_stacks(self, params, x, mode, positions, caches=None, pos: int = 0,
-                    cache_len: int = 0, remat: bool = False):
-        """``remat`` (train mode, where autograd records): each unit runs
-        under ``torch.utils.checkpoint``, which keeps only the unit's input
-        and recomputes the unit in the backward pass.  The reference's
-        ``jax.checkpoint`` policy (``dots_with_no_batch_dims_saveable``)
-        also keeps some products; recomputing all of them changes memory
-        and time, not values."""
+                    cache_len: int = 0, enc_out=None, role: str = "decoder",
+                    remat: bool = False, causal: bool = True):
+        """Runs the stacks of ``role``; the others keep their caches (or
+        ``None``).  ``remat`` (train mode, where autograd records): each
+        unit runs under ``torch.utils.checkpoint``, which keeps only the
+        unit's input and recomputes the unit in the backward pass.  The
+        reference's ``jax.checkpoint`` policy
+        (``dots_with_no_batch_dims_saveable``) also keeps some products;
+        recomputing all of them changes memory and time, not values."""
         remat = remat and mode == "train" and torch.is_grad_enabled()
         new_caches = []
         for si, sd in enumerate(self.stacks):
+            if sd.role != role:
+                new_caches.append(caches[si] if caches else None)
+                continue
             units = _units(params[f"stack{si}"], sd.count)
             unit_caches = []
             for u in range(sd.count):
                 if remat:
                     x = checkpoint(
                         lambda h, p=units[u], spec=sd.spec: apply_unit(
-                            p, h, spec, self.cfg, "train", positions)[0],
+                            p, h, spec, self.cfg, "train", positions,
+                            enc_out=enc_out, causal=causal)[0],
                         x, use_reentrant=False)
                     continue
                 unit_c = _unit(caches[si], u) if mode == "decode" else None
                 x, nc = apply_unit(
                     units[u], x, sd.spec, self.cfg, mode, positions,
-                    cache=unit_c, pos=pos, cache_len=cache_len,
+                    cache=unit_c, pos=pos, cache_len=cache_len, enc_out=enc_out,
+                    causal=causal,
                 )
                 unit_caches.append(nc)
             if mode == "train":
@@ -304,42 +362,79 @@ class LMModel:
     def _tokens(self, params, tokens) -> torch.Tensor:
         return torch.as_tensor(tokens, device=params["embed"].device).long()
 
-    def _inputs_to_x(self, params, batch):
-        """Text tokens -> (x, positions)."""
+    def _modality(self, params, a) -> torch.Tensor:
+        return torch.as_tensor(a, device=params["embed"].device)
+
+    def _encode(self, params, enc_frames, remat: bool = False):
+        """The whisper encoder over stubbed conv-frontend frames (B, Se, d):
+        a sinusoidal position embedding, the encoder stacks (not causal),
+        ``enc_final_norm``."""
+        cfg = self.cfg
+        Se = enc_frames.shape[1]
+        pos = torch.arange(Se, device=enc_frames.device)
+        half = cfg.d_model // 2
+        freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=pos.device)
+                          * (9.21 / max(half - 1, 1)))
+        ang = pos[:, None].to(torch.float32) * freqs[None, :]
+        pe = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+        x = enc_frames + pe[None].to(enc_frames.dtype)
+        x, _ = self._run_stacks(params, x, "train", pos, role="encoder", remat=remat,
+                                causal=False)
+        return rms_norm(x, params["enc_final_norm"], cfg.rms_eps)
+
+    def _inputs_to_x(self, params, batch, remat: bool = False):
+        """Merge the modality inputs -> (x, positions, enc_out): a VLM's
+        patch embeddings go before the token embeddings; an
+        encoder-decoder's frames go through the encoder."""
+        cfg = self.cfg
         x = self._embed(params, self._tokens(params, batch["tokens"]))
+        enc_out = None
+        if cfg.vlm:
+            vis = self._modality(params, batch["vision_embeds"])
+            x = torch.cat([vis.to(x.dtype), x], dim=1)
+        if cfg.encdec:
+            enc_out = self._encode(params, self._modality(params, batch["enc_frames"]),
+                                   remat=remat)
         positions = torch.arange(x.shape[1], device=x.device)
-        return x, positions
+        return x, positions, enc_out
 
     # --------------------------------------------------------------- API
     def forward_train(self, params, batch, remat: bool = True) -> torch.Tensor:
         """-> final hidden states (B, S, d).  ``remat`` recomputes each unit
         in the backward pass (it has no effect where autograd records
         nothing, as in serving)."""
-        x, positions = self._inputs_to_x(params, batch)
-        x, _ = self._run_stacks(params, x, "train", positions, remat=remat)
+        x, positions, enc_out = self._inputs_to_x(params, batch, remat=remat)
+        x, _ = self._run_stacks(params, x, "train", positions, enc_out=enc_out, remat=remat)
         return rms_norm(x, params["final_norm"], self.cfg.rms_eps)
 
     def loss(self, params, batch, remat: bool = True) -> torch.Tensor:
-        """Mean next-token CE of ``batch`` (``tokens``, ``labels``), a 0-d f32
-        tensor; differentiate it with autograd."""
+        """Mean next-token CE of ``batch`` (``tokens``, ``labels`` and the
+        modality inputs), a 0-d f32 tensor; differentiate it with autograd.
+        A VLM's loss covers the text positions only."""
         h = self.forward_train(params, batch, remat=remat)
+        if self.cfg.vlm:
+            h = h[:, self.cfg.n_patches:, :]
         return chunked_ce_loss(h, self._tokens(params, batch["labels"]), self._head(params))
 
     def prefill(self, params, batch, cache_len: int):
         """-> (last-token logits (B, V), caches)."""
-        x, positions = self._inputs_to_x(params, batch)
-        x, caches = self._run_stacks(params, x, "prefill", positions, cache_len=cache_len)
+        x, positions, enc_out = self._inputs_to_x(params, batch)
+        x, caches = self._run_stacks(params, x, "prefill", positions, cache_len=cache_len,
+                                     enc_out=enc_out)
         h = rms_norm(x[:, -1, :], params["final_norm"], self.cfg.rms_eps)
         return h @ self._head(params), caches
 
     def init_caches(self, batch: int, cache_len: int, dtype=torch.float32, *, device=None):
+        """Zeroed caches per stack (``None`` for an encoder stack)."""
         return [init_unit_cache(sd.spec, self.cfg, batch, cache_len, dtype,
                                 device=device, lead=(sd.count,))
+                if sd.role == "decoder" else None
                 for sd in self.stacks]
 
     def decode_step(self, params, tokens, caches, pos: int):
-        """tokens (B, 1) -> (logits (B, V), caches): writes row ``pos`` of
-        every unit's cache in place and returns the same caches."""
+        """tokens (B, 1) -> (logits (B, V), caches): every unit writes its
+        new state (row ``pos`` of an attention cache, a Mamba state) into
+        the caches in place, and the same caches are returned."""
         x = self._embed(params, self._tokens(params, tokens))
         x, new_caches = self._run_stacks(params, x, "decode", None, caches=caches, pos=pos)
         h = rms_norm(x[:, -1, :], params["final_norm"], self.cfg.rms_eps)
@@ -350,8 +445,33 @@ class LMModel:
 # Spec construction from ArchConfig.
 # --------------------------------------------------------------------------
 def build_model(cfg: ArchConfig) -> LMModel:
-    """The dense LM; every other family raises, naming its ROADMAP item."""
-    if cfg.family != "dense" or cfg.mla or cfg.moe or cfg.ssm or cfg.hybrid_period \
-            or cfg.encdec or cfg.vlm:
-        raise _unported(f"{cfg.name}: the {cfg.family!r} family")
-    return LMModel(cfg=cfg, stacks=(StackDef(cfg.n_layers, (("gqa", {}), ("ffn", {}))),))
+    attn_kind = "mla" if cfg.mla else "gqa"
+    stacks: list[StackDef] = []
+
+    if cfg.encdec:
+        enc_spec: LayerSpec = (("gqa", {}), ("ffn", {}))
+        dec_spec: LayerSpec = (("gqa", {}), ("cross", {}), ("ffn", {}))
+        stacks.append(StackDef(cfg.n_enc_layers, enc_spec, role="encoder"))
+        stacks.append(StackDef(cfg.n_layers, dec_spec, role="decoder"))
+    elif cfg.hybrid_period:
+        sub: list[tuple[str, dict]] = []
+        for i in range(cfg.hybrid_period):
+            mixer = "gqa" if i in cfg.attn_positions else "mamba"
+            ff = "moe" if (cfg.moe and i % cfg.moe_period == 1) else "ffn"
+            sub.append((mixer, {}))
+            sub.append((ff, {}))
+        stacks.append(StackDef(cfg.n_layers // cfg.hybrid_period, tuple(sub)))
+    elif cfg.ssm:
+        stacks.append(StackDef(cfg.n_layers, (("mamba", {}),)))
+    elif cfg.moe:
+        if cfg.n_dense_layers:
+            dspec: LayerSpec = (
+                (attn_kind, {}),
+                ("ffn", {"d_ff": cfg.d_ff_dense or cfg.d_ff}),
+            )
+            stacks.append(StackDef(cfg.n_dense_layers, dspec))
+        mspec: LayerSpec = ((attn_kind, {}), ("moe", {}))
+        stacks.append(StackDef(cfg.n_layers - cfg.n_dense_layers, mspec))
+    else:
+        stacks.append(StackDef(cfg.n_layers, ((attn_kind, {}), ("ffn", {}))))
+    return LMModel(cfg=cfg, stacks=tuple(stacks))

@@ -1,0 +1,176 @@
+"""Mamba2 (SSD, state-space duality) block, chunked matmul form
+(counterpart of ``repro.models.mamba``).
+
+Within a chunk the SSM is a masked quadratic form (batched products);
+across chunks a (B, H, N, P) state is carried in a Python loop.  Decode is
+the O(1)-per-token recurrence on that state, plus a K-1 row window of the
+causal depthwise convolution's input.
+
+The reference's f32 islands are kept: ``dt`` (softplus), ``A``, the state
+and the per-head inputs are f32, and ``A_log``, ``dt_bias`` and ``D`` are
+f32 leaves in any model dtype.  Where the reference lets a product promote
+a narrower operand to f32, the port upcasts it (exactly) first.
+
+Shapes: d_inner = expand*d_model, H heads of head_dim P, state N, groups G.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .common import dense_init, rms_norm
+
+__all__ = ["mamba2"]
+
+_F32 = torch.float32
+
+
+def _dims(cfg, d_model: int):
+    di = cfg.ssm_expand * d_model
+    P = cfg.ssm_head_dim
+    H = di // P
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    return di, H, P, G, N
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+class mamba2:
+    @staticmethod
+    def init(generator: torch.Generator, cfg, d_model: int, dtype=torch.float32,
+             lead: tuple = ()) -> dict:
+        """``lead``: leading axes (a stack's unit count) of every tensor."""
+        di, H, P, G, N = _dims(cfg, d_model)
+        K = cfg.conv_kernel
+        conv_dim = di + 2 * G * N
+        return {
+            "in_proj": dense_init(generator, lead + (d_model, 2 * di + 2 * G * N + H), dtype),
+            "conv_w": dense_init(generator, lead + (K, conv_dim), dtype, std=0.1),
+            "conv_b": torch.zeros(lead + (conv_dim,), dtype=dtype),
+            "A_log": torch.zeros(lead + (H,), dtype=_F32),
+            "dt_bias": torch.full(lead + (H,), -2.0, dtype=_F32),
+            "D": torch.ones(lead + (H,), dtype=_F32),
+            "norm_w": torch.ones(lead + (di,), dtype=dtype),
+            "out_proj": dense_init(generator, lead + (di, d_model), dtype),
+        }
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _split(p, x, cfg, d_model):
+        di, H, P, G, N = _dims(cfg, d_model)
+        proj = x @ p["in_proj"]  # (B,S,2di+2GN+H)
+        return torch.split(proj, [di, di, G * N, G * N, H], dim=-1)  # z, xs, B, C, dt
+
+    @staticmethod
+    def _conv_train(p, u, K):
+        """Causal depthwise conv along time: u (B,S,C)."""
+        pad = F.pad(u, (0, 0, K - 1, 0))
+        out = sum(pad[:, i:i + u.shape[1], :] * p["conv_w"][i][None, None, :]
+                  for i in range(K))
+        return F.silu(out + p["conv_b"])
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def forward_train(p, x, cfg, d_model: int, return_state: bool = False):
+        B, S, _ = x.shape
+        di, H, P, G, N = _dims(cfg, d_model)
+        Q = min(cfg.ssm_chunk, S)
+        assert S % Q == 0, f"seq {S} must divide chunk {Q}"
+        nc = S // Q
+        K = cfg.conv_kernel
+
+        z, xs, Bc, Cc, dt = mamba2._split(p, x, cfg, d_model)
+        conv_in = torch.cat([xs, Bc, Cc], dim=-1)
+        conv_out = mamba2._conv_train(p, conv_in, K)
+        xs, Bc, Cc = torch.split(conv_out, [di, G * N, G * N], dim=-1)
+
+        dt = _softplus(dt.to(_F32) + p["dt_bias"])    # (B,S,H)
+        A = -torch.exp(p["A_log"])                    # (H,)
+        a = dt * A[None, None, :]                     # (B,S,H) <= 0
+
+        # chunk by chunk, one (B, Q, ...) working set at a time, carrying
+        # the (B, H, N, P) state
+        rep = H // G
+        xh = xs.reshape(B, nc, Q, H, P).to(_F32)
+        Bh = Bc.reshape(B, nc, Q, G, N).to(_F32)
+        Ch = Cc.reshape(B, nc, Q, G, N).to(_F32)
+        ac = a.reshape(B, nc, Q, H)
+        dtc = dt.reshape(B, nc, Q, H)
+        mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+
+        h = torch.zeros((B, H, N, P), dtype=_F32, device=x.device)
+        ys = []
+        for c in range(nc):
+            xc, bc, cc, a_c, dt_c = xh[:, c], Bh[:, c], Ch[:, c], ac[:, c], dtc[:, c]
+            xbar = xc * dt_c[..., None]
+            cum = torch.cumsum(a_c, dim=1)                      # (B,Q,H)
+            li = cum[:, :, None, :] - cum[:, None, :, :]        # (B,Q,Q,H)
+            Lm = torch.where(mask[None, :, :, None], torch.exp(li), 0.0)
+            scores = torch.einsum("bqgn,bsgn->bqsg", cc, bc)    # (B,Q,Q,G)
+            att = torch.repeat_interleave(scores, rep, dim=-1) * Lm
+            y_intra = torch.einsum("bqsh,bshp->bqhp", att, xbar)
+            # inter-chunk contribution from the carried state
+            cc_h = torch.repeat_interleave(cc, rep, dim=2)      # (B,Q,H,N)
+            y_inter = torch.einsum("bqh,bqhn,bhnp->bqhp", torch.exp(cum), cc_h, h)
+            # state update
+            decay_to_end = torch.exp(cum[:, -1:, :] - cum)      # (B,Q,H)
+            bc_h = torch.repeat_interleave(bc, rep, dim=2)
+            s_c = torch.einsum("bqh,bqhn,bqhp->bhnp", decay_to_end, bc_h, xbar)
+            h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + s_c
+            ys.append(y_intra + y_inter)
+        y = torch.stack(ys, dim=1).reshape(B, S, H, P)
+        y = y + p["D"][None, None, :, None] * xs.reshape(B, S, H, P).to(_F32)
+        y = y.reshape(B, S, di).to(x.dtype)
+        y = rms_norm(y * F.silu(z), p["norm_w"], cfg.rms_eps)
+        out = y @ p["out_proj"]
+        if not return_state:
+            return out
+        # the conv tail is the last K-1 rows of the conv's input
+        conv_tail = conv_in[:, -(K - 1):, :] if K > 1 else conv_in[:, :0, :]
+        return out, {"ssm": h, "conv": conv_tail.to(x.dtype)}
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def init_cache(cfg, d_model: int, batch: int, dtype=torch.float32, *, device,
+                   lead: tuple = ()) -> dict:
+        di, H, P, G, N = _dims(cfg, d_model)
+        K = cfg.conv_kernel
+        return {
+            "ssm": torch.zeros(lead + (batch, H, N, P), dtype=_F32, device=device),
+            "conv": torch.zeros(lead + (batch, K - 1, di + 2 * G * N), dtype=dtype,
+                                device=device),
+        }
+
+    @staticmethod
+    def forward_decode(p, x, cfg, cache, d_model: int):
+        """x (B, 1, d); the O(1) state recurrence.  Shifts the conv window
+        and replaces the state in the given cache, in place, and returns
+        it."""
+        B = x.shape[0]
+        di, H, P, G, N = _dims(cfg, d_model)
+
+        z, xs, Bc, Cc, dt = mamba2._split(p, x, cfg, d_model)
+        u = torch.cat([xs, Bc, Cc], dim=-1)                             # (B,1,C)
+        window = torch.cat([cache["conv"], u], dim=1)                   # (B,K,C)
+        conv_out = F.silu(torch.einsum("bkc,kc->bc", window, p["conv_w"])
+                          + p["conv_b"])[:, None, :]
+        xs, Bc, Cc = torch.split(conv_out, [di, G * N, G * N], dim=-1)
+
+        dt = _softplus(dt.to(_F32) + p["dt_bias"])[:, 0]                # (B,H)
+        A = -torch.exp(p["A_log"])
+        dec = torch.exp(dt * A[None, :])                                # (B,H)
+        xh = xs.reshape(B, H, P).to(_F32)
+        rep = H // G
+        Bh = torch.repeat_interleave(Bc.reshape(B, G, N), rep, dim=1).to(_F32)  # (B,H,N)
+        Ch = torch.repeat_interleave(Cc.reshape(B, G, N), rep, dim=1).to(_F32)
+        xbar = xh * dt[..., None]
+        h = cache["ssm"] * dec[:, :, None, None] + torch.einsum("bhn,bhp->bhnp", Bh, xbar)
+        y = torch.einsum("bhn,bhnp->bhp", Ch, h) + p["D"][None, :, None] * xh
+        y = y.reshape(B, 1, di).to(x.dtype)
+        y = rms_norm(y * F.silu(z), p["norm_w"], cfg.rms_eps)
+        cache["ssm"].copy_(h)
+        cache["conv"].copy_(window[:, 1:, :])
+        return y @ p["out_proj"], cache

@@ -38,17 +38,23 @@ class GenerationEngine:
         temperature: float = 0.0,
         seed: int = 0,
     ) -> np.ndarray:
-        """batch: {'tokens': (B, S)}. Returns (B, new) int32.
+        """batch: {'tokens': (B, S), ...modality inputs}. Returns (B, new)
+        int32.  Decoding starts at ``pos0 = S`` (``S + n_patches`` for a
+        VLM, whose patch embeddings come before the prompt); the batch's
+        arrays go to the params' device first.
 
         Greedy decoding takes the first of tied maxima, as the reference
         does.  Sampling at ``temperature > 0`` draws from a
         ``torch.Generator`` seeded with ``seed`` on the params' device: it is
         deterministic per seed, but not the reference's ``jax.random``
         stream."""
+        cfg = self.model.cfg
+        batch = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
         S = batch["tokens"].shape[1]
-        if S + max_new_tokens > self.cache_len:
-            raise ValueError(f"cache too small: {S} prompt + {max_new_tokens} new tokens "
-                             f"> cache_len {self.cache_len}")
+        pos0 = S + (cfg.n_patches if cfg.vlm else 0)
+        if pos0 + max_new_tokens > self.cache_len:
+            raise ValueError(f"cache too small: {pos0} prompt positions + {max_new_tokens} "
+                             f"new tokens > cache_len {self.cache_len}")
         logits, caches = self.model.prefill(self.params, batch, self.cache_len)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         out = []
@@ -61,7 +67,7 @@ class GenerationEngine:
             out.append(tok)
             if t == max_new_tokens - 1:
                 break
-            logits, caches = self.model.decode_step(self.params, tok[:, None], caches, S + t)
+            logits, caches = self.model.decode_step(self.params, tok[:, None], caches, pos0 + t)
         return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
 
     @torch.no_grad()

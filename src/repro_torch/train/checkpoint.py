@@ -10,7 +10,7 @@ bf16, so a bf16 leaf is written as its exact f32 values; either package's
 restore casts it back to the template's dtype.
 
 Elastic restore onto a mesh (``shardings=``) waits for the FSDP x TP step
-on DTensor (ROADMAP.md, modules queue item 3) and raises until then.
+on DTensor (ROADMAP.md, modules queue item 2) and raises until then.
 """
 from __future__ import annotations
 
@@ -96,7 +96,7 @@ def restore(root: str, template: Any, *, step: Optional[int] = None,
     if shardings is not None:
         raise NotImplementedError(
             "elastic restore onto a mesh (shardings=) is not ported yet: ROADMAP.md, "
-            "modules queue item 3 (dist/sharding on DTensor/FSDP)")
+            "modules queue item 2 (dist/sharding on DTensor/FSDP)")
     if step is None:
         step = latest_step(root)
         if step is None:

@@ -1164,6 +1164,43 @@ def test_generation_on_the_card_equals_the_cpu(dev):
     np.testing.assert_allclose(gpu.embed(batch), cpu.embed(batch), rtol=1e-4, atol=1e-5)
 
 
+def _to(tree, d):
+    return {k: _to(v, d) if isinstance(v, dict) else v.to(d) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["internvl2-1b", "deepseek-moe-16b", "deepseek-v3-671b",
+                                  "jamba-v0.1-52b", "mamba2-370m", "whisper-small"])
+def test_family_generation_on_the_card_equals_the_cpu(dev, arch):
+    """Each of the other families reduced, on the same weights and batch
+    (its patch embeddings or encoder frames included): greedy tokens equal,
+    prefill and two decode steps' logits within 1e-5 + 1e-4 |cpu| (f32, TF32
+    off: the same products summed in another order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import make_concrete_batch
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import GenerationEngine
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    cpu_p = model.init(torch.Generator().manual_seed(0), device="cpu")
+    gpu_p = _to(cpu_p, dev)
+    batch = {k: v.numpy() for k, v in
+             make_concrete_batch(cfg, 16, 3, "prefill", seed=1, device="cpu").items()}
+    cpu = GenerationEngine(model=model, params=cpu_p, cache_len=24)
+    gpu = GenerationEngine(model=model, params=gpu_p, cache_len=24)
+    np.testing.assert_array_equal(gpu.generate(batch, max_new_tokens=5),
+                                  cpu.generate(batch, max_new_tokens=5))
+    lc, cc = model.prefill(cpu_p, batch, 24)
+    lg, cg = model.prefill(gpu_p, batch, 24)
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4, atol=1e-5)
+    pos = 16
+    for t in range(2):
+        tok = torch.argmax(lc, -1)[:, None]
+        lc, cc = model.decode_step(cpu_p, tok, cc, pos + t)
+        lg, cg = model.decode_step(gpu_p, tok.to(dev), cg, pos + t)
+        np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("pruner", ["adsampling", "bond"])
 def test_rag_on_the_card_retrieves_the_cpu_ids(dev, pruner):
     """The same documents and queries: on the card a batch plans

@@ -1,8 +1,9 @@
 """Rules of the PyTorch port that no parity test covers: it imports neither
 JAX nor the JAX package, it never runs on the CPU unasked, it refuses
 what it has not ported instead of doing something else, its kernel
-wrappers never fall back to the plain versions, and ``chip_smoke.py`` fails
-without a card or without the repository beside it."""
+wrappers never fall back to the plain versions, every registered model
+family builds, and ``chip_smoke.py`` fails without a card or without the
+repository beside it."""
 import ast
 import os
 import shutil
@@ -110,12 +111,13 @@ def test_every_builder_without_device_raises_when_cuda_is_absent(monkeypatch, bu
 
 @pytest.mark.parametrize("builder", [
     "LMModel.init", "lm_params_from_arrays", "RagPipeline.build", "make_concrete_batch",
-    "init_caches",
+    "init_caches", "serve_main", "make_concrete_batch_vlm", "make_concrete_batch_encdec",
 ])
 def test_every_lm_builder_without_device_raises_when_cuda_is_absent(monkeypatch, builder):
     """The LM side keeps the rule: its params, batches, caches and the RAG
     store go to the card unless ``device`` says otherwise."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import serve
     from repro_torch.launch.specs import make_concrete_batch
     from repro_torch.models.lm import build_model
     from repro_torch.serve import GenerationEngine, RagPipeline
@@ -133,6 +135,11 @@ def test_every_lm_builder_without_device_raises_when_cuda_is_absent(monkeypatch,
             GenerationEngine(model=model, params=params, cache_len=16), docs),
         "make_concrete_batch": lambda: make_concrete_batch(cfg, 8, 2, "train"),
         "init_caches": lambda: model.init_caches(2, 16),
+        "serve_main": lambda: serve.main(["--arch", "whisper-small", "--reduced"]),
+        "make_concrete_batch_vlm": lambda: make_concrete_batch(
+            get_config("internvl2-1b").reduced(), 16, 2, "prefill"),
+        "make_concrete_batch_encdec": lambda: make_concrete_batch(
+            get_config("whisper-small").reduced(), 8, 2, "train"),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[builder]()
@@ -140,12 +147,20 @@ def test_every_lm_builder_without_device_raises_when_cuda_is_absent(monkeypatch,
 
 @pytest.mark.parametrize("name", ["deepseek-moe-16b", "deepseek-v3-671b", "internvl2-1b",
                                   "jamba-v0.1-52b", "mamba2-370m", "whisper-small"])
-def test_build_model_refuses_an_unported_family_naming_its_roadmap_item(name):
+def test_build_model_builds_every_family_at_full_width(name):
+    """Every registered family builds at its published dims, and its params'
+    shapes (drawn on the meta device) are those of the reference's init
+    (``jax.eval_shape``, no allocation in either)."""
+    import jax
+
+    from repro.configs import get_config as jget_config
+    from repro.models.lm import build_model as jbuild
     from repro_torch.configs import get_config
     from repro_torch.models.lm import build_model
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules queue item 2"):
-        build_model(get_config(name))
+    model = build_model(get_config(name))
+    want = jax.eval_shape(lambda k: jbuild(jget_config(name)).init(k), jax.random.key(0))
+    assert model.param_shapes() == jax.tree.map(lambda a: tuple(a.shape), want)
 
 
 @pytest.mark.parametrize("entry", ["train_loop", "main", "init_train_state",
@@ -182,7 +197,7 @@ def test_elastic_restore_onto_a_mesh_names_its_roadmap_item(tmp_path):
 
     tree = {"w": torch.zeros(3)}
     checkpoint.save(str(tmp_path), 1, tree)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules queue item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules queue item 2"):
         checkpoint.restore(str(tmp_path), tree, shardings={"w": None})
 
 

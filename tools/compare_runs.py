@@ -11,7 +11,9 @@ the change's times alone), then each change run's ``tiered`` and
 its ``serve`` and ``serve_churn`` phases: QPS, latency, recall, idle share,
 upload overlap and swaps, its ``lm`` and ``rag`` phases with their
 profiles' busy and idle time, its ``train``, ``train_2l`` and
-``train_reduced`` phases, and its ``routing``, ``sharded`` and
+``train_reduced`` phases, its ``families`` lines (one per model: times,
+bounds, holds, the MoE and MLA records, the decode profile's busy and
+idle time), and its ``routing``, ``sharded`` and
 ``routed`` phases and the ``fused_scan_wall`` medians, in each run given
 (parent runs too).
 """
@@ -94,6 +96,19 @@ def main() -> None:
                     "clone_s", "repack_s", "swaps_adopted", "swaps_discarded",
                     "rows_replayed", "first_batch_after_swap_ms", "recall_at_10",
                     "setups_after_warmup_by_kind", "self_rank0", "deleted_ids_returned")})
+            elif line.get("phase") == "families":
+                print(path, "families", line["arch"], {k: v for k, v in line.items() if k not in (
+                    "phase", "arch", "decode_profile", "first_row", "moe", "mla")})
+                if "moe" in line:
+                    print("    moe", {k: v for k, v in line["moe"].items()
+                                     if k not in ("drops_prefill_by_layer",
+                                                  "active_experts_decode")})
+                if "mla" in line:
+                    print("    mla", line["mla"])
+                prof = line["decode_profile"]
+                print("    decode_profile", {f: prof[f] for f in (
+                    "wall_ms", "device_busy_ms", "device_idle_share")},
+                    [(t["kernel"][:40], round(t["ms"], 3)) for t in prof["top"][:4]])
             elif line.get("phase") in ("lm", "rag"):
                 print(path, line["phase"], {k: v for k, v in line.items()
                                             if k != "phase" and not k.endswith("profile")})
