@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one CUDA card: vector search,
-the served LM with retrieval through it, the LM's training, and the other
-model families' serving.
+the served LM with retrieval through it, the LM's training, the other
+model families' serving, and the LM side's mesh layer.
 
     python3 chip_smoke.py [--n 1000000] [--dim 960] [--seed 0]
 
@@ -266,6 +266,23 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      the drops at prefill, a decode step's device profile.  No kernel of
      the port runs here: the reference computes these models in plain
      JAX.
+  12. mesh_lm (after 11) — the LM side's mesh layer (``dist.sharding``,
+     ``hints``, ``pipeline``, ``restore(shardings=)``) on a (1, 1)
+     ("data", "model") mesh in an NCCL world of one of its own, llama3.2-3b
+     at full width, f32.  Held: the FSDP x TP train step at 2 layers
+     (B = 8, S = 256, AdamW at lr 1e-4, remat) on DTensor params,
+     optimizer state and batch, the hints active, against the plain step
+     from the same params (losses rtol 1e-5, the params' difference's
+     ``global_norm`` < 1e-3, every param and moment on its sharding); at
+     full depth (28 layers) the weight-stationary layout serves phase 8's
+     requests: prefill + 16 greedy decode steps give the plain path's
+     tokens; ``pipeline_apply`` over a ("stage",) mesh of one, one
+     full-width unit in train mode over 4 microbatches, equals the unit
+     applied to each, with 4 ppermutes and 1 psum; ``restore(shardings=)``
+     of the trained 2-layer params equals the saved tensors bit for bit on
+     the card.  Recorded: whether the sharded step is bit for bit the
+     plain one, both step walls, decode ms a token beside the plain
+     path's and phase 8's, a sharded decode step's device profile.
   5. the kernels line: one JSON object per kernel and dtype (K4 and K5 by
      metric over the Table 4 sweep, K4 and K6 on the flat block, K7 by
      dtype and metric, K2 on the tiered pool by dtype); the K1, K2 and K3
@@ -3791,6 +3808,208 @@ def families_phase(torch, dev, seed: int) -> list:
     return lines
 
 
+# ---------------------------------------------------------- the LM's mesh
+def _greedy(torch, model, params, tokens, cache_len: int, steps: int, reshard=None):
+    """Prefill ``tokens`` and ``steps`` greedy decode steps (the logits
+    gathered whole where they are DTensors; ``reshard`` puts the prefill's
+    caches on their shardings) -> (tokens (B, 1 + steps), prefill ms,
+    decode ms a step)."""
+    def whole(t):
+        return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+    with torch.no_grad():
+        (logits, caches), prefill_ms = synced(
+            torch, lambda: model.prefill(params, {"tokens": tokens}, cache_len))
+        if reshard is not None:
+            caches = reshard(caches)
+        out, step_ms = [whole(logits).argmax(-1)], []
+        for t in range(steps):
+            (logits, caches), ms = synced(torch, lambda: model.decode_step(
+                params, out[-1][:, None], caches, tokens.shape[1] + t))
+            out.append(whole(logits).argmax(-1))
+            step_ms.append(ms)
+    return torch.stack(out, 1).cpu().numpy(), prefill_ms, step_ms
+
+
+def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) -> dict:
+    """Phase 12 (``mesh_lm``): the LM side's mesh layer on a (1, 1)
+    ("data", "model") mesh in an NCCL world of one (its own, destroyed at
+    the end), llama3.2-3b at full width, f32.  Held: the FSDP x TP train
+    step at 2 layers (B = TRAIN_BATCH, S = TRAIN_SEQ, AdamW at TRAIN_LR,
+    remat) on DTensor params, optimizer state and batch
+    (``param_shardings``, ``batch_shardings``, the hints active) against
+    the plain step from the same params: losses at rtol CE_RTOL, the
+    params' difference's ``global_norm`` < ACCUM_PARAM_BAR, every param
+    and moment on its sharding; at full depth the weight-stationary layout
+    (``strip_axes(param_shardings(...), data_axes(mesh))``, the prefill's
+    caches on ``cache_shardings``): prefill + LM_NEW greedy decode steps
+    give the plain path's tokens; ``pipeline_apply`` on a ("stage",) mesh
+    of one, one full-width unit in train mode over 4 microbatches, equals
+    the unit applied to each (rtol 1e-6) with 4 ppermutes and 1 psum;
+    ``restore(shardings=)`` of the trained 2-layer params equals the saved
+    tensors bit for bit on the card; no kernel of the port launched.
+    Recorded: bit-for-bit equality of the sharded and plain steps, both
+    step walls, decode ms a token beside the plain path's and phase lm's,
+    a sharded decode step's device profile."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream, to_device
+    from repro_torch.dist import hints, make_mesh
+    from repro_torch.dist.pipeline import pipeline_apply
+    from repro_torch.dist.sharding import (
+        NamedSharding, PartitionSpec, batch_shardings, cache_shardings, data_axes,
+        device_put, param_shardings, strip_axes)
+    from repro_torch.models.lm import apply_unit, build_model
+    from repro_torch.obs.meters import collective_counts
+    from repro_torch.train import checkpoint, trainer
+    from repro_torch.train._tree import leaves, tree_map
+    from repro_torch.train.optimizer import OptConfig, global_norm, opt_init
+
+    launched = {k: c.launches for k, c in counters.items()}
+    t0 = time.perf_counter()
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        world = {"world": 1, "backend": tdist.get_backend(), "mesh": [1, 1],
+                 "mesh_device": mesh.device_type, "setup_s": time.perf_counter() - t0}
+        cfg = get_config(LM_ARCH)
+
+        # ---- the FSDP x TP step at 2 layers against the plain step
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        model2 = build_model(cfg2)
+        oc = OptConfig(lr=TRAIN_LR, warmup_steps=0)
+        step = trainer.make_train_step(model2, trainer.TrainConfig(opt=oc))
+        batch = to_device(dev)(TokenStream(cfg2, TRAIN_SEQ, TRAIN_BATCH, seed).batch_at(0))
+        plain = model2.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+        ps = param_shardings(plain, mesh, cfg2)
+        os_ = {"mu": ps, "nu": ps, "step": NamedSharding(mesh, PartitionSpec())}
+        sb = device_put(batch, batch_shardings(batch, mesh))
+        # one step of each on copies first: the walls below are warm
+        with hints.activation_sharding(mesh):
+            step(device_put(plain, ps), device_put(opt_init(plain, oc), os_), sb)
+        step(_clone(torch, plain), opt_init(plain, oc), batch)
+        sp, so = device_put(plain, ps), device_put(opt_init(plain, oc), os_)
+        with hints.activation_sharding(mesh):
+            (sp, so, ms_), sharded_ms = synced(torch, lambda: step(sp, so, sb))
+        (plain, _, mp), plain_ms = synced(torch, lambda: step(plain, opt_init(plain, oc), batch))
+        on_layout = all(tuple(x.placements) == s.placements
+                        for tree in (sp, so["mu"], so["nu"])
+                        for x, s in zip(leaves(tree), leaves(ps)))
+        full = [x.full_tensor() for x in leaves(sp)]
+        ls, lp = float(ms_["loss"].full_tensor()), float(mp["loss"])
+        diff = float(global_norm([a - b for a, b in zip(full, leaves(plain))]))
+        train = {"layers": 2, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+                 "loss_sharded": ls, "loss_plain": lp, "loss_rel": abs(ls - lp) / abs(lp),
+                 "grad_norm_sharded": float(ms_["grad_norm"].full_tensor()),
+                 "grad_norm_plain": float(mp["grad_norm"]),
+                 "params_diff_global_norm": diff,
+                 "bitwise": ls == lp and all(torch.equal(a, b)
+                                             for a, b in zip(full, leaves(plain))),
+                 "on_param_shardings": on_layout,
+                 "step_ms_sharded": sharded_ms, "step_ms_plain": plain_ms}
+        del sp, so, ms_, mp, full, sb
+
+        # ---- restore(shardings=) of the trained 2-layer params, on the card
+        with tempfile.TemporaryDirectory() as tmp:
+            _, save_ms = synced(torch, lambda: checkpoint.save(tmp, 1, plain))
+            (_, got), restore_ms = synced(torch, lambda: checkpoint.restore(
+                tmp, plain, shardings=ps))
+        restore = {"leaves": len(leaves(plain)),
+                   "bytes": sum(t.numel() * t.element_size() for t in leaves(plain)),
+                   "save_ms": save_ms, "restore_ms": restore_ms,
+                   "device": str(leaves(got)[0].to_local().device),
+                   "on_shardings": all(tuple(x.placements) == s.placements
+                                       for x, s in zip(leaves(got), leaves(ps))),
+                   "bitwise": all(torch.equal(x.full_tensor(), t)
+                                  for x, t in zip(leaves(got), leaves(plain)))}
+        del got, plain, ps, batch, model2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the pipeline of one stage: one full-width unit, 4 microbatches
+        model1 = build_model(dataclasses.replace(cfg, n_layers=1))
+        unit = model1.init(torch.Generator(device=dev).manual_seed(seed), device=dev)["stack0"]
+        spec = model1.stacks[0].spec
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        xs = torch.randn((4, 2, TRAIN_SEQ, cfg.d_model), generator=gen, device=dev)
+        pos = torch.arange(TRAIN_SEQ, device=dev)
+
+        def stage_fn(w, xb):
+            return apply_unit(w, xb, spec, cfg, "train", pos)[0]
+
+        stage = make_mesh((1,), ("stage",))
+        res = {}
+        with torch.no_grad():
+            counts = collective_counts(lambda: res.update(
+                y=pipeline_apply(stage, stage_fn, unit, xs)))
+            direct = torch.stack([stage_fn(tree_map(lambda a: a[0], unit), xb) for xb in xs])
+        pipe = {"stages": 1, "microbatches": 4, "microbatch": [2, TRAIN_SEQ, cfg.d_model],
+                "counts": counts,
+                "max_abs_err": float((res["y"] - direct).abs().max()),
+                "bitwise": bool(torch.equal(res["y"], direct)),
+                "ok": bool(torch.allclose(res["y"], direct, rtol=1e-6, atol=1e-6))}
+        del unit, xs, res, direct, model1
+        torch.cuda.empty_cache()
+
+        # ---- weight-stationary serving at full depth
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+        cache_len = LM_PROMPT * 3 + LM_NEW + 8
+        rng = np.random.default_rng(seed)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)).to(dev)
+        want, plain_prefill, plain_steps = _greedy(torch, model, params, tokens, cache_len,
+                                                   LM_NEW)
+        stationary = strip_axes(param_shardings(params, mesh, cfg), data_axes(mesh))
+        wp = device_put(params, stationary)
+        del params
+        torch.cuda.empty_cache()
+        with hints.activation_sharding(mesh):
+            st = device_put({"tokens": tokens}, batch_shardings({"tokens": tokens}, mesh))
+            got, prefill_ms, steps = _greedy(
+                torch, model, wp, st["tokens"], cache_len, LM_NEW,
+                reshard=lambda c: device_put(c, cache_shardings(c, mesh, cfg)))
+            # where a sharded decode step's time goes: one step (prefill and
+            # the first token again) under torch.profiler
+            with torch.no_grad():
+                logits, caches = model.prefill(wp, st, cache_len)
+                caches = device_put(caches, cache_shardings(caches, mesh, cfg))
+                first = logits.full_tensor().argmax(-1)[:, None]
+                prof = device_profile(torch, lambda: model.decode_step(
+                    wp, first, caches, LM_PROMPT))
+                del logits, caches
+        serve = {"layers": cfg.n_layers, "requests": LM_REQUESTS, "prompt_tokens": LM_PROMPT,
+                 "new_tokens": LM_NEW, "cache_len": cache_len,
+                 "param_bytes": sum(t.numel() * t.element_size() for t in leaves(wp)),
+                 "tokens_equal": bool(np.array_equal(got, want)),
+                 "prefill_ms": prefill_ms, "prefill_ms_plain": plain_prefill,
+                 "decode_ms_per_token_median": statistics.median(steps),
+                 "decode_ms_per_token_median_plain": statistics.median(plain_steps),
+                 "decode_ms_per_token_lm_phase": lm_decode_ms,
+                 "decode_profile": prof, "first_row": got[0].tolist()}
+        del wp, st, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+    launched = {k: c.launches - launched[k] for k, c in counters.items()}
+    line = {"phase": "mesh_lm", "arch": cfg.name, "dtype": "f32", **world, "train": train,
+            "restore": restore, "pipeline": pipe, "serve": serve, "kernel_launches": launched}
+    emit(line)
+    assert train["loss_rel"] <= CE_RTOL, train
+    assert train["params_diff_global_norm"] < ACCUM_PARAM_BAR, train
+    assert train["on_param_shardings"], "a param or moment left its sharding"
+    assert restore["bitwise"] and restore["on_shardings"], restore
+    assert pipe["ok"] and pipe["counts"] == {"ppermute": 4, "psum": 1}, pipe
+    assert serve["tokens_equal"], "the weight-stationary decode's tokens differ"
+    assert not any(launched.values()), f"mesh_lm launched a kernel of the port: {launched}"
+    return line
+
+
 def rag_dist_error(torch, X, Q, ids, dists) -> float:
     """Largest |returned - direct f32 distance| / max(direct, 1e-2 (||q||^2 +
     ||x||^2)): held to 1e-3, that is relative where the distance is not near
@@ -4157,6 +4376,14 @@ def main() -> int:
     emit({"phase": "families_done", "models": [f["arch"] for f in fam],
           "seconds_by_model": {f["arch"]: f["seconds"] for f in fam},
           "seconds": time.perf_counter() - t0})
+
+    # ------------------------------------------------------ 12. mesh_lm
+    # the families are gone: the LM side's mesh layer on a world of one
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mesh_lm_phase(torch, dev, args.seed, lm_line["decode_ms_per_token_median"], counters)
+    emit({"phase": "mesh_lm_done", "seconds": time.perf_counter() - t0})
 
     # ----------------------------------------------------- 4. the record
     emit({"kernels": kernels + paper_rows})

@@ -1,6 +1,8 @@
 """repro_torch.dist — the mesh, tile placement, the sharded PDXearch
-executors and the bucket-routed search (``routing``) on
-``torch.distributed`` (counterpart of ``repro.dist``'s vector half).
+executors and the bucket-routed search (``routing``), the LM side's
+sharding rules (``sharding``), activation hints (``hints``) and pipeline
+schedule (``pipeline``), on ``torch.distributed`` (counterpart of
+``repro.dist``).
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` whose
 ``mesh_dim_names`` name its axes ("data" for partition sharding, "model"
@@ -15,9 +17,16 @@ rank gets the same, replicated result.  This stands in for ``shard_map``'s
 store: ``placement.Placement.local``) and ``out_specs`` of ``P()`` (the
 collectives leave every rank with the whole answer).
 
-Every collective the executors and ``train.compression.compressed_psum``
-issue goes through ``all_gather``, ``all_to_all``, ``psum`` and ``pmax``
-below, which count each call under the reference's primitive name;
+The LM side shards params, optimizer state, batches and caches as
+``torch.distributed.tensor.DTensor`` leaves: ``sharding`` turns the
+reference's name-based partition specs into DTensor placements on a
+``DeviceMesh``, and DTensor's own dispatch issues the collectives of the
+sharded step (they are not counted here).
+
+Every collective the executors, ``train.compression.compressed_psum`` and
+``pipeline.pipeline_apply`` issue goes through ``all_gather``,
+``all_to_all``, ``psum``, ``pmax`` and ``ppermute`` below, which count each
+call under the reference's primitive name;
 ``repro_torch.obs.meters.collective_counts`` reads those counts around a
 call.
 """
@@ -30,7 +39,8 @@ import torch.distributed as dist
 
 __all__ = [
     "make_mesh", "mesh_shape", "axis_size", "axis_rank", "mesh_device",
-    "all_gather", "all_to_all", "psum", "pmax", "issued_counts",
+    "all_gather", "all_to_all", "psum", "pmax", "ppermute", "issued_counts",
+    "hints", "pipeline", "sharding",
 ]
 
 
@@ -141,3 +151,32 @@ def pmax(t: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     _count("pmax")
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.get_group(mesh_dim=axis))
     return out
+
+
+def ppermute(t: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """Send ``t`` along the (source, destination) pairs of ``perm``, axis
+    coordinates of ``axis``; a rank that no pair sends to gets zeros
+    (``lax.ppermute``).  Every send and receive of this rank goes out in
+    one ``batch_isend_irecv``, so no order of ranks can deadlock; a pair
+    from a rank to itself is a copy."""
+    group = mesh.get_group(mesh_dim=axis)
+    me = axis_rank(mesh, axis)
+    t = t.contiguous()
+    out = torch.zeros_like(t)
+    ops = []
+    for src, dst in perm:
+        if src == me and dst == me:
+            out.copy_(t)
+        elif src == me:
+            ops.append(dist.P2POp(dist.isend, t, dist.get_global_rank(group, dst), group))
+        elif dst == me:
+            ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(group, src), group))
+    _count("ppermute")
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+# the LM side's modules (imported last: they use the helpers above)
+from . import hints, pipeline, sharding  # noqa: E402

@@ -34,13 +34,25 @@ from . import all_gather, axis_rank, axis_size, mesh_device, psum
 from .placement import Placement
 
 __all__ = [
+    "pad_partitions_to_shards",
     "search_block_sharded",
     "search_dim_sharded",
     "search_batch_block_sharded",
+    "collective_counts",
 ]
 
 # search_dim_sharded broadcasts at most this many values at a time
 _SLAB_CHUNK_VALUES = 1 << 26
+
+
+def pad_partitions_to_shards(
+    data: torch.Tensor, ids: torch.Tensor, n_shards: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Round the partition axis up to a multiple of ``n_shards`` with empty
+    (all-``PAD_VALUE``, ids ``-1``) tiles.  A thin wrapper: padding is
+    ``Placement.block``'s; this keeps the array-in/array-out form."""
+    pl = Placement.block(data, ids, n_shards)
+    return pl.data, pl.ids
 
 
 def _require(**named) -> None:
@@ -226,3 +238,8 @@ def search_batch_block_sharded(
     )
     res = rerank_positions(d_sh, i_sh, Qd, cand, k, metric)
     return _gather_packed(res, mesh, axis, k)
+
+
+# the collective meter lives in ``repro_torch.obs.meters``; re-exported
+# here, where the reference's tests and benches import it from
+from ..obs.meters import collective_counts  # noqa: E402,F401

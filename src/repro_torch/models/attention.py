@@ -15,19 +15,25 @@ latent ``{"c_kv"}`` (B, L, r_kv) and ``{"k_rope"}`` (B, L, d_rope); both
 are sized to the target context length and ``pos`` is their fill level.
 Decode writes the new row into the given cache in place and returns it.
 The cross-attention trio (``gqa.forward_cross``, ``cross_kv``,
-``forward_cross_cached``) has no RoPE and no causal mask.  The reference's
-sharding hints are exact identities off a mesh and are left out here.
+``forward_cross_cached``) has no RoPE and no causal mask.  GQA's q, k and
+v pass through ``dist.hints.heads``, as in the reference: an identity off
+a mesh, a redistribution of a DTensor inside ``activation_sharding``.
+Every GQA product promotes as JAX does (``common.matmul``): f32 frames
+through a bf16 whisper encoder stay f32, and so do the cross-attention
+K/V made from them.
 """
 from __future__ import annotations
 
 import torch
 
+from ..dist import hints
 from .common import (
     NEG_INF,
     apply_rope,
     chunked_attention,
     decode_attention,
     dense_init,
+    matmul,
     rms_norm,
     rope_sin_cos,
 )
@@ -57,14 +63,14 @@ class gqa:
     def _qkv(p, x, cfg, positions):
         B, S, d = x.shape
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        q = x @ p["wq"]
-        k = x @ p["wk"]
-        v = x @ p["wv"]
+        q = matmul(x, p["wq"])
+        k = matmul(x, p["wk"])
+        v = matmul(x, p["wv"])
         if cfg.qkv_bias:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-        q = q.reshape(B, S, H, hd)
-        k = k.reshape(B, S, Hkv, hd)
-        v = v.reshape(B, S, Hkv, hd)
+        q = hints.heads(hints.split_heads(q, H, hd))
+        k = hints.heads(hints.split_heads(k, Hkv, hd))
+        v = hints.heads(hints.split_heads(v, Hkv, hd))
         sin, cos = rope_sin_cos(positions, hd, cfg.rope_theta)
         return apply_rope(q, sin, cos), apply_rope(k, sin, cos), v
 
@@ -73,7 +79,7 @@ class gqa:
         q, k, v = gqa._qkv(p, x, cfg, positions)
         y = chunked_attention(q, k, v, causal=causal)
         B, S = x.shape[:2]
-        return y.reshape(B, S, -1) @ p["wo"]
+        return matmul(y.reshape(B, S, -1), p["wo"])
 
     @staticmethod
     def forward_prefill(p, x, cfg, positions, cache_len: int):
@@ -81,13 +87,14 @@ class gqa:
         q, k, v = gqa._qkv(p, x, cfg, positions)
         y = chunked_attention(q, k, v, causal=True)
         Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+        # new_zeros: on a mesh the caches take k's and v's layout
         cache = {
-            "k": torch.zeros((B, cache_len, Hkv, hd), dtype=x.dtype, device=x.device),
-            "v": torch.zeros((B, cache_len, Hkv, hd), dtype=x.dtype, device=x.device),
+            "k": k.new_zeros((B, cache_len, Hkv, hd), dtype=x.dtype),
+            "v": v.new_zeros((B, cache_len, Hkv, hd), dtype=x.dtype),
         }
         cache["k"][:, :S] = k
         cache["v"][:, :S] = v
-        return y.reshape(B, S, -1) @ p["wo"], cache
+        return matmul(y.reshape(B, S, -1), p["wo"]), cache
 
     @staticmethod
     def forward_decode(p, x, cfg, cache, pos: int):
@@ -98,7 +105,7 @@ class gqa:
         kc[:, pos] = k[:, 0].to(kc.dtype)  # the cache may be narrower than x
         vc[:, pos] = v[:, 0].to(vc.dtype)
         y = decode_attention(q, kc, vc, pos + 1)
-        return y.reshape(B, 1, -1) @ p["wo"], cache
+        return matmul(y.reshape(B, 1, -1), p["wo"]), cache
 
     # -- cross attention (whisper decoder) ---------------------------------
     @staticmethod
@@ -106,28 +113,28 @@ class gqa:
         """x (B, Sq, d) attends over kv_src (B, Sk, d); no RoPE, no causal."""
         B, Sq, _ = x.shape
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        q = (x @ p["wq"]).reshape(B, Sq, H, hd)
-        k = (kv_src @ p["wk"]).reshape(B, -1, Hkv, hd)
-        v = (kv_src @ p["wv"]).reshape(B, -1, Hkv, hd)
+        q = matmul(x, p["wq"]).reshape(B, Sq, H, hd)
+        k = matmul(kv_src, p["wk"]).reshape(B, -1, Hkv, hd)
+        v = matmul(kv_src, p["wv"]).reshape(B, -1, Hkv, hd)
         y = chunked_attention(q, k, v, causal=False)
-        return y.reshape(B, Sq, -1) @ p["wo"]
+        return matmul(y.reshape(B, Sq, -1), p["wo"])
 
     @staticmethod
     def cross_kv(p, kv_src, cfg):
         """Cross-attention K/V, computed once per request (decode path)."""
         B = kv_src.shape[0]
         Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-        k = (kv_src @ p["wk"]).reshape(B, -1, Hkv, hd)
-        v = (kv_src @ p["wv"]).reshape(B, -1, Hkv, hd)
+        k = matmul(kv_src, p["wk"]).reshape(B, -1, Hkv, hd)
+        v = matmul(kv_src, p["wv"]).reshape(B, -1, Hkv, hd)
         return k, v
 
     @staticmethod
     def forward_cross_cached(p, x, k, v, cfg):
         B, Sq, _ = x.shape
         H, hd = cfg.n_heads, cfg.resolved_head_dim
-        q = (x @ p["wq"]).reshape(B, Sq, H, hd)
+        q = matmul(x, p["wq"]).reshape(B, Sq, H, hd)
         y = decode_attention(q, k, v, k.shape[1])
-        return y.reshape(B, Sq, -1) @ p["wo"]
+        return matmul(y.reshape(B, Sq, -1), p["wo"])
 
 
 # ==========================================================================

@@ -17,8 +17,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..dist import hints
+
 __all__ = [
     "dense_init",
+    "matmul",
     "rms_norm",
     "act_fn",
     "rope_sin_cos",
@@ -38,6 +41,16 @@ def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
     The scale is applied in place: the same bits as ``randn * std`` without
     a second copy of the leaf (deepseek-v3's expert tensor is 15 GB)."""
     return torch.randn(shape, generator=generator, dtype=torch.float32).mul_(std).to(dtype)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` under JAX's type promotion, where ``@`` refuses operands
+    of two dtypes: both go to the wider one first (bf16 with f32 meet at
+    f32, as a whisper encoder's f32 frames meet its bf16 weights)."""
+    if a.dtype != b.dtype:
+        dt = torch.promote_types(a.dtype, b.dtype)
+        a, b = a.to(dt), b.to(dt)
+    return a @ b
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -102,6 +115,10 @@ def chunked_attention(
     Query head ``h`` attends with kv head ``h // (H // Hkv)``.  q_offset:
     position of q[0] within the kv sequence (for cached prefill);
     kv_valid_len: mask out kv positions >= this (ragged caches)."""
+    if hints.on_mesh(q):  # each rank attends over its own rows and heads
+        return hints.per_head(chunked_attention, q, k, v, causal=causal, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk, q_offset=q_offset,
+                              kv_valid_len=kv_valid_len)
     B, Sq, H, Dh = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -160,6 +177,8 @@ def decode_attention(
 ) -> torch.Tensor:
     """Single-token attention against a partly filled cache: rows at
     ``pos`` and beyond take no weight.  The caches are cast to q's dtype."""
+    if hints.on_mesh(q):  # each rank attends over its own rows and heads
+        return hints.per_head(decode_attention, q, k_cache, v_cache, pos)
     B, S, Hkv, Dh = k_cache.shape
     k_cache = k_cache.to(q.dtype)
     v_cache = v_cache.to(q.dtype)

@@ -38,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
+from ..dist import hints
 from .attention import gqa, mla
 from .common import dense_init, rms_norm
 from .mamba import mamba2
@@ -165,7 +166,7 @@ def apply_unit(
             y = moe_ffn.forward(p, h, cfg)
         else:
             raise ValueError(kind)
-        x = x + y
+        x = hints.act(x + y)  # re-anchor the residual stream's sharding
         new_cache[f"sub{i}"] = nc
     return x, new_cache
 
@@ -196,6 +197,45 @@ def _stack(trees: list) -> dict:
 # --------------------------------------------------------------------------
 # Loss (sequence-chunked CE: never holds (B, S, V) logits).
 # --------------------------------------------------------------------------
+def _ce_sum(h, labels, w_head, chunk: int) -> torch.Tensor:
+    """Sum over (B, S) of logsumexp - gold logit, one chunk's f32 logits at
+    a time."""
+    B, S, _ = h.shape
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):
+        logits = (h[:, c0:c0 + chunk] @ w_head).to(torch.float32)  # (B, chunk, V)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, c0:c0 + chunk, None])[..., 0]
+        tot = tot + torch.sum(lse - gold)
+    return tot
+
+
+def _ce_grads(h, labels, w_head, chunk: int, scale, need_h: bool, need_w: bool):
+    """(d/dh, d/dw_head) of ``scale`` x ``_ce_sum``, recomputing one chunk's
+    logits at a time and turning them into their gradient in place."""
+    B, S, d = h.shape
+    V = w_head.shape[1]
+    gh = torch.empty_like(h) if need_h else None
+    gw = torch.zeros_like(w_head) if need_w else None
+    for c0 in range(0, S, chunk):
+        hc, lc = h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk]
+        n = hc.shape[0] * hc.shape[1]
+        logits = (hc @ w_head).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        # d/dlogits = (softmax - onehot(label)) * scale, in place
+        p = logits.sub_(lse[..., None]).exp_().view(n, V)
+        rows = torch.arange(n, device=p.device)
+        gold = lc.reshape(n)
+        p.index_put_((rows, gold), p[rows, gold] - 1.0)
+        dl = p.mul_(scale).to(h.dtype)
+        if need_h:
+            gh[:, c0:c0 + chunk] = (dl @ w_head.T).view(hc.shape)
+        if need_w:
+            gw.addmm_(hc.reshape(n, d).T, dl)
+        del logits, p, dl
+    return gh, gw
+
+
 class _ChunkedCE(torch.autograd.Function):
     """Mean next-token CE over sequence chunks.  The forward keeps only the
     running sum; the backward recomputes one chunk's logits at a time and
@@ -205,42 +245,74 @@ class _ChunkedCE(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h, labels, w_head, chunk: int):
         B, S, _ = h.shape
-        tot = torch.zeros((), dtype=torch.float32, device=h.device)
-        for c0 in range(0, S, chunk):
-            logits = (h[:, c0:c0 + chunk] @ w_head).to(torch.float32)  # (B, chunk, V)
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = torch.gather(logits, -1, labels[:, c0:c0 + chunk, None])[..., 0]
-            tot = tot + torch.sum(lse - gold)
         ctx.save_for_backward(h, labels, w_head)
         ctx.chunk = chunk
-        return tot / (B * S)
+        return _ce_sum(h, labels, w_head, chunk) / (B * S)
 
     @staticmethod
     def backward(ctx, g):
         h, labels, w_head = ctx.saved_tensors
-        B, S, d = h.shape
-        V = w_head.shape[1]
-        scale = g.to(torch.float32) / (B * S)
+        B, S, _ = h.shape
         need_h, _, need_w, _ = ctx.needs_input_grad
-        gh = torch.empty_like(h) if need_h else None
-        gw = torch.zeros_like(w_head) if need_w else None
-        for c0 in range(0, S, ctx.chunk):
-            hc, lc = h[:, c0:c0 + ctx.chunk], labels[:, c0:c0 + ctx.chunk]
-            n = hc.shape[0] * hc.shape[1]
-            logits = (hc @ w_head).to(torch.float32)
-            lse = torch.logsumexp(logits, dim=-1)
-            # d/dlogits = (softmax - onehot(label)) * g / (B S), in place
-            p = logits.sub_(lse[..., None]).exp_().view(n, V)
-            rows = torch.arange(n, device=p.device)
-            gold = lc.reshape(n)
-            p.index_put_((rows, gold), p[rows, gold] - 1.0)
-            dl = p.mul_(scale).to(h.dtype)
-            if need_h:
-                gh[:, c0:c0 + ctx.chunk] = (dl @ w_head.T).view(hc.shape)
-            if need_w:
-                gw.addmm_(hc.reshape(n, d).T, dl)
-            del logits, p, dl
+        gh, gw = _ce_grads(h, labels, w_head, ctx.chunk, g.to(torch.float32) / (B * S),
+                           need_h, need_w)
         return gh, None, gw, None
+
+
+class _ShardedChunkedCE(torch.autograd.Function):
+    """``_ChunkedCE`` on DTensors split over the batch alone (the head
+    replicated): each rank sums its rows' CE on its local tensors, one
+    all-reduce over the batch's mesh dims makes the mean, and the head's
+    gradient goes back as a partial sum over those dims."""
+
+    @staticmethod
+    def forward(ctx, h, labels, w_head, chunk: int):
+        from torch.distributed.tensor import DTensor
+
+        B, S, _ = h.shape  # the global shape
+        hl, ll, wl = h.to_local(), labels.to_local(), w_head.to_local()
+        ctx.save_for_backward(hl, ll, wl)
+        mesh = h.device_mesh
+        ctx.chunk, ctx.layout, ctx.n = chunk, (mesh, h.placements), B * S
+        tot = DTensor.from_local(_ce_sum(hl, ll, wl, chunk) / (B * S), mesh,
+                                 _batch_partial(h.placements))
+        return tot.redistribute(mesh, _replicated(mesh))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+
+        hl, ll, wl = ctx.saved_tensors
+        mesh, h_place = ctx.layout
+        need_h, _, need_w, _ = ctx.needs_input_grad
+        g = g.redistribute(mesh, _replicated(mesh)).to_local()
+        gh, gw = _ce_grads(hl, ll, wl, ctx.chunk, g.to(torch.float32) / ctx.n,
+                           need_h, need_w)
+        if need_h:
+            gh = DTensor.from_local(gh, mesh, h_place)
+        if need_w:
+            gw = DTensor.from_local(gw, mesh, _batch_partial(h_place))
+        return gh, None, gw, None
+
+
+def _replicated(mesh) -> tuple:
+    from torch.distributed.tensor import Replicate
+
+    return tuple(Replicate() for _ in range(mesh.ndim))
+
+
+def _batch_rows(placements) -> tuple:
+    """Placements that keep dim 0's split and replicate the rest."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(p if p.is_shard(0) else Replicate() for p in placements)
+
+
+def _batch_partial(placements) -> tuple:
+    """A partial sum over the mesh dims that split dim 0."""
+    from torch.distributed.tensor import Partial, Replicate
+
+    return tuple(Partial() if p.is_shard(0) else Replicate() for p in placements)
 
 
 def chunked_ce_loss(h: torch.Tensor, labels, w_head: torch.Tensor,
@@ -249,13 +321,27 @@ def chunked_ce_loss(h: torch.Tensor, labels, w_head: torch.Tensor,
 
     ``chunk`` becomes the largest divisor of S at most the requested chunk,
     as in the reference.  Logits are ``(h @ w_head)`` cast to f32, one
-    chunk at a time, in the forward and again in the backward."""
+    chunk at a time, in the forward and again in the backward.  On a
+    DTensor ``h`` the rows keep their batch split, the head is gathered
+    whole, and each rank runs the chunks of its own rows."""
     B, S, _ = h.shape
     chunk = min(chunk, S)
     while S % chunk:  # largest divisor of S at most the requested chunk
         chunk -= 1
-    labels = torch.as_tensor(labels, device=h.device).long()
-    return _ChunkedCE.apply(h, labels, w_head, chunk)
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if not isinstance(h, DTensor):
+        labels = torch.as_tensor(labels, device=h.device).long()
+        return _ChunkedCE.apply(h, labels, w_head, chunk)
+    mesh = h.device_mesh
+    rows = _batch_rows(h.placements)
+    if isinstance(labels, DTensor):
+        labels = labels.redistribute(mesh, rows)
+    else:
+        labels = distribute_tensor(torch.as_tensor(labels, device=h.to_local().device),
+                                   mesh, rows)
+    return _ShardedChunkedCE.apply(h.redistribute(mesh, rows), labels.long(),
+                                   w_head.redistribute(mesh, _replicated(mesh)), chunk)
 
 
 # --------------------------------------------------------------------------
@@ -311,7 +397,7 @@ class LMModel:
         return params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
 
     def _embed(self, params, tokens):
-        x = params["embed"][tokens]
+        x = hints.rows(params["embed"], tokens)
         if self.cfg.scale_embed:
             d = torch.tensor(float(self.cfg.d_model), dtype=torch.float32, device=x.device)
             x = x * torch.sqrt(d).to(x.dtype)

@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import torch
 
-from .common import act_fn, dense_init
+from ..dist import hints
+from .common import act_fn, dense_init, matmul
 
 __all__ = ["dense_ffn", "moe_ffn", "pick_group_count"]
 
@@ -41,8 +42,8 @@ class dense_ffn:
 
     @staticmethod
     def forward(p, x, act: str = "silu"):
-        h = act_fn(act, x @ p["w_gate"]) * (x @ p["w_up"])
-        return h @ p["w_down"]
+        h = act_fn(act, matmul(x, p["w_gate"])) * matmul(x, p["w_up"])
+        return matmul(hints.ffn_hidden(h), p["w_down"])
 
 
 def pick_group_count(n_tokens: int, n_experts: int, top_k: int) -> int:

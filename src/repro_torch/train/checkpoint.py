@@ -9,8 +9,10 @@ checkpoint written by either package restores in the other.  NumPy has no
 bf16, so a bf16 leaf is written as its exact f32 values; either package's
 restore casts it back to the template's dtype.
 
-Elastic restore onto a mesh (``shardings=``) waits for the FSDP x TP step
-on DTensor (ROADMAP.md, modules queue item 2) and raises until then.
+Elastic restore (``restore(shardings=)``): every rank reads the same
+``arrays.npz`` and lands each leaf on its ``dist.sharding.NamedSharding``
+(``distribute_tensor``: the rank keeps its own shard), whatever the mesh
+the checkpoint was written from.
 """
 from __future__ import annotations
 
@@ -92,11 +94,10 @@ def latest_step(root: str) -> Optional[int]:
 def restore(root: str, template: Any, *, step: Optional[int] = None,
             shardings: Any = None) -> tuple[int, Any]:
     """Restore into the structure of ``template``: each leaf lands on the
-    template leaf's device with its dtype.  -> (step, tree)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "elastic restore onto a mesh (shardings=) is not ported yet: ROADMAP.md, "
-            "modules queue item 2 (dist/sharding on DTensor/FSDP)")
+    template leaf's device with its dtype.  ``shardings``: a tree of the
+    same structure of ``dist.sharding.NamedSharding`` (``None`` for a leaf
+    that stays whole); each such leaf becomes a DTensor on its mesh
+    (elastic restore).  -> (step, tree)."""
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -114,7 +115,12 @@ def restore(root: str, template: Any, *, step: Optional[int] = None,
             return arr.to(device=like.device, dtype=like.dtype)
         return arr
 
-    return step, map_with_paths(leaf, template)
+    tree = map_with_paths(leaf, template)
+    if shardings is None:
+        return step, tree
+    from ..dist.sharding import device_put
+
+    return step, tree_map(lambda t, s: t if s is None else device_put(t, s), tree, shardings)
 
 
 class AsyncCheckpointer:

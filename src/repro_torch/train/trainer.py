@@ -9,6 +9,13 @@ grad only inside the step, ``torch.autograd.grad`` returns the grads
 ``opt_update`` writes the new params and state into the old tensors.
 Gradient accumulation sums each micro-batch's grads into f32 zeros in
 the reference's order, then multiplies by ``1 / accum_steps``.
+
+The same step trains params spread over a mesh: DTensor params, optimizer
+state and batch (``dist.sharding``), run inside
+``dist.hints.activation_sharding``.  Each grad then comes back on its
+param's placements (a partial sum over the data axes becomes a
+reduce-scatter, the FSDP grad), so the in-place update stays on every
+rank's own shard.
 """
 from __future__ import annotations
 
@@ -42,7 +49,20 @@ def init_train_state(model: LMModel, generator: torch.Generator, opt_cfg: OptCon
 
 
 def _batch_tensors(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    """The batch as tensors on ``device``; a DTensor stays as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return {k: v if isinstance(v, DTensor) else torch.as_tensor(v, device=device)
+            for k, v in batch.items()}
+
+
+def _on_param_layout(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor param's grad on the param's placements."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(model: LMModel, tc: TrainConfig = TrainConfig()) -> Callable:
@@ -57,7 +77,8 @@ def make_train_step(model: LMModel, tc: TrainConfig = TrainConfig()) -> Callable
             p.requires_grad_(True)
         try:
             loss = model.loss(params, batch, remat=tc.remat)
-            grads = torch.autograd.grad(loss, flat)
+            grads = [_on_param_layout(g, p)
+                     for g, p in zip(torch.autograd.grad(loss, flat), flat)]
         finally:
             for p in flat:
                 p.requires_grad_(False)

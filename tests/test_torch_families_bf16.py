@@ -64,3 +64,36 @@ def test_bf16_matches_the_reference(arch):
         tl, tcaches = tm.decode_step(tp, torch.from_numpy(tok), tcaches, pos + t)
         assert tl.dtype == torch.bfloat16
         close(tl, jl, rtol=0, atol=2e-2)
+
+
+def test_bf16_encoder_decoder_takes_f32_frames():
+    """whisper-small reduced with bf16 weights given ``make_concrete_batch``'s
+    f32 ``enc_frames``: the reference promotes at each product the encoder
+    and the cross-attention reach (f32 with bf16 gives f32) and still
+    returns bf16 hidden states and logits; the port does the same, at the
+    tolerances above."""
+    cfg = jconfigs.get_config("whisper-small").reduced()
+    jm = jbuild(cfg)
+    jp = jm.init(jax.random.key(0), jnp.bfloat16)
+    tcfg = tconfigs.get_config("whisper-small").reduced()
+    tm = tbuild(tcfg)
+    tp = lm_params_from_arrays(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    jb = jbatch(cfg, 16, 2, "train")
+    tb = tbatch(tcfg, 16, 2, "train", device="cpu")
+    assert tb["enc_frames"].dtype == torch.float32 and jb["enc_frames"].dtype == jnp.float32
+    h = tm.forward_train(tp, tb)
+    want = jm.forward_train(jp, jb, remat=False)
+    assert h.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    np.testing.assert_allclose(h.to(torch.float32).numpy(), np.asarray(want, np.float32),
+                               rtol=0, atol=0.125)
+    n_text = jb["tokens"].shape[1] - 2
+    jl, jcaches = jm.prefill(jp, _prompt(jb, n_text), 24)
+    tl, tcaches = tm.prefill(tp, _prompt(tb, n_text), 24)
+    assert tl.dtype == torch.bfloat16 and jl.dtype == jnp.bfloat16
+    close(tl, jl, rtol=0, atol=2e-2)
+    for t in range(2):
+        tok = np.asarray(jnp.argmax(jl, -1))[:, None].astype(np.int32)
+        jl, jcaches = jm.decode_step(jp, jnp.asarray(tok), jcaches, n_text + t)
+        tl, tcaches = tm.decode_step(tp, torch.from_numpy(tok), tcaches, n_text + t)
+        assert tl.dtype == torch.bfloat16
+        close(tl, jl, rtol=0, atol=2e-2)

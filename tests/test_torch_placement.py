@@ -91,6 +91,29 @@ def test_block_placement_matches_legacy_padding(n_shards):
         assert torch.equal(i, pl.ids[r * w:(r + 1) * w])
 
 
+@pytest.mark.parametrize("n_shards", [3, 4, 8])
+def test_pad_partitions_to_shards_matches_the_reference(n_shards):
+    """``pdx_sharded``'s public names are the reference's, in its order:
+    ``pad_partitions_to_shards`` gives the reference's padded (data, ids)
+    bit for bit, and ``collective_counts`` is the meter of ``obs.meters``."""
+    from repro.dist import pdx_sharded as jsharded
+    from repro_torch.dist import pdx_sharded
+    from repro_torch.dist.pdx_sharded import collective_counts, pad_partitions_to_shards
+    from repro_torch.obs import meters
+
+    assert pdx_sharded.__all__ == jsharded.__all__
+    assert collective_counts is meters.collective_counts
+    X, _ = make_dataset(500, 8, "normal", n_queries=1, seed=1)
+    store = build_flat_store(X, capacity=64, device="cpu")
+    jstore = j_build_flat_store(X, capacity=64)
+    data, ids = pad_partitions_to_shards(store.data, store.ids, n_shards)
+    jdata, jids = jsharded.pad_partitions_to_shards(jstore.data, jstore.ids, n_shards)
+    assert data.shape[0] % n_shards == 0 and data.dtype == torch.float32
+    assert ids.dtype == torch.int32
+    np.testing.assert_array_equal(data.numpy(), np.asarray(jdata))
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
+
+
 def test_bucket_placement_invariants():
     """``tests/test_routing.py::test_bucket_placement_invariants``, and the
     port's bucket placement equal to the reference's on the same store."""

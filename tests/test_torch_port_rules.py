@@ -190,15 +190,32 @@ def test_every_train_entry_point_without_device_raises_when_cuda_is_absent(
         calls[entry]()
 
 
-def test_elastic_restore_onto_a_mesh_names_its_roadmap_item(tmp_path):
-    """``restore(shardings=...)`` raises until the FSDP x TP step is ported,
-    rather than ignoring the shardings."""
+def test_elastic_restore_onto_a_world_of_one_returns_dtensors(tmp_path, world_of_one):
+    """``restore(shardings=...)`` lands each leaf on its sharding: on a gloo
+    world of one, DTensors on the shardings' placements equal to the saved
+    tensors bit for bit, on the template's dtype; a leaf whose sharding is
+    ``None`` comes back whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.dist import make_mesh
+    from repro_torch.dist.sharding import NamedSharding, PartitionSpec as P
     from repro_torch.train import checkpoint
 
-    tree = {"w": torch.zeros(3)}
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn((4, 6), generator=g), "h": {"b": torch.randn(5, generator=g)},
+            "n": torch.arange(3, dtype=torch.int32)}
     checkpoint.save(str(tmp_path), 1, tree)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, modules queue item 2"):
-        checkpoint.restore(str(tmp_path), tree, shardings={"w": None})
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    sh = {"w": NamedSharding(mesh, P("data", "model")), "h": {"b": NamedSharding(mesh, P())},
+          "n": None}
+    step, got = checkpoint.restore(str(tmp_path), tree, shardings=sh)
+    assert step == 1
+    assert isinstance(got["w"], DTensor) and tuple(got["w"].placements) == (Shard(0), Shard(1))
+    assert tuple(got["h"]["b"].placements) == (Replicate(), Replicate())
+    assert torch.equal(got["w"].full_tensor(), tree["w"])
+    assert torch.equal(got["h"]["b"].full_tensor(), tree["h"]["b"])
+    assert not isinstance(got["n"], DTensor) and torch.equal(got["n"], tree["n"])
+    assert got["n"].dtype == torch.int32
 
 
 @pytest.fixture(scope="module")

@@ -13,9 +13,9 @@ upload overlap and swaps, its ``lm`` and ``rag`` phases with their
 profiles' busy and idle time, its ``train``, ``train_2l`` and
 ``train_reduced`` phases, its ``families`` lines (one per model: times,
 bounds, holds, the MoE and MLA records, the decode profile's busy and
-idle time), and its ``routing``, ``sharded`` and
-``routed`` phases and the ``fused_scan_wall`` medians, in each run given
-(parent runs too).
+idle time), its ``mesh_lm`` phase (its holds, walls and a sharded decode
+step's profile), and its ``routing``, ``sharded`` and ``routed`` phases
+and the ``fused_scan_wall`` medians, in each run given (parent runs too).
 """
 from __future__ import annotations
 
@@ -126,6 +126,16 @@ def main() -> None:
                     [(t["kernel"][:40], round(t["ms"], 3)) for t in prof["top"][:4]])
             elif line.get("phase") in ("train_2l", "train_reduced"):
                 print(path, line["phase"], {k: v for k, v in line.items() if k != "phase"})
+            elif line.get("phase") == "mesh_lm":
+                for part in ("train", "restore", "pipeline"):
+                    print(path, "mesh_lm", part, line[part])
+                serve = line["serve"]
+                print(path, "mesh_lm serve", {k: v for k, v in serve.items()
+                                              if k not in ("first_row", "decode_profile")})
+                prof = serve["decode_profile"]
+                print("    decode_profile", {f: prof[f] for f in (
+                    "wall_ms", "device_busy_ms", "device_idle_share")},
+                    [(t["kernel"][:40], round(t["ms"], 3)) for t in prof["top"][:4]])
             elif line.get("phase", "").endswith("_done") and "seconds" in line:
                 print(path, line["phase"], line["seconds"])
 
