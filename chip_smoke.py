@@ -283,6 +283,28 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      the card.  Recorded: whether the sharded step is bit for bit the
      plain one, both step walls, decode ms a token beside the plain
      path's and phase 8's, a sharded decode step's device profile.
+  13. dryrun (after 12) — the port's dry-run (``launch/{specs,analysis,
+     dryrun,dryrun_pdx}.py``).  (a) Its CLIs in subprocesses under the
+     card's torch, on a fake process group of 256 ranks (meta tensors,
+     nothing on the card): llama3.2-3b at ``decode_32k`` and DRYRUN_CELLS,
+     and ``dryrun_pdx`` at ``block_matmul_int8`` and ``dim``, held: every
+     record ``ok``, FLOPs and a peak above 0, ``dim``'s psums 768.  (b) The
+     estimator against the card: llama3.2-3b at full width in bf16, a
+     prefill at B = 8, S = 2048 and a decode at B = 8 against a 4096 cache
+     with bf16 and with f8 caches: ``step_cost`` and the live-storage
+     estimate of the temporaries (peak less the arguments) on meta tensors,
+     then the same step on the card: held, the estimate within 25 % of the
+     step's ``max_memory_allocated`` above what the arguments hold (after a
+     warm-up call); recorded, the step's ms beside the bound the counted
+     FLOPs and bytes give, and the f8 decode's greedy agreement with bf16
+     over 16 steps from fresh caches.  (c) The paper's workload, one rank of
+     256: ``dryrun_pdx``'s per-rank body (``local_fn``) on its real
+     (48, 1536, 8192) shard at f32, bf16 and int8 (2.42, 1.21, 0.60 GB),
+     Q = 128, its all-gathers over an NCCL world of one: held, the ids and
+     distances equal a direct selection over every tile's distances (one
+     stable sort), so the tile loop and the merge change no answer;
+     recorded, ms beside the bound (154.6 GFLOP, the shard's bytes).  No
+     kernel of the port runs here.
   5. the kernels line: one JSON object per kernel and dtype (K4 and K5 by
      metric over the Table 4 sweep, K4 and K6 on the flat block, K7 by
      dtype and metric, K2 on the tiered pool by dtype); the K1, K2 and K3
@@ -306,6 +328,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -445,6 +468,17 @@ FAMILY_LAYERS = {"deepseek-v3-671b": 4, "jamba-v0.1-52b": 8}
 FAMILY_HEADROOM_BYTES = 2e9
 FAMILY_TEACHER = ("internvl2-1b", "mamba2-370m", "whisper-small")
 MOE_RTOL, MOE_ATOL = 1e-4, 1e-5
+# phase 13 (dryrun): the CLIs' cells on a fake group of 256 ranks (each
+# timed at under about 30 s of meta run on a CPU), the estimator's LM cells
+# (batch, sequence or cache length) held to the card's allocator at
+# DRYRUN_MEM_RTOL, and the f8 decode's greedy steps
+DRYRUN_CELLS = (("llama3.2-3b", "decode_32k"), ("llama3.2-3b", "train_4k"))
+DRYRUN_PDX = ("block_matmul_int8", "dim")
+DRYRUN_PDX_PSUMS = 768
+DRYRUN_CLI_TIMEOUT_S = 300
+DRYRUN_PREFILL, DRYRUN_DECODE = (8, 2048), (8, 4096)
+DRYRUN_MEM_RTOL = 0.25
+DRYRUN_GREEDY_STEPS = 16
 
 
 def emit(obj: dict) -> None:
@@ -4010,6 +4044,212 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
     return line
 
 
+# ------------------------------------------------------------------ dry-run
+def _dryrun_clis(out_dir: Path) -> list:
+    """Start the dry-run CLIs in subprocesses (each its own fake group:
+    one process has one world) -> [(cell, process, record path, log)]."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = [(f"{a} x {sh}", ["repro_torch.launch.dryrun", "--arch", a, "--shape", sh],
+             out_dir / f"{a}__{sh}__single_pod.json") for a, sh in DRYRUN_CELLS]
+    runs += [(f"pdx {v}", ["repro_torch.launch.dryrun_pdx", "--variant", v],
+              out_dir / f"pdx-search-{v}__batch128__single_pod.json") for v in DRYRUN_PDX]
+    procs = []
+    for cell, args, rec in runs:
+        rec.unlink(missing_ok=True)
+        log = open(out_dir / (rec.stem + ".log"), "w")
+        procs.append((cell, subprocess.Popen(
+            [sys.executable, "-m", *args, "--mesh", "single_pod", "--out", str(out_dir)],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT), rec, log))
+    return procs
+
+
+def _dryrun_cli_lines(procs: list, t0: float) -> list:
+    """Wait for the CLIs -> one line per cell; a CLI that has not ended by
+    DRYRUN_CLI_TIMEOUT_S after ``t0`` is killed and fails the phase."""
+    lines = []
+    for cell, proc, rec, log in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, DRYRUN_CLI_TIMEOUT_S - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        log.close()
+        r = json.loads(rec.read_text()) if rec.exists() else {}
+        lines.append({"cell": cell, "rc": rc, "status": r.get("status"),
+                      "meta_run_s": r.get("lower_s"), "jaxpr_cost": r.get("jaxpr_cost"),
+                      "collectives": r.get("collectives"), "memory": r.get("memory"),
+                      "error": r.get("error")})
+    return lines
+
+
+def _estimate_hold(torch, name: str, fn, meta_args, real_args) -> dict:
+    """``step_cost`` and the live-storage estimate of ``fn`` on meta
+    tensors, then ``fn`` on the card's tensors: the step's
+    ``max_memory_allocated`` above what was allocated before it (the
+    arguments), after one warm-up call."""
+    from repro_torch.launch.analysis import memory_trace, step_cost
+
+    cost = step_cost(fn, *meta_args)
+    _, _, mem = memory_trace(fn, *meta_args)
+    est = mem["peak_memory_in_bytes"] - mem["argument_size_in_bytes"]
+    out = fn(*real_args)  # warm-up: the libraries' workspaces
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = synced(torch, lambda: fn(*real_args))
+    measured = torch.cuda.max_memory_allocated() - base
+    del out
+    bound, by = bound_ms(cost["bytes"], cost["dot_flops"], PEAK_BF16_FLOPS, cost["ew_flops"])
+    return {"cell": name, "dot_flops": cost["dot_flops"], "ew_flops": cost["ew_flops"],
+            "bytes": cost["bytes"], "estimate_temp_bytes": est,
+            "estimate_argument_bytes": mem["argument_size_in_bytes"],
+            "measured_temp_bytes": measured, "measured_argument_bytes": base,
+            "temp_rel_err": abs(est - measured) / measured, "ms": ms,
+            "bound_ms": bound, "bound_by": by}
+
+
+def _dryrun_estimator(torch, dev, seed: int) -> tuple[list, dict]:
+    """The estimator against the card: llama3.2-3b at full width, bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+
+    cfg = get_config(LM_ARCH)
+    model = build_model(cfg)
+    bf16, f8 = torch.bfloat16, torch.float8_e4m3fn
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), dtype=bf16, device=dev)
+    with torch.device("meta"):
+        mparams = model._draw(torch.Generator(), bf16)
+    rng = np.random.default_rng(seed)
+    rows = []
+    B, S = DRYRUN_PREFILL
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (B, S)), dtype=torch.int32)
+
+    def prefill(p, b):
+        return model.prefill(p, b, S)
+
+    with torch.no_grad():
+        rows.append(_estimate_hold(
+            torch, f"prefill B={B} S={S}", prefill,
+            (mparams, {"tokens": torch.empty((B, S), dtype=torch.int32, device="meta")}),
+            (params, {"tokens": tok.to(dev)})))
+        B, L = DRYRUN_DECODE
+        first = torch.as_tensor(rng.integers(0, cfg.vocab, (B, 1)), dtype=torch.int32).to(dev)
+
+        def decode(p, c, t):
+            return model.decode_step(p, t, c, L - 1)
+
+        for kv in (bf16, f8):
+            caches = model.init_caches(B, L, bf16, kv_dtype=kv, device=dev)
+            mcaches = model.init_caches(B, L, bf16, kv_dtype=kv, device="meta")
+            rows.append({**_estimate_hold(
+                torch, f"decode B={B} cache={L} kv={str(kv).split('.')[-1]}", decode,
+                (mparams, mcaches, torch.empty((B, 1), dtype=torch.int32, device="meta")),
+                (params, caches, first)), "cache_bytes": sum(
+                    t.numel() * t.element_size() for c in caches for u in c.values()
+                    for t in u.values())})
+            del caches
+
+        def greedy(kv):
+            caches = model.init_caches(B, L, bf16, kv_dtype=kv, device=dev)
+            tok, out = first, []
+            for pos in range(DRYRUN_GREEDY_STEPS):
+                logits, caches = model.decode_step(params, tok, caches, pos)
+                tok = logits.argmax(-1)[:, None].to(torch.int32)
+                out.append(tok)
+            return torch.cat(out, 1)
+
+        agree = float((greedy(bf16) == greedy(f8)).float().mean())
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, {"steps": DRYRUN_GREEDY_STEPS, "batch": B, "agreement": agree}
+
+
+def _dryrun_pdx_rank(torch, dev, seed: int) -> list:
+    """``dryrun_pdx``'s per-rank body on one rank's real shard, its
+    all-gathers over an NCCL world of one."""
+    import torch.distributed as tdist
+
+    from repro_torch.dist import make_mesh
+    from repro_torch.launch import dryrun_pdx as dp
+
+    # rank 0's partitions: 12,207 padded to a multiple of the 256 ranks
+    P = -(-(dp.N_VECTORS // dp.CAPACITY) // 256)
+    C, D, Qn = dp.CAPACITY, dp.DIM, dp.QUERIES
+    rows = []
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        g = torch.Generator(device=dev).manual_seed(seed)
+        Q = torch.randn((Qn, D), generator=g, device=dev)
+        ids = torch.arange(P * C, dtype=torch.int32, device=dev).reshape(P, C)
+        for variant in ("block_matmul", "block_matmul_bf16", "block_matmul_int8"):
+            if "int8" in variant:
+                data = torch.randint(-127, 128, (P, D, C), generator=g, device=dev,
+                                     dtype=torch.int8)
+            else:
+                data = torch.randn((P, D, C), generator=g, device=dev)
+                if "bf16" in variant:
+                    data = data.to(torch.bfloat16)
+            fn = dp.local_fn(variant, mesh)
+            dists, got = fn(data, ids, Q)
+            # every tile's distances, one stable selection over them all
+            every = torch.cat([dp.tile_dists(t, Q, "bf16" in variant) for t in data], dim=1)
+            d_sorted, order = torch.sort(every, dim=1, stable=True)
+            want_d, want = d_sorted[:, :dp.K], ids.reshape(-1)[order[:, :dp.K]]
+            del every, d_sorted, order
+            ms = cuda_ms(torch, lambda: fn(data, ids, Q), reps=3, warmup=1)
+            nbytes = sum(t.numel() * t.element_size() for t in (data, ids, Q))
+            flops = 2.0 * Qn * D * P * C
+            f32 = data.dtype == torch.float32  # else both operands are bf16
+            bound, by = bound_ms(nbytes, flops, product_peak(f32, f32))
+            rows.append({"variant": variant, "shard": [P, D, C], "dtype": str(data.dtype)[6:],
+                         "shard_bytes": data.numel() * data.element_size(),
+                         "ids_equal": bool(torch.equal(got, want)),
+                         "dists_equal": bool(torch.equal(dists, want_d)),
+                         "ms": ms, "gflop": flops / 1e9, "bound_ms": bound, "bound_by": by})
+            del data
+            torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+    return rows
+
+
+def dryrun_phase(torch, dev, seed: int, smi: str, counters: dict) -> dict:
+    """Phase 13 (``dryrun``): the dry-run's CLIs under the card's torch, the
+    estimator against the card, and the paper's workload on one rank's
+    shard (the module docstring's 13)."""
+    t0 = time.perf_counter()
+    launched = {k: c.launches for k, c in counters.items()}
+    procs = _dryrun_clis(ROOT / "build" / "dryrun")
+    try:
+        est, greedy = _dryrun_estimator(torch, dev, seed)
+        pdx = _dryrun_pdx_rank(torch, dev, seed)
+    finally:
+        cli = _dryrun_cli_lines(procs, t0)
+    for row in cli:
+        emit({"phase": "dryrun_cell", **row})
+    launched = {k: c.launches - launched[k] for k, c in counters.items()}
+    line = {"phase": "dryrun", "nvidia_smi": smi, "estimator": est,
+            "f8_greedy": greedy, "pdx_rank": pdx, "kernel_launches": launched,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    for row in cli:
+        assert row["rc"] == 0 and row["status"] == "ok", row
+        assert row["jaxpr_cost"]["flops"] > 0 and row["memory"]["peak_memory_in_bytes"] > 0, row
+        if row["cell"] == "pdx dim":
+            assert row["collectives"]["count"]["all-reduce"] == DRYRUN_PDX_PSUMS, row
+    for row in est:
+        assert row["temp_rel_err"] <= DRYRUN_MEM_RTOL, row
+    for row in pdx:
+        assert row["ids_equal"] and row["dists_equal"], row
+    assert not any(launched.values()), f"dryrun launched a kernel of the port: {launched}"
+    return line
+
+
 def rag_dist_error(torch, X, Q, ids, dists) -> float:
     """Largest |returned - direct f32 distance| / max(direct, 1e-2 (||q||^2 +
     ||x||^2)): held to 1e-3, that is relative where the distance is not near
@@ -4384,6 +4624,11 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_lm_phase(torch, dev, args.seed, lm_line["decode_ms_per_token_median"], counters)
     emit({"phase": "mesh_lm_done", "seconds": time.perf_counter() - t0})
+
+    # ------------------------------------------------------- 13. dryrun
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phase(torch, dev, args.seed, smi, counters)
 
     # ----------------------------------------------------- 4. the record
     emit({"kernels": kernels + paper_rows})

@@ -29,7 +29,7 @@ from .sharding import P, _batch_entry, _divisible, data_axes, placements
 
 __all__ = ["act", "activation_sharding", "ffn_hidden", "heads"]
 
-# Stack of (mesh, batch_axes) contexts; empty means hints are identities.
+# Stack of (mesh, batch_axes, anchor) contexts; empty means hints are identities.
 _ACTIVE: list[tuple] = []
 
 
@@ -37,14 +37,19 @@ class activation_sharding:
     """Context manager activating the hints on ``mesh``.
 
     ``batch_axes``: mesh axes the activations' batch dim shards over
-    (defaults to the mesh's data axes).
+    (defaults to the mesh's data axes).  ``anchor=False`` leaves ``act``,
+    ``heads`` and ``ffn_hidden`` identities, as the reference's hints are
+    outside their context, and keeps only the port-only reshards
+    (``split_heads``, ``per_head``, ``rows``) that DTensor needs where
+    GSPMD reshards by itself: the dry-run's step without ``--hints``.
     """
 
-    def __init__(self, mesh, batch_axes=None):
+    def __init__(self, mesh, batch_axes=None, *, anchor: bool = True):
         self.mesh = mesh
         self.batch_axes = (
             tuple(batch_axes) if batch_axes is not None else data_axes(mesh)
         )
+        self.anchor = anchor
 
     def __enter__(self):
         if not _ACTIVE:  # the outermost context lets plain tensors mix in
@@ -52,7 +57,7 @@ class activation_sharding:
 
             self._replication = contextlib.ExitStack()
             self._replication.enter_context(implicit_replication())
-        _ACTIVE.append((self.mesh, self.batch_axes))
+        _ACTIVE.append((self.mesh, self.batch_axes, self.anchor))
         return self
 
     def __exit__(self, *exc):
@@ -79,9 +84,9 @@ def _to(x, mesh, want: tuple):
 def _hint(x: torch.Tensor, body: tuple) -> torch.Tensor:
     """Redistribute the DTensor ``x`` to P(batch, *body) under the active
     context; anything else comes back as it is."""
-    if not _ACTIVE or not _dtensor(x):
+    if not _ACTIVE or not _ACTIVE[-1][2] or not _dtensor(x):
         return x
-    mesh, baxes = _ACTIVE[-1]
+    mesh, baxes, _ = _ACTIVE[-1]
     spec = _divisible(P(_batch_entry(baxes), *body), x.shape, mesh)
     return _to(x, mesh, placements(mesh, spec))
 
@@ -111,11 +116,24 @@ def split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     the view keeps it."""
     B, S = x.shape[:2]
     if _ACTIVE and _dtensor(x):
-        mesh, baxes = _ACTIVE[-1]
+        mesh, baxes, _ = _ACTIVE[-1]
         spec = _divisible(P(_batch_entry(baxes), None, "model", None),
                           (B, S, n_heads, head_dim), mesh)
         x = _to(x, mesh, placements(mesh, P(spec[0], None, spec[2])))
     return x.reshape(B, S, n_heads, head_dim)
+
+
+def merge_heads(y: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H * hd).  Under the context a DTensor's
+    result goes through ``redistribute`` to the layout the view gave it, so
+    that in the backward pass its gradient comes back on that layout
+    before the view splits it into heads again: a product against ``wo``
+    may hand the gradient back split over model across a head's boundary
+    (24 heads over 16 ranks), which some torch releases refuse to view."""
+    out = y.reshape(y.shape[0], y.shape[1], -1)
+    if _ACTIVE and _dtensor(out):
+        out = _to(out, out.device_mesh, out.placements)
+    return out
 
 
 def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -130,6 +148,47 @@ def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     whole = _to(table, table.device_mesh, (Replicate(),) * table.device_mesh.ndim)
     return torch.nn.functional.embedding(idx, whole)
+
+
+def per_rows(fn, p: dict, x: torch.Tensor, *args, whole: bool = False, **kwargs):
+    """``fn(p, x, *args, **kwargs)`` run by every rank on its own batch
+    rows of the DTensor ``x`` as plain tensors, with the params ``p``
+    gathered whole (the FSDP unshard, as ``rows`` gathers the embedding);
+    ``whole`` makes every rank run the whole batch.  A DTensor in ``args``
+    (a decode cache, split over the batch) goes in as its local tensor, so
+    that ``fn``'s in-place writes land in its shard, and the rows follow
+    its layout.  Each tensor of the result comes back a DTensor on the
+    rows' layout.  For a block that is independent across batch rows and
+    whose ops DTensor has no rules for in every torch release (the MoE
+    dispatch's sort and search, the SSD scan); a rank's param grads are
+    then a partial sum over the mesh dims that split the batch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from ..train._tree import leaves, tree_map
+
+    mesh = x.device_mesh
+    held = [v for v in leaves(list(args)) if _dtensor(v)]
+    if held:
+        rows = tuple(held[0].placements)
+    else:
+        rows = tuple(q if q.is_shard(0) and not whole else Replicate() for q in x.placements)
+    partial = tuple(Partial() if q.is_shard(0) else Replicate() for q in rows)
+    every = (Replicate(),) * mesh.ndim
+
+    def param(v):
+        return _to(v, mesh, every).to_local(grad_placements=partial) if _dtensor(v) else v
+
+    def local(v):
+        if not _dtensor(v):
+            return v
+        if tuple(v.placements) != rows:
+            raise ValueError(f"per_rows: an argument on {tuple(v.placements)}, the rows on {rows}")
+        return v.to_local()
+
+    out = fn(tree_map(param, p), _to(x, mesh, rows).to_local(), *tree_map(local, args),
+             **kwargs)
+    return tree_map(lambda t: DTensor.from_local(t, mesh, rows)
+                    if isinstance(t, torch.Tensor) else t, out)
 
 
 def on_mesh(x) -> bool:
@@ -150,7 +209,8 @@ def per_head(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *args, **kwa
 
     mesh, n_kv = q.device_mesh, k.shape[2]
     split = [i for i, p in enumerate(q.placements) if p.is_shard(2)]
-    want = tuple(q.placements)
+    # a partial sum (a projection split over its input) is summed first
+    want = tuple(Replicate() if p.is_partial() else p for p in q.placements)
     if n_kv % math.prod(mesh.size(i) for i in split):
         want = tuple(Replicate() if i in split else p for i, p in enumerate(want))
     q, k, v = (_to(t, mesh, want) for t in (q, k, v))

@@ -78,8 +78,7 @@ class gqa:
     def forward_train(p, x, cfg, positions, causal: bool = True):
         q, k, v = gqa._qkv(p, x, cfg, positions)
         y = chunked_attention(q, k, v, causal=causal)
-        B, S = x.shape[:2]
-        return matmul(y.reshape(B, S, -1), p["wo"])
+        return matmul(hints.merge_heads(y), p["wo"])
 
     @staticmethod
     def forward_prefill(p, x, cfg, positions, cache_len: int):
@@ -113,26 +112,25 @@ class gqa:
         """x (B, Sq, d) attends over kv_src (B, Sk, d); no RoPE, no causal."""
         B, Sq, _ = x.shape
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        q = matmul(x, p["wq"]).reshape(B, Sq, H, hd)
-        k = matmul(kv_src, p["wk"]).reshape(B, -1, Hkv, hd)
-        v = matmul(kv_src, p["wv"]).reshape(B, -1, Hkv, hd)
+        q = hints.split_heads(matmul(x, p["wq"]), H, hd)
+        k = hints.split_heads(matmul(kv_src, p["wk"]), Hkv, hd)
+        v = hints.split_heads(matmul(kv_src, p["wv"]), Hkv, hd)
         y = chunked_attention(q, k, v, causal=False)
-        return matmul(y.reshape(B, Sq, -1), p["wo"])
+        return matmul(hints.merge_heads(y), p["wo"])
 
     @staticmethod
     def cross_kv(p, kv_src, cfg):
         """Cross-attention K/V, computed once per request (decode path)."""
-        B = kv_src.shape[0]
         Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-        k = matmul(kv_src, p["wk"]).reshape(B, -1, Hkv, hd)
-        v = matmul(kv_src, p["wv"]).reshape(B, -1, Hkv, hd)
+        k = hints.split_heads(matmul(kv_src, p["wk"]), Hkv, hd)
+        v = hints.split_heads(matmul(kv_src, p["wv"]), Hkv, hd)
         return k, v
 
     @staticmethod
     def forward_cross_cached(p, x, k, v, cfg):
         B, Sq, _ = x.shape
         H, hd = cfg.n_heads, cfg.resolved_head_dim
-        q = matmul(x, p["wq"]).reshape(B, Sq, H, hd)
+        q = hints.split_heads(matmul(x, p["wq"]), H, hd)
         y = decode_attention(q, k, v, k.shape[1])
         return matmul(y.reshape(B, Sq, -1), p["wo"])
 
@@ -198,18 +196,17 @@ class mla:
         q = torch.cat([q_nope, q_rope], -1)
         k = torch.cat([k_nope, k_rope_h], -1)
         y = chunked_attention(q, k, v, causal=causal)
-        return y.reshape(B, S, -1) @ p["wo"]
+        return hints.merge_heads(y) @ p["wo"]
 
     @staticmethod
     def forward_prefill(p, x, cfg, positions, cache_len: int):
         B, S, _ = x.shape
         y = mla.forward_train(p, x, cfg, positions, causal=True)
         c_kv, k_rope = mla._latent(p, x, cfg, positions)
+        # new_zeros: on a mesh the caches take the latents' layout
         cache = {
-            "c_kv": torch.zeros((B, cache_len, cfg.kv_lora_rank), dtype=x.dtype,
-                                device=x.device),
-            "k_rope": torch.zeros((B, cache_len, cfg.qk_rope_head_dim), dtype=x.dtype,
-                                  device=x.device),
+            "c_kv": c_kv.new_zeros((B, cache_len, cfg.kv_lora_rank), dtype=x.dtype),
+            "k_rope": k_rope.new_zeros((B, cache_len, cfg.qk_rope_head_dim), dtype=x.dtype),
         }
         cache["c_kv"][:, :S] = c_kv
         cache["k_rope"][:, :S] = k_rope

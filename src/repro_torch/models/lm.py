@@ -81,26 +81,33 @@ def init_unit(generator, spec: LayerSpec, cfg: ArchConfig, dtype, lead: tuple = 
 
 def init_unit_cache(
     spec: LayerSpec, cfg: ArchConfig, batch: int, cache_len: int, dtype,
-    *, device=None, lead: tuple = (),
+    kv_dtype=None, *, device=None, lead: tuple = (),
 ) -> dict:
+    """One unit's zeroed caches.  The attention caches (``k``, ``v``,
+    ``c_kv``, ``k_rope``) take ``kv_dtype or dtype``: they may be narrower
+    (bf16 or ``torch.float8_e4m3fn``); a Mamba state and a cross cache keep
+    ``dtype``."""
     dev = resolve_device(device)
+    kv_dtype = kv_dtype or dtype
 
-    def zeros(*shape):
-        return torch.zeros(lead + shape, dtype=dtype, device=dev)
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(lead + shape, dtype=dt, device=dev)
 
     out = {}
     for i, (kind, _) in enumerate(spec):
-        hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
         if kind == "gqa":
-            out[f"sub{i}"] = {"k": zeros(batch, cache_len, hkv, hd),
-                              "v": zeros(batch, cache_len, hkv, hd)}
+            hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+            out[f"sub{i}"] = {"k": zeros(batch, cache_len, hkv, hd, dt=kv_dtype),
+                              "v": zeros(batch, cache_len, hkv, hd, dt=kv_dtype)}
         elif kind == "mla":
-            out[f"sub{i}"] = {"c_kv": zeros(batch, cache_len, cfg.kv_lora_rank),
-                              "k_rope": zeros(batch, cache_len, cfg.qk_rope_head_dim)}
+            out[f"sub{i}"] = {"c_kv": zeros(batch, cache_len, cfg.kv_lora_rank, dt=kv_dtype),
+                              "k_rope": zeros(batch, cache_len, cfg.qk_rope_head_dim,
+                                              dt=kv_dtype)}
         elif kind == "mamba":
             out[f"sub{i}"] = mamba2.init_cache(cfg, cfg.d_model, batch, dtype, device=dev,
                                                lead=lead)
         elif kind == "cross":
+            hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
             out[f"sub{i}"] = {"ck": zeros(batch, cfg.enc_seq, hkv, hd),
                               "cv": zeros(batch, cfg.enc_seq, hkv, hd)}
         else:
@@ -510,9 +517,11 @@ class LMModel:
         h = rms_norm(x[:, -1, :], params["final_norm"], self.cfg.rms_eps)
         return h @ self._head(params), caches
 
-    def init_caches(self, batch: int, cache_len: int, dtype=torch.float32, *, device=None):
-        """Zeroed caches per stack (``None`` for an encoder stack)."""
-        return [init_unit_cache(sd.spec, self.cfg, batch, cache_len, dtype,
+    def init_caches(self, batch: int, cache_len: int, dtype=torch.float32, kv_dtype=None,
+                    *, device=None):
+        """Zeroed caches per stack (``None`` for an encoder stack); the
+        attention caches take ``kv_dtype or dtype`` (``init_unit_cache``)."""
+        return [init_unit_cache(sd.spec, self.cfg, batch, cache_len, dtype, kv_dtype,
                                 device=device, lead=(sd.count,))
                 if sd.role == "decoder" else None
                 for sd in self.stacks]

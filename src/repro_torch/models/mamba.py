@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist import hints
 from .common import dense_init, rms_norm
 
 __all__ = ["mamba2"]
@@ -75,6 +76,8 @@ class mamba2:
     # ------------------------------------------------------------------
     @staticmethod
     def forward_train(p, x, cfg, d_model: int, return_state: bool = False):
+        if hints.on_mesh(x):  # the scan runs per rank on its own batch rows
+            return hints.per_rows(mamba2.forward_train, p, x, cfg, d_model, return_state)
         B, S, _ = x.shape
         di, H, P, G, N = _dims(cfg, d_model)
         Q = min(cfg.ssm_chunk, S)
@@ -149,6 +152,8 @@ class mamba2:
         """x (B, 1, d); the O(1) state recurrence.  Shifts the conv window
         and replaces the state in the given cache, in place, and returns
         it."""
+        if hints.on_mesh(x):  # per rank, into its own rows of the cache
+            return hints.per_rows(mamba2.forward_decode, p, x, cfg, cache, d_model)
         B = x.shape[0]
         di, H, P, G, N = _dims(cfg, d_model)
 

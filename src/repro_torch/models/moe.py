@@ -93,14 +93,15 @@ class moe_ffn:
         return min(C, group_tokens * k)
 
     @staticmethod
-    def route(p, x, cfg):
+    def route(p, x, cfg, groups: int | None = None):
         """x (B, S, d) -> (top_idx (G, Sg, k) int64, top_w (G, Sg, k) f32, C):
         each token's experts, larger selection logit first, and their
-        renormalised router probabilities."""
+        renormalised router probabilities.  ``groups`` overrides G (a
+        rank's share of the whole batch's groups)."""
         B, S, d = x.shape
         E, k = cfg.n_experts, cfg.top_k
         T = B * S
-        G = pick_group_count(T, E, k)
+        G = groups or pick_group_count(T, E, k)
         Sg = T // G
         assert G * Sg == T, f"tokens {T} not divisible into {G} groups"
         logits = (x.reshape(G, Sg, d) @ p["router"]).to(torch.float32)
@@ -131,9 +132,39 @@ class moe_ffn:
     @staticmethod
     def forward(p, x, cfg):
         """x (B, S, d) -> (B, S, d)."""
+        y = (moe_ffn._on_mesh(p, x, cfg) if hints.on_mesh(x)
+             else moe_ffn.routed(p, x, cfg))
+        if cfg.n_shared:
+            y = y + dense_ffn.forward(p["shared"], x, cfg.act)
+        return y
+
+    @staticmethod
+    def _on_mesh(p, x, cfg):
+        """The routed experts of a DTensor ``x`` under an active hint
+        context (``hints.per_rows``): each rank routes its own batch rows,
+        the router and the experts gathered whole.  A group never spans two
+        ranks' rows once the ranks split the batch into whole groups, so
+        every token meets the drops of the unsharded computation; where
+        they do not (fewer groups than ranks), every rank routes the whole
+        batch.  DTensor has no rules for the dispatch's sort and search."""
+        import math
+
+        B, S, _ = x.shape
+        G = pick_group_count(B * S, cfg.n_experts, cfg.top_k)
+        n = math.prod(x.device_mesh.size(i) for i, q in enumerate(x.placements)
+                      if q.is_shard(0))
+        whole = bool(G % n or B % n)
+        routed = {k: v for k, v in p.items() if k != "shared"}
+        return hints.per_rows(
+            lambda p_, x_: moe_ffn.routed(p_, x_, cfg, groups=G if whole else G // n),
+            routed, x, whole=whole)
+
+    @staticmethod
+    def routed(p, x, cfg, groups: int | None = None):
+        """The routed experts alone: x (B, S, d) -> (B, S, d)."""
         B, S, d = x.shape
         E, k = cfg.n_experts, cfg.top_k
-        top_idx, top_w, C = moe_ffn.route(p, x, cfg)
+        top_idx, top_w, C = moe_ffn.route(p, x, cfg, groups)
         G, Sg, _ = top_idx.shape
         slot, order, keep = moe_ffn.dispatch(top_idx, C, E)
         tok = order // k
@@ -163,7 +194,4 @@ class moe_ffn:
         y = per_tok[:, :, 0]
         for j in range(1, k):
             y = y + per_tok[:, :, j]
-        y = y.reshape(B, S, d)
-        if cfg.n_shared:
-            y = y + dense_ffn.forward(p["shared"], x, cfg.act)
-        return y
+        return y.reshape(B, S, d)

@@ -77,8 +77,11 @@ def make_train_step(model: LMModel, tc: TrainConfig = TrainConfig()) -> Callable
             p.requires_grad_(True)
         try:
             loss = model.loss(params, batch, remat=tc.remat)
-            grads = [_on_param_layout(g, p)
-                     for g, p in zip(torch.autograd.grad(loss, flat), flat)]
+            # a leaf the loss does not reach (DeepSeek-V3's router bias
+            # only orders the experts) gets zeros, as jax.grad gives it
+            grads = [_on_param_layout(g, p) for g, p in zip(
+                torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True),
+                flat)]
         finally:
             for p in flat:
                 p.requires_grad_(False)

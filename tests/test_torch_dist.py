@@ -28,27 +28,38 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL = 1e-5
 WORLD = 8
-JOIN_S = 120      # a port world's ranks, all together
-REF_JOIN_S = 300  # the reference subprocess (JAX import and compiles)
+# Join limits.  A world runs at a lower priority than the suite's
+# workers (``_spawn``), so under the whole suite's load it can take several
+# times what it takes alone: the LM world (``tests/test_torch_dist_lm.py``)
+# took 35 s alone, 120 s beside seven busy processes, and overran 120 s in
+# a whole-suite run.  The gloo timeout matches the join limit, so that a
+# rank waiting on a starved peer is not cut first.
+JOIN_S = 600      # a port world's ranks, all together
+REF_JOIN_S = 600  # the reference subprocess (JAX import and compiles)
 
 _PORT = """
-import datetime, os
+import datetime, os, time
 import numpy as np
 import torch
 import torch.distributed as dist
 torch.set_num_threads(1)
+_t0 = time.monotonic()
+def mark(what):  # where the time went, in the rank's log
+    print(f"{time.monotonic() - _t0:8.1f} s  {what}", flush=True)
 rank = int(os.environ["RANK"])
 dist.init_process_group(
     "gloo", init_method=os.environ["INIT"], rank=rank,
     world_size=int(os.environ["WORLD_SIZE"]),
-    timeout=datetime.timedelta(seconds=100))
+    timeout=datetime.timedelta(seconds=int(os.environ["GLOO_S"])))
 from repro_torch.dist import make_mesh
+mark("joined")
 out = {}
 """
 _PORT_END = """
 np.savez(os.path.join(os.environ["OUT"], f"rank{rank}.npz"), **out)
 dist.barrier()
 dist.destroy_process_group()
+mark("done")
 """
 _REF = f"""
 import os
@@ -76,7 +87,8 @@ def run_world(tmp_path, body: str, ref_body: str | None = None):
     the reference's dict or None)."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                OUT=str(tmp_path), WORLD_SIZE=str(WORLD),
-               INIT=f"file://{tmp_path / 'rendezvous'}", OMP_NUM_THREADS="1")
+               INIT=f"file://{tmp_path / 'rendezvous'}", OMP_NUM_THREADS="1",
+               GLOO_S=str(JOIN_S))
     env.pop("XLA_FLAGS", None)
     procs = []
     try:
@@ -95,7 +107,10 @@ def run_world(tmp_path, body: str, ref_body: str | None = None):
             try:
                 p.wait(timeout=max(1.0, limit - (time.monotonic() - t0)))
             except subprocess.TimeoutExpired:
-                pytest.fail(f"{name} did not finish within {limit} s")
+                log = tmp_path / ("ref.log" if name == "reference"
+                                  else f"rank{name.split()[-1]}.log")
+                pytest.fail(f"{name} did not finish within {limit} s; its log ends:\n"
+                            + log.read_text()[-2000:])
         for name, p, log, _ in procs:
             log.close()
             logname = "ref.log" if name == "reference" else f"rank{name.split()[-1]}.log"

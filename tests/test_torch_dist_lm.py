@@ -75,6 +75,7 @@ model = build_model(cfg)
 mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
 template = model.init(torch.Generator().manual_seed(1), device="cpu")
 ps = param_shardings(template, mesh, cfg)
+mark("imports and set-up")
 
 # ---- the FSDP x TP step: the reference's params restored onto the mesh
 _, params = checkpoint.restore(os.path.join(root, "params"), template, shardings=ps)
@@ -95,6 +96,7 @@ for (path, p) in flatten_with_paths(params):
 out["loss"] = m["loss"].full_tensor().numpy()
 out["grad_norm"] = m["grad_norm"].full_tensor().numpy()
 assert int(opt["step"].full_tensor()) == 1
+mark("fsdp x tp step")
 
 # ---- weight-stationary serving: params TP-only, the caches on their specs
 stationary = strip_axes(ps, data_axes(mesh))
@@ -109,6 +111,7 @@ with torch.no_grad(), hints.activation_sharding(mesh):
         logits, caches = model.decode_step(sparams, toks[-1][:, None], caches, {PROMPT} + t)
         toks.append(logits.full_tensor().argmax(-1))
 out["tokens"] = torch.stack(toks, 1).numpy()
+mark("weight-stationary prefill and decode")
 
 # ---- the pipeline on an 8-stage ring
 pipe = make_mesh(({WORLD},), ("stage",), device="cpu")
@@ -124,6 +127,7 @@ except ValueError as e:
     assert "must all equal the 'stage' axis size" in str(e)
 else:
     raise AssertionError("a stage stack of 4 on 8 ranks did not raise")
+mark("pipeline")
 
 # ---- elastic restore onto an (8,) data mesh
 dm = make_mesh(({WORLD},), ("data",), device="cpu")
@@ -134,6 +138,7 @@ assert step == 1 and tuple(rest["w"].placements) == (Shard(0),)
 assert torch.equal(rest["w"].to_local(),
                    torch.arange(64, dtype=torch.float32).reshape(8, 8)[rank:rank + 1])
 out["restored"] = rest["w"].full_tensor().numpy()
+mark("elastic restore")
 """
 
 _REF = f"""

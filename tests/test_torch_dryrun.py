@@ -1,0 +1,204 @@
+"""The port's dry-run (``repro_torch.launch.{specs,dryrun}`` and
+``LMModel.init_caches(kv_dtype=)``) against the reference's
+(``repro.launch.{specs,dryrun}``), on the CPU.
+
+* ``input_specs``: the reference's keys, shapes and dtype names for every
+  config x shape, as meta tensors.
+* ``count_params`` and the record's ``params_active``, exact against the
+  reference's on ``jax.eval_shape`` params, every config at full width.
+* f8 decode caches: the reduced llama decodes 4 greedy steps from fresh
+  ``float8_e4m3fn`` caches, as the dry-run's decode cell starts, beside
+  the reference from its own f8 caches: the caches bit for bit after every
+  step, the logits at the teacher-forcing bar (rtol 2e-2, atol 2e-3), the
+  greedy tokens equal.  (Prefill builds caches of the activations' dtype
+  in both packages, so it is not this path.)
+* The CLI in a subprocess at full width, llama3.2-3b ``decode_32k`` on
+  both production meshes (fake process groups of 256 and 512 ranks): exit
+  0, records that carry the reference's ``run_cell`` keys, and an argument
+  size equal to rank 0's local shard bytes computed here from the specs;
+  a world of another size raises.
+"""
+import json
+import math
+import os
+import resource
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.launch.dryrun import count_params as jcount_params
+from repro.launch.specs import input_specs as jinput_specs
+from repro.models.lm import build_model as jbuild
+from repro_torch import configs as tconfigs
+from repro_torch.convert import lm_params_from_arrays
+from repro_torch.dist import sharding as tsh
+from repro_torch.launch import dryrun
+from repro_torch.launch.specs import input_specs
+from repro_torch.models.lm import build_model as tbuild
+
+ROOT = Path(__file__).resolve().parents[1]
+CONFIGS = jconfigs.list_configs()
+REF_RUN_CELL_KEYS = {"arch", "shape", "mesh", "tag", "status", "lower_s", "compile_s",
+                     "memory", "cost", "jaxpr_cost", "collectives", "n_devices",
+                     "params_total", "params_active", "tokens", "step"}
+
+
+def test_the_port_has_the_reference_configs():
+    assert tconfigs.list_configs() == CONFIGS and len(CONFIGS) == 10
+
+
+@pytest.mark.parametrize("shape", list(jconfigs.SHAPES))
+@pytest.mark.parametrize("arch", CONFIGS)
+def test_input_specs_match_the_reference(arch, shape):
+    want = jinput_specs(jconfigs.get_config(arch), jconfigs.SHAPES[shape])
+    got = input_specs(tconfigs.get_config(arch), tconfigs.SHAPES[shape])
+    assert sorted(got) == sorted(want)
+    for key, spec in want.items():
+        t = got[key]
+        assert t.device.type == "meta"
+        assert tuple(t.shape) == tuple(spec.shape), key
+        assert str(t.dtype).split(".")[-1] == spec.dtype.name, key
+
+
+@pytest.mark.parametrize("arch", CONFIGS)
+def test_count_params_and_active_match_the_reference(arch):
+    """Full width, exact: the total, the non-expert count and the record's
+    ``params_active`` (non-expert + expert x top_k / E)."""
+    jcfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
+    jp = jax.eval_shape(lambda: jbuild(jcfg).init(jax.random.key(0), dtype=jnp.bfloat16))
+    with torch.device("meta"):
+        tp = tbuild(tcfg)._draw(torch.Generator(), torch.bfloat16)
+    want, got = jcount_params(jp), dryrun.count_params(tp)
+    assert got == want
+
+    def active(total, nonexpert, cfg):
+        frac = (cfg.top_k / cfg.n_experts) if cfg.moe else 0.0
+        return nonexpert + (total - nonexpert) * frac
+
+    assert active(*got, tcfg) == active(*want, jcfg)
+
+
+def test_f8_caches_decode_as_the_reference():
+    arch, B, L, steps = "llama3.2-3b", 2, 16, 4
+    jcfg, tcfg = jconfigs.get_config(arch).reduced(), tconfigs.get_config(arch).reduced()
+    jm, tm = jbuild(jcfg), tbuild(tcfg)
+    jp = jm.init(jax.random.key(0))
+    tp = lm_params_from_arrays(tcfg, jax.tree.map(np.asarray, jp), device="cpu")
+    jcaches = jm.init_caches(B, L, kv_dtype=jnp.float8_e4m3fn)
+    tcaches = tm.init_caches(B, L, kv_dtype=torch.float8_e4m3fn, device="cpu")
+    assert tcaches[0]["sub0"]["k"].dtype == torch.float8_e4m3fn
+    tok = np.random.default_rng(0).integers(0, jcfg.vocab, (B, 1)).astype(np.int32)
+    jtoks, ttoks = [], []
+    jt, tt = tok, tok
+    for pos in range(steps):
+        jl, jcaches = jm.decode_step(jp, jnp.asarray(jt), jcaches, pos)
+        tl, tcaches = tm.decode_step(tp, torch.from_numpy(tt), tcaches, pos)
+        for key in ("k", "v"):
+            want = np.asarray(jcaches[0]["sub0"][key]).view(np.uint8)
+            got = tcaches[0]["sub0"][key].view(torch.uint8).numpy()
+            np.testing.assert_array_equal(got, want, err_msg=f"step {pos} {key}")
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=2e-2, atol=2e-3)
+        jt = np.asarray(jnp.argmax(jl, -1))[:, None].astype(np.int32)
+        tt = tl.argmax(-1)[:, None].to(torch.int32).numpy()
+        jtoks.append(jt)
+        ttoks.append(tt)
+    np.testing.assert_array_equal(np.concatenate(ttoks, 1), np.concatenate(jtoks, 1))
+
+
+class _Mesh:
+    """Duck-typed mesh for the rules alone (no process group)."""
+
+    def __init__(self, shape: dict):
+        self.shape = shape
+        self.axis_names = tuple(shape)
+
+
+def _local_bytes(leaf, spec, sizes) -> int:
+    """Rank 0's bytes of ``leaf`` under ``spec`` (divisible: the guard saw
+    to it)."""
+    entries = list(spec) + [None] * (leaf.ndim - len(spec))
+    dims = [n // math.prod(sizes[a] for a in
+                           (() if e is None else e if isinstance(e, tuple) else (e,)))
+            for n, e in zip(leaf.shape, entries)]
+    return math.prod(dims) * leaf.element_size()
+
+
+def _rank0_argument_bytes(arch: str, shape_name: str, sizes: dict) -> int:
+    cfg, shape = tconfigs.get_config(arch), tconfigs.SHAPES[shape_name]
+    model, mesh = tbuild(cfg), _Mesh(sizes)
+    with torch.device("meta"):
+        params = model._draw(torch.Generator(), torch.bfloat16)
+    caches = model.init_caches(shape.global_batch, shape.seq_len, torch.bfloat16,
+                               device="meta")
+    batch = input_specs(cfg, shape)
+    from repro_torch.train._tree import flatten_with_paths, leaves
+
+    total = sum(_local_bytes(p, tsh._divisible(tsh.param_pspec(path, p, cfg), p.shape, mesh),
+                             sizes) for path, p in flatten_with_paths(params))
+    for leaf in leaves(caches):
+        total += _local_bytes(leaf, tsh._cache_pspec(leaf, mesh, cfg), sizes)
+    for leaf in leaves(batch):
+        total += _local_bytes(leaf, tsh.batch_pspec(mesh, leaf.shape[0]), sizes)
+    return total
+
+
+def test_cli_runs_a_full_width_decode_cell_on_both_meshes(tmp_path):
+    """``python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape
+    decode_32k --mesh both``: exit 0 within 60 CPU seconds (about 20 here),
+    two ``ok`` records with
+    the reference's ``run_cell`` keys, FLOPs, collectives and a peak, and
+    rank 0's argument bytes as the specs give them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    before = resource.getrusage(resource.RUSAGE_CHILDREN)
+    run = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+                          "llama3.2-3b", "--shape", "decode_32k", "--mesh", "both", "--out",
+                          str(tmp_path)], env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    after = resource.getrusage(resource.RUSAGE_CHILDREN)
+    assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
+    assert "[dryrun] done, 0 failures" in run.stdout
+    # its CPU seconds, which the suite's other workers do not stretch as
+    # they stretch the wall clock
+    cpu_s = (after.ru_utime - before.ru_utime) + (after.ru_stime - before.ru_stime)
+    assert cpu_s < 60, cpu_s
+    for mesh_name, sizes in (("single_pod", {"data": 16, "model": 16}),
+                             ("multi_pod", {"pod": 2, "data": 16, "model": 16})):
+        rec = json.loads((tmp_path / f"llama3.2-3b__decode_32k__{mesh_name}.json").read_text())
+        assert rec["status"] == "ok", rec.get("trace")
+        assert REF_RUN_CELL_KEYS <= set(rec)
+        assert rec["n_devices"] == math.prod(sizes.values())
+        assert rec["step"] == "decode" and rec["tokens"] == 128
+        assert rec["jaxpr_cost"]["flops"] > 0 and rec["collectives"]["total"] > 0
+        mem = rec["memory"]
+        assert mem["argument_size_in_bytes"] == _rank0_argument_bytes(
+            "llama3.2-3b", "decode_32k", sizes)
+        assert mem["peak_memory_in_bytes"] >= (mem["argument_size_in_bytes"]
+                                               + mem["output_size_in_bytes"])
+        assert mem["temp_size_in_bytes"] > 0
+
+
+_WRONG_WORLD = r"""
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.launch.dryrun import run_cell
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+try:
+    run_cell("llama3.2-3b", "decode_32k", "single_pod", "")
+except ValueError as e:
+    assert "needs a world of 256" in str(e), e
+    print("raised")
+"""
+
+
+def test_a_world_of_another_size_raises():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, "-c", _WRONG_WORLD], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0 and "raised" in run.stdout, run.stderr[-3000:]

@@ -14,7 +14,9 @@ profiles' busy and idle time, its ``train``, ``train_2l`` and
 ``train_reduced`` phases, its ``families`` lines (one per model: times,
 bounds, holds, the MoE and MLA records, the decode profile's busy and
 idle time), its ``mesh_lm`` phase (its holds, walls and a sharded decode
-step's profile), and its ``routing``, ``sharded`` and ``routed`` phases
+step's profile), its ``dryrun`` phase (each CLI cell's status, seconds and
+counts; the estimator's cells, the f8 agreement, the PDX rank's rows),
+and its ``routing``, ``sharded`` and ``routed`` phases
 and the ``fused_scan_wall`` medians, in each run given (parent runs too).
 """
 from __future__ import annotations
@@ -136,6 +138,15 @@ def main() -> None:
                 print("    decode_profile", {f: prof[f] for f in (
                     "wall_ms", "device_busy_ms", "device_idle_share")},
                     [(t["kernel"][:40], round(t["ms"], 3)) for t in prof["top"][:4]])
+            elif line.get("phase") == "dryrun_cell":
+                print(path, "dryrun_cell", line["cell"], line["rc"], line["status"],
+                      line["meta_run_s"], (line["jaxpr_cost"] or {}).get("flops"),
+                      (line["collectives"] or {}).get("count"),
+                      (line["memory"] or {}).get("peak_memory_in_bytes"))
+            elif line.get("phase") == "dryrun":
+                for row in line["estimator"] + line["pdx_rank"]:
+                    print(path, "dryrun", row)
+                print(path, "dryrun f8_greedy", line["f8_greedy"], "seconds", line["seconds"])
             elif line.get("phase", "").endswith("_done") and "seconds" in line:
                 print(path, line["phase"], line["seconds"])
 
