@@ -280,13 +280,21 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      full-width unit in train mode over 4 microbatches, equals the unit
      applied to each, with 4 ppermutes and 1 psum; ``restore(shardings=)``
      of the trained 2-layer params equals the saved tensors bit for bit on
-     the card.  Recorded: whether the sharded step is bit for bit the
-     plain one, both step walls, decode ms a token beside the plain
-     path's and phase 8's, a sharded decode step's device profile.
+     the card.  The expert-parallel MoE (``hints.per_experts``):
+     deepseek-moe-16b at full width on the same mesh, its experts split
+     over "model"; its 2-layer step (f32) held as llama's, its
+     weight-stationary decode at full depth in bf16 (28 layers of f32
+     params and their DTensor copies do not fit together) giving the
+     plain bf16 decode's tokens, every MoE layer through the
+     expert-parallel path.  Recorded: whether the sharded step is bit for
+     bit the plain one, both step walls, decode ms a token beside the
+     plain path's (llama's also beside phase 8's), a sharded llama decode
+     step's device profile.
   13. dryrun (after 12) — the port's dry-run (``launch/{specs,analysis,
      dryrun,dryrun_pdx}.py``).  (a) Its CLIs in subprocesses under the
      card's torch, on a fake process group of 256 ranks (meta tensors,
-     nothing on the card): llama3.2-3b at ``decode_32k`` and DRYRUN_CELLS,
+     nothing on the card): DRYRUN_CELLS (llama3.2-3b at ``decode_32k`` and
+     ``train_4k``, deepseek-v3-671b at ``decode_32k``),
      and ``dryrun_pdx`` at ``block_matmul_int8`` and ``dim``, held: every
      record ``ok``, FLOPs and a peak above 0, ``dim``'s psums 768.  (b) The
      estimator against the card: llama3.2-3b at full width in bf16, a
@@ -468,11 +476,16 @@ FAMILY_LAYERS = {"deepseek-v3-671b": 4, "jamba-v0.1-52b": 8}
 FAMILY_HEADROOM_BYTES = 2e9
 FAMILY_TEACHER = ("internvl2-1b", "mamba2-370m", "whisper-small")
 MOE_RTOL, MOE_ATOL = 1e-4, 1e-5
+# phase 12 (mesh_lm): the expert-parallel MoE at full width; its decode in
+# bf16 at full depth, since 28 layers of f32 params (65.6 GB) and their
+# DTensor copies do not fit on the card together
+MESH_MOE_ARCH, MESH_MOE_DTYPE = "deepseek-moe-16b", "bfloat16"
 # phase 13 (dryrun): the CLIs' cells on a fake group of 256 ranks (each
 # timed at under about 30 s of meta run on a CPU), the estimator's LM cells
 # (batch, sequence or cache length) held to the card's allocator at
 # DRYRUN_MEM_RTOL, and the f8 decode's greedy steps
-DRYRUN_CELLS = (("llama3.2-3b", "decode_32k"), ("llama3.2-3b", "train_4k"))
+DRYRUN_CELLS = (("llama3.2-3b", "decode_32k"), ("llama3.2-3b", "train_4k"),
+                ("deepseek-v3-671b", "decode_32k"))
 DRYRUN_PDX = ("block_matmul_int8", "dim")
 DRYRUN_PDX_PSUMS = 768
 DRYRUN_CLI_TIMEOUT_S = 300
@@ -2065,14 +2078,20 @@ def open_loop(torch, srv, Q, specs, rate: float, seed: int, profile: bool = Fals
     failure raises).  With ``profile``, ``torch.profiler`` traces the card
     over the whole run; it starts and stops only while the server's
     threads are idle (before the first submission, after the last batch),
-    never while another thread launches work.  -> per query: result,
-    submit and done time; QPS, p50, p99 and the profile."""
+    never while another thread launches work.  Where the server's
+    admission queue is full (``ServerOverloaded``, its backpressure), the
+    query is offered again after a flush interval and the refusal counted:
+    the loop then offers what the server drains.  -> per query: result,
+    submit and done time; QPS, p50, p99, the refusals and the profile."""
     from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from repro_torch.serve import ServerOverloaded
 
     n = len(Q) if until is None else 1 << 30
     gaps = np.random.default_rng(seed).lognormal(
         mean=np.log(1.0 / rate) - 0.5, sigma=1.0, size=min(n, 1 << 20))
     futs, t_sub, qi, done = [], [], [], {}
+    refused = 0
     prof = prof_out = None
     if profile:
         torch.cuda.synchronize()
@@ -2086,8 +2105,14 @@ def open_loop(torch, srv, Q, specs, rate: float, seed: int, profile: bool = Fals
         delay = next_at - time.perf_counter()
         if delay > 0:
             time.sleep(delay)
-        t_sub.append(time.perf_counter())
-        f = srv.submit(Q[i % len(Q)], specs[i % len(specs)])
+        t = time.perf_counter()
+        try:
+            f = srv.submit(Q[i % len(Q)], specs[i % len(specs)])
+        except ServerOverloaded:
+            refused += 1
+            next_at = time.perf_counter() + SERVE_FLUSH_S
+            continue
+        t_sub.append(t)
         f.add_done_callback(lambda _f, j=i: done.__setitem__(j, time.perf_counter()))
         futs.append(f)
         qi.append(i % len(Q))
@@ -2110,7 +2135,7 @@ def open_loop(torch, srv, Q, specs, rate: float, seed: int, profile: bool = Fals
             "futures": futs, "qps": len(futs) / (t_end - t_start),
             "p50_ms": float(np.percentile(lat, 50)) * 1e3,
             "p99_ms": float(np.percentile(lat, 99)) * 1e3,
-            "wall_s": t_end - t_start, "profile": prof_out}
+            "wall_s": t_end - t_start, "refused": refused, "profile": prof_out}
 
 
 def batch_record(batches, futures=None) -> dict:
@@ -2273,7 +2298,7 @@ def serve_phase(torch, eng, Xd, Qmain, seed: int, counters: dict) -> tuple[list,
             g = gt[run["query"]]
             out.update(
                 qps=run["qps"], p50_ms=run["p50_ms"], p99_ms=run["p99_ms"],
-                qps_over_serial=run["qps"] / serial[dt],
+                refused=run["refused"], qps_over_serial=run["qps"] / serial[dt],
                 p99_over_p50=run["p99_ms"] / run["p50_ms"],
                 recall_at_10=served_recall(
                     np.concatenate([alone, run["ids"]]), np.concatenate([gt[:N_SINGLE], g]),
@@ -2315,7 +2340,7 @@ def serve_phase(torch, eng, Xd, Qmain, seed: int, counters: dict) -> tuple[list,
         g = gt[run["query"]]
         cas = {"ladder": list(LADDERS["A"]), "warmup_s": t_warm, "serial_qps": c_serial,
                "queries": SERVE_CASCADE_OPEN, "qps": run["qps"], "p50_ms": run["p50_ms"],
-               "p99_ms": run["p99_ms"],
+               "p99_ms": run["p99_ms"], "refused": run["refused"],
                "recall_at_10": recall(run["ids"], g),
                "recall_at_10_by_bucket": served_recall(run["ids"], g, buckets),
                "single_recall_at_10": recall(one[0][None], gt[:1]),
@@ -2405,6 +2430,7 @@ def serve_phase(torch, eng, Xd, Qmain, seed: int, counters: dict) -> tuple[list,
         tline["k2_launches"] = counters["k2"].launches
         launches["K2 batched_distance_quant [int8, tiered pool]"] = counters["k2"].launches
         tline.update(qps=run["qps"], p50_ms=run["p50_ms"], p99_ms=run["p99_ms"],
+                     refused=run["refused"],
                      qps_over_serial=run["qps"] / t_serial,
                      setups_after_warmup=srv.jit_compiles_since_warmup(),
                      **batch_record(srv.records()))
@@ -2556,7 +2582,7 @@ def serve_churn_phase(torch, eng, Q, Qd, Xall, gt, dead, seed: int, counters: di
     lat = run["t_done"] - run["t_submit"]
     line.update(
         queries=len(run["futures"]), qps=run["qps"], p50_ms=run["p50_ms"],
-        p99_ms=run["p99_ms"], swaps_adopted=swaps, swaps_discarded=discards,
+        p99_ms=run["p99_ms"], refused=run["refused"], swaps_adopted=swaps, swaps_discarded=discards,
         rows_replayed=replayed, clone_s=[b - a for a, b in clones],
         repack_s=[b - a for a, b in repacks],
         tiles_version_after=store.tiles_version,
@@ -3865,6 +3891,152 @@ def _greedy(torch, model, params, tokens, cache_len: int, steps: int, reshard=No
     return torch.stack(out, 1).cpu().numpy(), prefill_ms, step_ms
 
 
+def _mesh_train(torch, dev, mesh, cfg2, seed: int):
+    """The FSDP x TP train step of ``cfg2`` (f32, AdamW at TRAIN_LR,
+    remat; DTensor params, moments and batch, the hints active) against
+    the plain step from the same params -> (the record, the plain step's
+    params, their shardings)."""
+    from repro_torch.data.pipeline import TokenStream, to_device
+    from repro_torch.dist import hints
+    from repro_torch.dist.sharding import (
+        NamedSharding, PartitionSpec, batch_shardings, device_put, param_shardings)
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import trainer
+    from repro_torch.train._tree import leaves
+    from repro_torch.train.optimizer import OptConfig, global_norm, opt_init
+
+    model2 = build_model(cfg2)
+    oc = OptConfig(lr=TRAIN_LR, warmup_steps=0)
+    step = trainer.make_train_step(model2, trainer.TrainConfig(opt=oc))
+    batch = to_device(dev)(TokenStream(cfg2, TRAIN_SEQ, TRAIN_BATCH, seed).batch_at(0))
+    plain = model2.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    ps = param_shardings(plain, mesh, cfg2)
+    os_ = {"mu": ps, "nu": ps, "step": NamedSharding(mesh, PartitionSpec())}
+    sb = device_put(batch, batch_shardings(batch, mesh))
+    # one step of each on copies first: the walls below are warm
+    with hints.activation_sharding(mesh):
+        step(device_put(plain, ps), device_put(opt_init(plain, oc), os_), sb)
+    step(_clone(torch, plain), opt_init(plain, oc), batch)
+    sp, so = device_put(plain, ps), device_put(opt_init(plain, oc), os_)
+    with hints.activation_sharding(mesh):
+        (sp, so, ms_), sharded_ms = synced(torch, lambda: step(sp, so, sb))
+    (plain, _, mp), plain_ms = synced(torch, lambda: step(plain, opt_init(plain, oc), batch))
+    on_layout = all(tuple(x.placements) == s.placements
+                    for tree in (sp, so["mu"], so["nu"])
+                    for x, s in zip(leaves(tree), leaves(ps)))
+    full = [x.full_tensor() for x in leaves(sp)]
+    ls, lp = float(ms_["loss"].full_tensor()), float(mp["loss"])
+    diff = float(global_norm([a - b for a, b in zip(full, leaves(plain))]))
+    train = {"layers": cfg2.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+             "loss_sharded": ls, "loss_plain": lp, "loss_rel": abs(ls - lp) / abs(lp),
+             "grad_norm_sharded": float(ms_["grad_norm"].full_tensor()),
+             "grad_norm_plain": float(mp["grad_norm"]),
+             "params_diff_global_norm": diff,
+             "bitwise": ls == lp and all(torch.equal(a, b)
+                                         for a, b in zip(full, leaves(plain))),
+             "on_param_shardings": on_layout,
+             "step_ms_sharded": sharded_ms, "step_ms_plain": plain_ms}
+    return train, plain, ps
+
+
+def _mesh_serve(torch, dev, mesh, cfg, seed: int, dtype, profile: bool = False) -> dict:
+    """``cfg`` drawn at ``dtype`` serves LM_REQUESTS prompts of LM_PROMPT
+    tokens for LM_NEW greedy steps, plain and then in the weight-stationary
+    layout (``strip_axes(param_shardings(...), data_axes(mesh))``, the
+    prefill's caches on ``cache_shardings``) -> the record: the tokens'
+    equality, prefill and decode ms of both, with ``profile`` a sharded
+    decode step's device profile.  The plain params are freed once their
+    DTensor copies exist."""
+    from repro_torch.dist import hints
+    from repro_torch.dist.sharding import (
+        batch_shardings, cache_shardings, data_axes, device_put, param_shardings, strip_axes)
+    from repro_torch.models.lm import build_model
+    from repro_torch.train._tree import leaves
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), dtype, device=dev)
+    cache_len = LM_PROMPT * 3 + LM_NEW + 8
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)).to(dev)
+    want, plain_prefill, plain_steps = _greedy(torch, model, params, tokens, cache_len,
+                                               LM_NEW)
+    stationary = strip_axes(param_shardings(params, mesh, cfg), data_axes(mesh))
+    wp = device_put(params, stationary)
+    del params
+    torch.cuda.empty_cache()
+    with hints.activation_sharding(mesh):
+        st = device_put({"tokens": tokens}, batch_shardings({"tokens": tokens}, mesh))
+        got, prefill_ms, steps = _greedy(
+            torch, model, wp, st["tokens"], cache_len, LM_NEW,
+            reshard=lambda c: device_put(c, cache_shardings(c, mesh, cfg)))
+        prof = None
+        if profile:
+            # where a sharded decode step's time goes: one step (prefill and
+            # the first token again) under torch.profiler
+            with torch.no_grad():
+                logits, caches = model.prefill(wp, st, cache_len)
+                caches = device_put(caches, cache_shardings(caches, mesh, cfg))
+                first = logits.full_tensor().argmax(-1)[:, None]
+                prof = device_profile(torch, lambda: model.decode_step(
+                    wp, first, caches, LM_PROMPT))
+                del logits, caches
+    serve = {"layers": cfg.n_layers, "dtype": str(dtype).split(".")[-1],
+             "requests": LM_REQUESTS, "prompt_tokens": LM_PROMPT,
+             "new_tokens": LM_NEW, "cache_len": cache_len,
+             "param_bytes": sum(t.numel() * t.element_size() for t in leaves(wp)),
+             "tokens_equal": bool(np.array_equal(got, want)),
+             "prefill_ms": prefill_ms, "prefill_ms_plain": plain_prefill,
+             "decode_ms_per_token_median": statistics.median(steps),
+             "decode_ms_per_token_median_plain": statistics.median(plain_steps),
+             "first_row": got[0].tolist()}
+    if profile:
+        serve["decode_profile"] = prof
+    del wp, st, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return serve
+
+
+def _mesh_moe(torch, dev, mesh, seed: int) -> dict:
+    """MESH_MOE_ARCH at full width on ``mesh``: its FSDP x TP train step at
+    2 layers (f32) against the plain step, and its weight-stationary decode
+    at full depth in MESH_MOE_DTYPE against the plain decode, each MoE
+    layer through the expert-parallel path (``hints.per_experts``, recorded:
+    the mesh dims that split the experts, each rank's experts and the
+    first of them)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import hints
+
+    cfg = get_config(MESH_MOE_ARCH)
+    calls = []
+
+    def record(real, fn, p, x, experts, **kw):
+        dims = list(hints.expert_dims(p[experts[0]]))
+
+        def inner(pl, xl, first, a2a):
+            calls.append((dims, int(pl[experts[0]].shape[0]), first))
+            return fn(pl, xl, first, a2a)
+        return real(inner, p, x, experts, **kw)
+
+    with _Recorded(hints, "per_experts", record):
+        train, plain, _ = _mesh_train(torch, dev, mesh, dataclasses.replace(cfg, n_layers=2),
+                                      seed)
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        n_train = len(calls)
+        serve = _mesh_serve(torch, dev, mesh, cfg, seed, getattr(torch, MESH_MOE_DTYPE))
+    ep = {"train_calls": n_train, "serve_calls": len(calls) - n_train,
+          "ep_dims": sorted({d for dims, _, _ in calls for d in dims}),
+          "experts_local": sorted({n for _, n, _ in calls}),
+          "first": sorted({f for _, _, f in calls})}
+    return {"arch": cfg.name, "experts": cfg.n_experts, "train": train, "serve": serve,
+            "expert_parallel": ep}
+
+
 def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) -> dict:
     """Phase 12 (``mesh_lm``): the LM side's mesh layer on a (1, 1)
     ("data", "model") mesh in an NCCL world of one (its own, destroyed at
@@ -3881,27 +4053,27 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
     of one, one full-width unit in train mode over 4 microbatches, equals
     the unit applied to each (rtol 1e-6) with 4 ppermutes and 1 psum;
     ``restore(shardings=)`` of the trained 2-layer params equals the saved
-    tensors bit for bit on the card; no kernel of the port launched.
-    Recorded: bit-for-bit equality of the sharded and plain steps, both
-    step walls, decode ms a token beside the plain path's and phase lm's,
-    a sharded decode step's device profile."""
+    tensors bit for bit on the card.  The expert-parallel MoE
+    (``_mesh_moe``): MESH_MOE_ARCH at full width, its 2-layer step held as
+    llama's, its weight-stationary decode at full depth in MESH_MOE_DTYPE
+    giving the plain decode's tokens, every MoE layer through
+    ``hints.per_experts`` with its experts split over "model".  No kernel
+    of the port launched.  Recorded: bit-for-bit equality of the sharded
+    and plain steps, both step walls, decode ms a token beside the plain
+    path's (and llama's beside phase lm's), a sharded llama decode step's
+    device profile."""
     import dataclasses
     import tempfile
 
     import torch.distributed as tdist
 
     from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import TokenStream, to_device
-    from repro_torch.dist import hints, make_mesh
+    from repro_torch.dist import make_mesh
     from repro_torch.dist.pipeline import pipeline_apply
-    from repro_torch.dist.sharding import (
-        NamedSharding, PartitionSpec, batch_shardings, cache_shardings, data_axes,
-        device_put, param_shardings, strip_axes)
     from repro_torch.models.lm import apply_unit, build_model
     from repro_torch.obs.meters import collective_counts
-    from repro_torch.train import checkpoint, trainer
+    from repro_torch.train import checkpoint
     from repro_torch.train._tree import leaves, tree_map
-    from repro_torch.train.optimizer import OptConfig, global_norm, opt_init
 
     launched = {k: c.launches for k, c in counters.items()}
     t0 = time.perf_counter()
@@ -3913,39 +4085,8 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
         cfg = get_config(LM_ARCH)
 
         # ---- the FSDP x TP step at 2 layers against the plain step
-        cfg2 = dataclasses.replace(cfg, n_layers=2)
-        model2 = build_model(cfg2)
-        oc = OptConfig(lr=TRAIN_LR, warmup_steps=0)
-        step = trainer.make_train_step(model2, trainer.TrainConfig(opt=oc))
-        batch = to_device(dev)(TokenStream(cfg2, TRAIN_SEQ, TRAIN_BATCH, seed).batch_at(0))
-        plain = model2.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
-        ps = param_shardings(plain, mesh, cfg2)
-        os_ = {"mu": ps, "nu": ps, "step": NamedSharding(mesh, PartitionSpec())}
-        sb = device_put(batch, batch_shardings(batch, mesh))
-        # one step of each on copies first: the walls below are warm
-        with hints.activation_sharding(mesh):
-            step(device_put(plain, ps), device_put(opt_init(plain, oc), os_), sb)
-        step(_clone(torch, plain), opt_init(plain, oc), batch)
-        sp, so = device_put(plain, ps), device_put(opt_init(plain, oc), os_)
-        with hints.activation_sharding(mesh):
-            (sp, so, ms_), sharded_ms = synced(torch, lambda: step(sp, so, sb))
-        (plain, _, mp), plain_ms = synced(torch, lambda: step(plain, opt_init(plain, oc), batch))
-        on_layout = all(tuple(x.placements) == s.placements
-                        for tree in (sp, so["mu"], so["nu"])
-                        for x, s in zip(leaves(tree), leaves(ps)))
-        full = [x.full_tensor() for x in leaves(sp)]
-        ls, lp = float(ms_["loss"].full_tensor()), float(mp["loss"])
-        diff = float(global_norm([a - b for a, b in zip(full, leaves(plain))]))
-        train = {"layers": 2, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
-                 "loss_sharded": ls, "loss_plain": lp, "loss_rel": abs(ls - lp) / abs(lp),
-                 "grad_norm_sharded": float(ms_["grad_norm"].full_tensor()),
-                 "grad_norm_plain": float(mp["grad_norm"]),
-                 "params_diff_global_norm": diff,
-                 "bitwise": ls == lp and all(torch.equal(a, b)
-                                             for a, b in zip(full, leaves(plain))),
-                 "on_param_shardings": on_layout,
-                 "step_ms_sharded": sharded_ms, "step_ms_plain": plain_ms}
-        del sp, so, ms_, mp, full, sb
+        train, plain, ps = _mesh_train(torch, dev, mesh, dataclasses.replace(cfg, n_layers=2),
+                                       seed)
 
         # ---- restore(shardings=) of the trained 2-layer params, on the card
         with tempfile.TemporaryDirectory() as tmp:
@@ -3960,7 +4101,7 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
                                        for x, s in zip(leaves(got), leaves(ps))),
                    "bitwise": all(torch.equal(x.full_tensor(), t)
                                   for x, t in zip(leaves(got), leaves(plain)))}
-        del got, plain, ps, batch, model2
+        del got, plain, ps
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3990,49 +4131,17 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
         torch.cuda.empty_cache()
 
         # ---- weight-stationary serving at full depth
-        model = build_model(cfg)
-        params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
-        cache_len = LM_PROMPT * 3 + LM_NEW + 8
-        rng = np.random.default_rng(seed)
-        tokens = torch.from_numpy(
-            rng.integers(0, cfg.vocab, (LM_REQUESTS, LM_PROMPT)).astype(np.int32)).to(dev)
-        want, plain_prefill, plain_steps = _greedy(torch, model, params, tokens, cache_len,
-                                                   LM_NEW)
-        stationary = strip_axes(param_shardings(params, mesh, cfg), data_axes(mesh))
-        wp = device_put(params, stationary)
-        del params
-        torch.cuda.empty_cache()
-        with hints.activation_sharding(mesh):
-            st = device_put({"tokens": tokens}, batch_shardings({"tokens": tokens}, mesh))
-            got, prefill_ms, steps = _greedy(
-                torch, model, wp, st["tokens"], cache_len, LM_NEW,
-                reshard=lambda c: device_put(c, cache_shardings(c, mesh, cfg)))
-            # where a sharded decode step's time goes: one step (prefill and
-            # the first token again) under torch.profiler
-            with torch.no_grad():
-                logits, caches = model.prefill(wp, st, cache_len)
-                caches = device_put(caches, cache_shardings(caches, mesh, cfg))
-                first = logits.full_tensor().argmax(-1)[:, None]
-                prof = device_profile(torch, lambda: model.decode_step(
-                    wp, first, caches, LM_PROMPT))
-                del logits, caches
-        serve = {"layers": cfg.n_layers, "requests": LM_REQUESTS, "prompt_tokens": LM_PROMPT,
-                 "new_tokens": LM_NEW, "cache_len": cache_len,
-                 "param_bytes": sum(t.numel() * t.element_size() for t in leaves(wp)),
-                 "tokens_equal": bool(np.array_equal(got, want)),
-                 "prefill_ms": prefill_ms, "prefill_ms_plain": plain_prefill,
-                 "decode_ms_per_token_median": statistics.median(steps),
-                 "decode_ms_per_token_median_plain": statistics.median(plain_steps),
-                 "decode_ms_per_token_lm_phase": lm_decode_ms,
-                 "decode_profile": prof, "first_row": got[0].tolist()}
-        del wp, st, model
-        gc.collect()
-        torch.cuda.empty_cache()
+        serve = _mesh_serve(torch, dev, mesh, cfg, seed, torch.float32, profile=True)
+        serve["decode_ms_per_token_lm_phase"] = lm_decode_ms
+
+        # ---- the expert-parallel MoE: deepseek-moe-16b at full width
+        moe = _mesh_moe(torch, dev, mesh, seed)
     finally:
         tdist.destroy_process_group()
     launched = {k: c.launches - launched[k] for k, c in counters.items()}
     line = {"phase": "mesh_lm", "arch": cfg.name, "dtype": "f32", **world, "train": train,
-            "restore": restore, "pipeline": pipe, "serve": serve, "kernel_launches": launched}
+            "restore": restore, "pipeline": pipe, "serve": serve, "moe": moe,
+            "kernel_launches": launched}
     emit(line)
     assert train["loss_rel"] <= CE_RTOL, train
     assert train["params_diff_global_norm"] < ACCUM_PARAM_BAR, train
@@ -4040,6 +4149,13 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
     assert restore["bitwise"] and restore["on_shardings"], restore
     assert pipe["ok"] and pipe["counts"] == {"ppermute": 4, "psum": 1}, pipe
     assert serve["tokens_equal"], "the weight-stationary decode's tokens differ"
+    mt, ms, ep = moe["train"], moe["serve"], moe["expert_parallel"]
+    assert mt["loss_rel"] <= CE_RTOL, mt
+    assert mt["params_diff_global_norm"] < ACCUM_PARAM_BAR, mt
+    assert mt["on_param_shardings"], "an MoE param or moment left its sharding"
+    assert ms["tokens_equal"], "the MoE's weight-stationary decode's tokens differ"
+    assert ep["train_calls"] > 0 and ep["serve_calls"] > 0 and ep["ep_dims"] == [1], ep
+    assert ep["experts_local"] == [moe["experts"]] and ep["first"] == [0], ep
     assert not any(launched.values()), f"mesh_lm launched a kernel of the port: {launched}"
     return line
 

@@ -13,8 +13,10 @@ over model, residual stream replicated over model.
 GSPMD also reshards by itself wherever a view needs it; DTensor does not,
 so port-only anchors sit where the model handles heads: ``split_heads``
 (the (B, S, H * hd) -> (B, S, H, hd) view of q, k and v) and
-``per_head`` (attention run on each rank's own rows and heads); and
-``rows`` looks the token embedding up in the table gathered whole.
+``per_head`` (attention run on each rank's own rows and heads); ``rows``
+looks the token embedding up in the table gathered whole; ``per_rows``
+runs a block on each rank's own rows with its weights gathered whole, and
+``per_experts`` the MoE on them with each rank's own experts.
 Inside the context plain tensors that the model builds (positions, RoPE
 tables, masks) count as replicated (``implicit_replication``).
 """
@@ -153,7 +155,9 @@ def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def per_rows(fn, p: dict, x: torch.Tensor, *args, whole: bool = False, **kwargs):
     """``fn(p, x, *args, **kwargs)`` run by every rank on its own batch
     rows of the DTensor ``x`` as plain tensors, with the params ``p``
-    gathered whole (the FSDP unshard, as ``rows`` gathers the embedding);
+    gathered whole (the FSDP unshard, as ``rows`` gathers the embedding,
+    and over any other dim that splits them: the Mamba2 mixer's weights,
+    experts that no rule splits; ``per_experts`` keeps split experts);
     ``whole`` makes every rank run the whole batch.  A DTensor in ``args``
     (a decode cache, split over the batch) goes in as its local tensor, so
     that ``fn``'s in-place writes land in its shard, and the rows follow
@@ -189,6 +193,116 @@ def per_rows(fn, p: dict, x: torch.Tensor, *args, whole: bool = False, **kwargs)
              **kwargs)
     return tree_map(lambda t: DTensor.from_local(t, mesh, rows)
                     if isinstance(t, torch.Tensor) else t, out)
+
+
+def expert_dims(w) -> tuple[int, ...]:
+    """The mesh dims that split dim 0 of the DTensor ``w`` (an expert
+    tensor's expert axis); none for a plain tensor."""
+    if not _dtensor(w):
+        return ()
+    return tuple(i for i, q in enumerate(w.placements) if q.is_shard(0))
+
+
+class _AllToAll(torch.autograd.Function):
+    """``dist.all_to_all`` over the ranks of ``axis``, differentiable: the
+    gradient goes back by the same exchange (row s of the result came from
+    rank s, so row s of its gradient returns there)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        from . import all_to_all
+
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_to_all(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        from . import all_to_all
+
+        return all_to_all(g, ctx.mesh, ctx.axis), None, None
+
+
+def per_experts(fn, p: dict, x: torch.Tensor, experts: tuple[str, ...], *,
+                whole: bool = False, exchange: bool = False):
+    """``fn(p, x, first, a2a)``, a mixture of experts, run by every rank on
+    its own batch rows of the DTensor ``x`` as plain tensors, with the
+    expert tensors ``p[name]`` (``name`` in ``experts``, the experts on dim
+    0) kept at the rank's own block of experts, those numbered ``first``
+    up, and the other params gathered whole.  An expert tensor is gathered
+    only over the dims that split its other axes (the FSDP unshard of d or
+    f), never over the expert dims; in the weight-stationary layout
+    nothing is gathered.  Two layouts of the rows:
+
+    * ``exchange`` (the rows split over the one expert dim too): each rank
+      keeps its own rows; ``a2a`` is the all-to-all over that dim (dim 0,
+      row j to rank j, differentiable), through which ``fn`` sends its
+      tokens to the experts' ranks and takes their outputs back, and
+      ``fn`` gives its rows' whole result;
+    * otherwise every rank of an expert group runs the same rows (gathered
+      over the expert dims where ``x`` splits over them), ``a2a`` is
+      ``None``, ``fn`` gives its block's share of the result, and the
+      shares are summed over the expert dims (an all-reduce, as GSPMD
+      combines the reference's expert-parallel layer; a reduce-scatter
+      back to ``x``'s split).  ``whole`` makes every rank run the whole
+      batch.
+
+    Gradients: an expert tensor's stays on its rank's block and is a
+    partial sum over the other dims that split the rows; the other params'
+    are partial sums over every dim that splits the rows, and over the
+    expert dims where each rank saw only its block's share (``x``'s too).
+    Where the experts split over no dim, this is ``per_rows``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from ..train._tree import tree_map
+
+    ep = expert_dims(p[experts[0]])
+    if not ep:
+        return per_rows(lambda p_, x_: fn(p_, x_, 0, None), p, x, whole=whole)
+    mesh = x.device_mesh
+    dims = range(mesh.ndim)
+    if exchange:
+        if len(ep) != 1 or not x.placements[ep[0]].is_shard(0) or whole:
+            raise ValueError(f"per_experts: an exchange needs the rows split over the one "
+                             f"expert dim, got experts over {ep}, x on {tuple(x.placements)}")
+        rows = tuple(q if q.is_shard(0) else Replicate() for q in x.placements)
+    else:
+        rows = tuple(q if q.is_shard(0) and not whole and i not in ep else Replicate()
+                     for i, q in enumerate(x.placements))
+    split = tuple(i for i in dims if rows[i].is_shard(0))
+    summed = () if exchange else ep  # the dims over which the blocks' shares sum
+    n_blocks = math.prod(mesh.size(i) for i in ep)
+    E = p[experts[0]].shape[0]
+    if E % n_blocks:
+        raise ValueError(f"per_experts: {E} experts do not split evenly over {n_blocks} ranks")
+    coord, block = mesh.get_coordinate(), 0
+    for i in ep:  # DTensor's order of a dim split over several mesh dims
+        block = block * mesh.size(i) + coord[i]
+    own = tuple(Shard(0) if i in ep else Replicate() for i in dims)
+
+    def param(name, v):
+        if not _dtensor(v):
+            return v
+        if name in experts:
+            if expert_dims(v) != ep:
+                raise ValueError(f"per_experts: {name} splits its experts over mesh dims "
+                                 f"{expert_dims(v)}, {experts[0]} over {ep}")
+            grad = tuple(Shard(0) if i in ep else Partial() if i in split else Replicate()
+                         for i in dims)
+            return _to(v, mesh, own).to_local(grad_placements=grad)
+        grad = tuple(Partial() if i in split or i in summed else Replicate() for i in dims)
+        return _to(v, mesh, (Replicate(),) * mesh.ndim).to_local(grad_placements=grad)
+
+    local = {k: tree_map(lambda t, k=k: param(k, t), v) for k, v in p.items()}
+    share = tuple(Partial() if i in summed else rows[i] for i in dims)
+    xl = _to(x, mesh, rows).to_local(grad_placements=share)
+    if exchange:
+        axis = mesh.mesh_dim_names[ep[0]]
+        y = fn(local, xl, 0, lambda t: _AllToAll.apply(t, mesh, axis))
+        return DTensor.from_local(y, mesh, rows)
+    y = fn(local, xl, block * (E // n_blocks), None)
+    back = tuple(Shard(0) if i in ep and x.placements[i].is_shard(0) and not whole
+                 else rows[i] for i in dims)
+    return DTensor.from_local(y, mesh, share).redistribute(mesh, back)
 
 
 def on_mesh(x) -> bool:

@@ -18,6 +18,14 @@ the stable sort by expert and each pair's place in its expert's queue.  The
 combine sums a token's k weighted outputs in ascending expert order, the
 order in which the reference's scatter-add meets them; it is a gather and
 a sum, so it gives the same bits on every run (no atomics).
+
+On a mesh (``moe_ffn._on_mesh``) the layer is expert-parallel, as the
+reference's GSPMD partitions it: each rank routes its own batch rows and
+runs the GEMMs of its own block of E/m experts (the expert axis splits
+over "model") on the pairs routed to them; the blocks' shares of the
+output are summed over "model" with one all-reduce, or, where the rows
+split over "model" too, the buffer goes to the experts' ranks and back by
+an all-to-all each way.
 """
 from __future__ import annotations
 
@@ -141,51 +149,89 @@ class moe_ffn:
     @staticmethod
     def _on_mesh(p, x, cfg):
         """The routed experts of a DTensor ``x`` under an active hint
-        context (``hints.per_rows``): each rank routes its own batch rows,
-        the router and the experts gathered whole.  A group never spans two
-        ranks' rows once the ranks split the batch into whole groups, so
-        every token meets the drops of the unsharded computation; where
-        they do not (fewer groups than ranks), every rank routes the whole
+        context (``hints.per_experts``).  Each rank routes its own batch
+        rows with the router gathered whole.  Where the expert tensors
+        split their expert axis over a mesh dim (``param_shardings`` puts
+        it on "model"), each rank runs only its own E/m experts, gathered
+        over the dims that split d or f and never over the expert dim:
+        where the rows split over that dim too, each rank's dispatch
+        buffer goes to the experts' ranks and back by an all-to-all each
+        way; where they do not, every rank of the expert group routes the
+        same rows and the blocks' shares are summed over the expert dim.
+        Where no rule splits the experts, they are gathered whole
+        (``hints.per_rows``).  A group never spans two ranks' rows once
+        the ranks split the batch into whole groups, so every token meets
+        the drops of the unsharded computation; where they do not (fewer
+        groups than ranks), the rows are gathered over the expert dim
+        first, and where that is not enough every rank routes the whole
         batch.  DTensor has no rules for the dispatch's sort and search."""
         import math
 
         B, S, _ = x.shape
         G = pick_group_count(B * S, cfg.n_experts, cfg.top_k)
-        n = math.prod(x.device_mesh.size(i) for i, q in enumerate(x.placements)
-                      if q.is_shard(0))
+        mesh, ep = x.device_mesh, hints.expert_dims(p["w_gate"])
+        split = [i for i, q in enumerate(x.placements) if q.is_shard(0)]
+        n = math.prod(mesh.size(i) for i in split)
+        exchange = len(ep) == 1 and ep[0] in split and not (G % n or B % n)
+        if not exchange:
+            n = math.prod(mesh.size(i) for i in split if i not in ep)
         whole = bool(G % n or B % n)
+        groups = G if whole else G // n
         routed = {k: v for k, v in p.items() if k != "shared"}
-        return hints.per_rows(
-            lambda p_, x_: moe_ffn.routed(p_, x_, cfg, groups=G if whole else G // n),
-            routed, x, whole=whole)
+        return hints.per_experts(
+            lambda p_, x_, first, a2a: moe_ffn.routed(p_, x_, cfg, groups, first, a2a),
+            routed, x, ("w_gate", "w_up", "w_down"), whole=whole, exchange=exchange)
 
     @staticmethod
-    def routed(p, x, cfg, groups: int | None = None):
-        """The routed experts alone: x (B, S, d) -> (B, S, d)."""
+    def routed(p, x, cfg, groups: int | None = None, first: int = 0, a2a=None):
+        """The routed experts alone: x (B, S, d) -> (B, S, d).  The expert
+        tensors of ``p`` may hold a block of El of the E experts, those
+        numbered ``first`` up: the result is then those experts' share of
+        the output (every token routes and drops as with all of them, and
+        the blocks' shares sum to the whole).  With ``a2a``, an all-to-all
+        over the m = E / El ranks of the blocks (dim 0, row j to rank j),
+        the buffer of every expert's slots goes to the experts' ranks, each
+        rank runs its block on every rank's groups, the outputs come back
+        the same way and the result is the whole output of this rank's
+        rows."""
         B, S, d = x.shape
         E, k = cfg.n_experts, cfg.top_k
+        El = p["w_gate"].shape[0]
+        Eb = E if a2a is not None else El  # the experts of this rank's buffer
         top_idx, top_w, C = moe_ffn.route(p, x, cfg, groups)
         G, Sg, _ = top_idx.shape
         slot, order, keep = moe_ffn.dispatch(top_idx, C, E)
+        # the pairs of the buffer's experts, and their rows of it (Eb*C, the
+        # drop bin, for every other pair)
+        mine = keep & (slot >= first * C) & (slot < (first + Eb) * C)
+        slot = torch.where(mine, slot - first * C, Eb * C)
         tok = order // k
         xt = x.reshape(G, Sg, d)
 
-        # scatter into (G, E*C + 1, d); only the drop bin takes repeated
+        # scatter into (G, Eb*C + 1, d); only the drop bin takes repeated
         # writes (all zeros), and it is cut off
-        vals = torch.gather(xt, 1, tok[..., None].expand(-1, -1, d)) * keep[..., None].to(x.dtype)
-        buf = torch.zeros((G, E * C + 1, d), dtype=x.dtype, device=x.device)
+        vals = torch.gather(xt, 1, tok[..., None].expand(-1, -1, d)) * mine[..., None].to(x.dtype)
+        buf = torch.zeros((G, Eb * C + 1, d), dtype=x.dtype, device=x.device)
         buf.scatter_(1, slot[..., None].expand(-1, -1, d), vals)
+        h_in = buf[:, :-1].reshape(G, Eb, C, d)
+        if a2a is not None:  # (m, G, El, C, d): row s, rank s's groups for this block
+            h_in = a2a(h_in.reshape(G, E // El, El, C, d).transpose(0, 1))
+        h_in = h_in.reshape(-1, El, C, d)
+        Gx = h_in.shape[0]  # the groups whose slots this rank's experts serve
 
-        # batched expert GEMMs over (E, G*C, d) x (E, d, f): every expert's
+        # batched expert GEMMs over (El, Gx*C, d) x (El, d, f): every expert's
         # weights are read, at capacity
-        h_in = buf[:, :-1].reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+        h_in = h_in.transpose(0, 1).reshape(El, Gx * C, d)
         h = act_fn(cfg.act, torch.bmm(h_in, p["w_gate"])) * torch.bmm(h_in, p["w_up"])
-        out = torch.bmm(h, p["w_down"]).reshape(E, G, C, d).transpose(0, 1).reshape(G, E * C, d)
+        out = torch.bmm(h, p["w_down"]).reshape(El, Gx, C, d).transpose(0, 1)
+        if a2a is not None:  # back: row j, block j's outputs for this rank's groups
+            out = a2a(out.reshape(E // El, G, El, C, d)).transpose(0, 1)
+        out = out.reshape(G, Eb * C, d)
 
         # combine: each pair's expert output, weighted, summed per token in
         # ascending expert order (the pairs' order in the sorted array)
-        got = torch.gather(out, 1, torch.clamp(slot, max=E * C - 1)[..., None].expand(-1, -1, d))
-        got = got * keep[..., None].to(got.dtype)
+        got = torch.gather(out, 1, torch.clamp(slot, max=Eb * C - 1)[..., None].expand(-1, -1, d))
+        got = got * mine[..., None].to(got.dtype)
         w_sorted = torch.gather(top_w.reshape(G, -1), -1, order)
         contrib = got * w_sorted[..., None].to(got.dtype)
         where = torch.argsort(order, dim=-1)  # a flat pair's place in the sorted array

@@ -227,6 +227,29 @@ def decode(strip):
 out["decode_fsdp"], out["fsdp_gather_floor"] = decode(False)
 out["decode_infer"], _ = decode(True)
 dist.destroy_process_group()
+
+# one MoE layer of deepseek-v3-671b at full width, bf16, at decode_32k's
+# batch (128 tokens), on the production (16, 16) mesh of 256 ranks
+from repro_torch.configs import SHAPES
+from repro_torch.launch.analysis import memory_trace
+from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models.moe import moe_ffn
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=256)
+mesh = make_production_mesh(device="cpu")
+v3 = get_config("deepseek-v3-671b")
+with torch.device("meta"):
+    layer = moe_ffn.init(torch.Generator(), v3, torch.bfloat16)
+x = torch.empty((SHAPES["decode_32k"].global_batch, 1, v3.d_model), dtype=torch.bfloat16,
+                device="meta")
+for tag, strip in (("fsdp", False), ("stationary", True)):
+    ps = param_shardings(layer, mesh, v3)
+    if strip:
+        ps = strip_axes(ps, data_axes(mesh))
+    args = device_put((layer, x), (ps, batch_shardings(x, mesh)))
+    with torch.no_grad(), hints.activation_sharding(mesh, data_axes(mesh), anchor=False):
+        _, coll, mem = memory_trace(lambda p, x: moe_ffn.forward(p, x, v3), *args)
+    out[f"v3_moe_{tag}"] = {"collectives": coll, "memory": mem}
+dist.destroy_process_group()
 print(json.dumps(out))
 """
 
@@ -305,3 +328,24 @@ def test_dryrun_pdx_collectives_match_the_analytic_count(tmp_path):
             assert rec["jaxpr_cost"]["dot_flops"] == 2.0 * Q * D * C * n_parts
         assert rec["memory"]["peak_memory_in_bytes"] >= rec["memory"]["argument_size_in_bytes"]
         assert math.isclose(rec["params_total"], 100_000_000 * D)
+
+
+def test_deepseek_v3_moe_layer_holds_only_its_own_experts(sharded):
+    """deepseek-v3-671b's MoE layer alone at full width (256 experts of
+    3 x 7168 x 2048, bf16) at decode_32k's 128 tokens on the (16, 16) mesh
+    of a fake group of 256: rank 0's peak stays below twice its E/m share
+    of the routed experts, 2 x 1.41 GB, in the FSDP layout (its block
+    gathered over "data" only) and the weight-stationary one (its block
+    held whole); gathering every expert whole would take 22.5 GB.  In the
+    weight-stationary layout the step gathers less than one expert's
+    bytes: no expert weight at all."""
+    E, d, f, m = 256, 7168, 2048, 16
+    expert = 3 * d * f * 2
+    share = E // m * expert
+    for tag in ("fsdp", "stationary"):
+        rec = sharded[f"v3_moe_{tag}"]
+        peak = rec["memory"]["peak_memory_in_bytes"]
+        assert share < peak < 2 * share, (tag, peak, share)
+        print(f"v3 MoE layer, {tag}: peak {peak:.4g} B, collectives {rec['collectives']}")
+    gathered = sharded["v3_moe_stationary"]["collectives"]["bytes"].get("all-gather", 0)
+    assert gathered < expert, gathered
