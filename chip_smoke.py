@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main paths on one CUDA card: vector search,
 the served LM with retrieval through it, the LM's training, the other
-model families' serving, and the LM side's mesh layer.
+model families' serving and training, and the LM side's mesh layer.
 
     python3 chip_smoke.py [--n 1000000] [--dim 960] [--seed 0]
 
@@ -222,21 +222,23 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      and search ms at B = 64 and B = 1, ``answer``'s wall and tokens/s.
   10. train (after 9, on phase 8's params; phase 9's store released) —
      llama3.2-3b at full width trained by ``repro_torch.train``: AdamW
-     (lr 1e-4, no warmup) with remat, 8 steps on one
-     ``TokenStream(cfg, 256, 8, seed)`` batch placed on the main thread.
-     Held: the chunked loss equals ``F.cross_entropy`` over the full logits
-     of the same hidden states at rtol 1e-5, every loss and grad norm
-     finite, the last loss below the first, two ``generate`` calls on the
-     trained params equal, no kernel of the port launched.  Recorded: the
-     losses, the step's median ms (forward+backward and optimizer apart),
-     tokens/s, the share of the 67 TFLOP/s f32 peak at 6 N T and 8 N T
-     FLOP, the optimizer beside its byte bound (7 x 4 B a param at 3.35
-     TB/s), peak memory, the last step's device profile, the generated
-     tokens that changed from phase 8's.  ``train_2l``: the same width at
-     2 layers, B = 8, S = 256: ``accum_steps=4`` against 1 (loss and
-     grads rtol 1e-4; at lr 1e-4 the params' difference's ``global_norm``
-     < 1e-3, at the reference test's lr 1e-3 recorded), remat on against
-     off (grads allclose, the gap recorded), 3 ``compress_grads`` steps
+     (lr 1e-4, no warmup) with remat under the reference's policy (the
+     products without batch dims saved, the rest recomputed), 8 steps on
+     one ``TokenStream(cfg, 256, 8, seed)`` batch placed on the main
+     thread.  Held: the chunked loss equals ``F.cross_entropy`` over the
+     full logits of the same hidden states at rtol 1e-5, every loss and
+     grad norm finite, the last loss below the first, two ``generate``
+     calls on the trained params equal, no kernel of the port launched.
+     Recorded: the losses, the step's median, least and most ms
+     (forward+backward and optimizer apart), tokens/s, the share of the 67
+     TFLOP/s f32 peak at 6 N T FLOP, the optimizer beside its byte bound
+     (7 x 4 B a param at 3.35 TB/s), peak memory, the last step's device
+     profile, the generated tokens that changed from phase 8's.
+     ``train_2l``: the same width at 2 layers, B = 8, S = 256:
+     ``accum_steps=4`` against 1 (loss and grads rtol 1e-4; at lr 1e-4
+     the params' difference's ``global_norm`` < 1e-3, at the reference
+     test's lr 1e-3 recorded), remat on against off (grads allclose,
+     under deterministic algorithms, the gap recorded), 3 ``compress_grads`` steps
      holding the error-feedback identity within 1e-4, an Adafactor step
      finite.  ``train_reduced``: ``cfg.reduced()`` overfits one batch in
      20 steps by more than 0.5 (AdamW, ``compress_grads``), and
@@ -266,7 +268,33 @@ JAX or the JAX package.  Phases, each printing one JSON line:
      the drops at prefill, a decode step's device profile.  No kernel of
      the port runs here: the reference computes these models in plain
      JAX.
-  12. mesh_lm (after 11) — the LM side's mesh layer (``dist.sharding``,
+  11b. train_families (after 11, before 12) — the other families trained
+     at full width, f32, one model on the card at a time, as phase 10
+     trains llama (AdamW at lr 1e-4, remat, 8 steps on one ``TokenStream``
+     batch of 8 rows, which also draws the patch embeddings and the
+     frames): deepseek-moe-16b (its dense layer and 5 MoE layers),
+     deepseek-v3 (2 of its 3 dense MLA layers: one MoE layer alone is
+     about 11 B params), mamba2-370m (48 layers, at 1024 positions: four
+     SSD chunks, so the carried state's backward runs), internvl2-1b (256
+     patch embeddings, then 256 text tokens, the loss over the text),
+     whisper-small (12 + 12 layers, 1,500 encoder frames); depth cut only,
+     by fixed cuts (``TRAIN_FAMILY_LAYERS``) whose 16 B a param (params,
+     grads, two moments) leave the card room for the activations, each
+     cut in ``reduced`` with its reason.  Held, per family: the chunked loss
+     against the full logits at rtol 1e-5, every loss and grad norm
+     finite, the last loss below the first, no kernel of the port
+     launched, and remat on against off from fresh params at a 2-layer
+     cut (whisper 2 + 2, deepseek-moe-16b its dense layer and one MoE
+     layer, deepseek-v3 2 dense layers) at phase ``train_2l``'s bar.
+     Recorded: params and the params a token reaches, the step's median,
+     least and most ms (forward+backward and optimizer apart), tokens/s,
+     the share of the f32 peak at 6 N T, the optimizer beside its byte
+     bound, peak memory, a profiled step's top device operations and idle
+     share, a MoE's drops at the train capacity.  The done line names
+     jamba as not trained: one period of its hybrid stack (the least cut
+     that keeps its layout) holds 13.27 B params, 212 GB of training
+     state.
+  12. mesh_lm (after 11b) — the LM side's mesh layer (``dist.sharding``,
      ``hints``, ``pipeline``, ``restore(shardings=)``) on a (1, 1)
      ("data", "model") mesh in an NCCL world of one of its own, llama3.2-3b
      at full width, f32.  Held: the FSDP x TP train step at 2 layers
@@ -476,6 +504,25 @@ FAMILY_LAYERS = {"deepseek-v3-671b": 4, "jamba-v0.1-52b": 8}
 FAMILY_HEADROOM_BYTES = 2e9
 FAMILY_TEACHER = ("internvl2-1b", "mamba2-370m", "whisper-small")
 MOE_RTOL, MOE_ATOL = 1e-4, 1e-5
+# phase train_families: the other families trained at full width (f32,
+# AdamW at TRAIN_LR, remat, TRAIN_STEPS steps on one batch), one model on
+# the card at a time, depth cut (TRAIN_FAMILY_LAYERS, fixed, as
+# FAMILY_LAYERS is) so that params, grads and two moments
+# (TRAIN_BYTES_PER_PARAM) leave room on the card for the activations, the
+# chunked loss and the optimizer's temporaries: deepseek-moe-16b its dense
+# layer and 5 MoE layers (3.44 B params, 55 GB); deepseek-v3 2 of its 3
+# dense MLA layers (3.02 B params, 48 GB; one of its MoE layers alone is
+# about 11 B params, 180 GB of training state); mamba2 trains at 1024 positions,
+# four SSD chunks, so the carried state's backward runs; a VLM's TRAIN_SEQ
+# text tokens follow its patch embeddings.  jamba is not trained: one
+# period of its hybrid stack is the least cut that keeps its layout
+TRAIN_FAMILY_ARCHS = ("deepseek-moe-16b", "deepseek-v3-671b", "mamba2-370m", "internvl2-1b",
+                      "whisper-small")
+TRAIN_FAMILY_LAYERS = {"deepseek-moe-16b": {"n_layers": 6},
+                       "deepseek-v3-671b": {"n_layers": 2, "n_dense_layers": 2}}
+TRAIN_FAMILY_SEQ = {"mamba2-370m": 1024}
+TRAIN_FAMILY_UNTRAINED = "jamba-v0.1-52b"
+TRAIN_BYTES_PER_PARAM = 16
 # phase 12 (mesh_lm): the expert-parallel MoE at full width; its decode in
 # bf16 at full depth, since 28 layers of f32 params (65.6 GB) and their
 # DTensor copies do not fit on the card together
@@ -3227,7 +3274,9 @@ def _grad_step(torch, model, params, batch, remat: bool = True):
         p.requires_grad_(True)
     try:
         loss = model.loss(params, batch, remat=remat)
-        return loss.detach(), list(torch.autograd.grad(loss, flat))
+        # a leaf the loss does not reach (DeepSeek-V3's router bias) gets zeros
+        return loss.detach(), list(torch.autograd.grad(
+            loss, flat, allow_unused=True, materialize_grads=True))
     finally:
         for p in flat:
             p.requires_grad_(False)
@@ -3260,6 +3309,123 @@ class _Recorded:
         setattr(self.module, self.name, self.real)
 
 
+def _timed_steps(torch, step, params, state, batch) -> dict:
+    """TRAIN_STEPS steps of ``step`` on one batch (params updated in place,
+    the optimizer state each step returns carried to the next: its step
+    count is a new tensor), the last under ``torch.profiler``,
+    ``opt_update`` timed through ``trainer.opt_update`` (synchronised
+    around it) -> the losses, grad norms, step and optimizer walls, the
+    profiled step, and the median, least and most of the step, of
+    forward+backward and of the optimizer over the steps between the
+    first (which pays the allocator and the libraries) and the profiled
+    one."""
+    from repro_torch.train import trainer
+
+    opt_ms = []
+
+    def timed_opt(real, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        opt_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    losses, gnorms, step_ms = [], [], []
+    with _Recorded(trainer, "opt_update", timed_opt):
+        for i in range(TRAIN_STEPS):
+            if i == TRAIN_STEPS - 1:  # the last step under torch.profiler
+                box = []
+                prof = device_profile(torch, lambda: box.append(step(params, state, batch)))
+                (_, state, m), ms = box[0], prof["wall_ms"]
+            else:
+                (_, state, m), ms = synced(torch, lambda: step(params, state, batch))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            step_ms.append(ms)
+    timed, opt = step_ms[1:-1], opt_ms[1:-1]
+    fwd_bwd = [s - o for s, o in zip(timed, opt)]
+    return {"losses": losses, "grad_norms": gnorms, "step_ms": step_ms, "opt_ms": opt_ms,
+            "step_ms_median": statistics.median(timed), "step_ms_min": min(timed),
+            "step_ms_max": max(timed), "fwd_bwd_ms_median": statistics.median(fwd_bwd),
+            "fwd_bwd_ms_min": min(fwd_bwd), "fwd_bwd_ms_max": max(fwd_bwd),
+            "opt_ms_median": statistics.median(opt), "opt_ms_min": min(opt),
+            "opt_ms_max": max(opt), "profiled_step": prof}
+
+
+def _ce_against_full(torch, model, params, batch) -> tuple[float, float]:
+    """(the chunked loss, ``F.cross_entropy`` over the full logits) of the
+    same hidden states (a VLM's text positions only)."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.lm import chunked_ce_loss
+
+    cfg = model.cfg
+    with torch.no_grad():
+        h = model.forward_train(params, batch)
+        if cfg.vlm:
+            h = h[:, cfg.n_patches:]
+        head = model._head(params)
+        chunked = float(chunked_ce_loss(h, batch["labels"], head))
+        full = float(F.cross_entropy((h @ head).reshape(-1, cfg.vocab),
+                                     batch["labels"].long().reshape(-1)))
+    return chunked, full
+
+
+def _hold_training(line: dict, launched: dict) -> None:
+    """A training line's holds: the chunked loss against the full logits at
+    CE_RTOL, every loss and grad norm finite, the last loss below the
+    first, no kernel of the port launched."""
+    arch, losses = line["arch"], line["losses"]
+    assert line["chunked_vs_full_rel"] <= CE_RTOL, (
+        f"{arch}: chunked loss {line['chunked_loss']} against full logits "
+        f"{line['full_logits_loss']}")
+    assert all(np.isfinite(losses)) and all(np.isfinite(line["grad_norms"])), (
+        arch, losses, line["grad_norms"])
+    assert losses[-1] < losses[0], (arch, losses)
+    assert not any(launched.values()), f"{arch}: training launched a kernel of the port: {launched}"
+
+
+def _remat_on_off(torch, model, params, batch) -> dict:
+    """The loss and grads with remat and without, from the same params,
+    both under ``torch.use_deterministic_algorithms(True, warn_only=True)``:
+    on the card the MoE dispatch's gather takes its backward as atomic
+    adds of a token's k slots, whose order changes from run to run, so
+    two runs of one function differ; the mode sums them in a fixed order
+    (cuBLAS only warns).  Held: both losses finite and within rtol 1e-6,
+    every leaf's grads ``torch.allclose`` at rtol 1e-5 and 1e-6 x the
+    leaf's largest |grad| (which fails a NaN); recorded: the largest gap,
+    the leaf farthest off that bar (its gap over the bar, for the record
+    only), whether they are bit for bit."""
+    from repro_torch.train._tree import flatten_with_paths
+
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        lr_on, g_on = _grad_step(torch, model, params, batch, remat=True)
+        lr_off, g_off = _grad_step(torch, model, params, batch, remat=False)
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    worst, worst_leaf, gap, close = 0.0, None, 0.0, True
+    for (path, _), a, b in zip(flatten_with_paths(params), g_on, g_off):
+        if not b.numel():
+            continue
+        big = float(b.abs().max())
+        close = close and bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6 * big))
+        d = (a - b).abs()
+        gap = max(gap, float(d.max()))
+        off = float((d / (1e-5 * b.abs() + 1e-6 * big)).nan_to_num(0.0).max())
+        if off > worst:
+            worst, worst_leaf = off, ".".join(map(str, path))
+    return {"loss_on": float(lr_on), "loss_off": float(lr_off), "grads_max_abs_diff": gap,
+            "worst_leaf": worst_leaf, "worst_gap_over_bar": worst,
+            "bitwise": all(torch.equal(a, b) for a, b in zip(g_on, g_off))
+            and bool(lr_on == lr_off),
+            "ok": bool(np.isfinite([float(lr_on), float(lr_off)]).all())
+            and abs(float(lr_on) - float(lr_off)) <= 1e-6 * abs(float(lr_off)) and close}
+
+
 def train_phase(torch, cfg, params, lm_batch, lm_out, seed: int, counters: dict) -> dict:
     """Full width: AdamW (lr 1e-4, no warmup) with remat, TRAIN_STEPS steps on
     one fixed ``TokenStream(cfg, TRAIN_SEQ, TRAIN_BATCH, seed)`` batch placed
@@ -3268,15 +3434,13 @@ def train_phase(torch, cfg, params, lm_batch, lm_out, seed: int, counters: dict)
     over their full logits at rtol CE_RTOL; every loss and grad norm finite;
     the last loss below the first; two ``generate`` calls on the trained
     params equal; no kernel of the port launched.  Recorded: the losses, the
-    step's median ms split into forward+backward and ``opt_update`` (timed
-    through ``trainer.opt_update``, synchronised around it), tokens/s, the
-    share of the f32 peak (6 N T and, with remat's recompute, 8 N T FLOP),
-    the optimizer beside its byte bound, peak memory, the last step's
-    device profile, and how many generated tokens differ from phase 8's."""
-    import torch.nn.functional as F
-
+    step's median, least and most ms split into forward+backward and
+    ``opt_update`` (``_timed_steps``), tokens/s, the share of the f32 peak
+    at 6 N T FLOP, the optimizer beside its byte bound, peak memory, the
+    last step's device profile, and how many generated tokens differ from
+    phase 8's."""
     from repro_torch.data.pipeline import TokenStream, to_device
-    from repro_torch.models.lm import build_model, chunked_ce_loss
+    from repro_torch.models.lm import build_model
     from repro_torch.serve import GenerationEngine
     from repro_torch.train import trainer
     from repro_torch.train._tree import leaves
@@ -3290,44 +3454,16 @@ def train_phase(torch, cfg, params, lm_batch, lm_out, seed: int, counters: dict)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     launched = {k: c.launches for k, c in counters.items()}
 
-    # the chunked loss against the full logits' cross entropy, same hidden states
-    with torch.no_grad():
-        h = model.forward_train(params, batch)
-        head = model._head(params)
-        chunked = float(chunked_ce_loss(h, batch["labels"], head))
-        full = float(F.cross_entropy((h @ head).reshape(-1, cfg.vocab),
-                                     batch["labels"].long().reshape(-1)))
-        del h
+    chunked, full = _ce_against_full(torch, model, params, batch)
     ce_rel = abs(chunked - full) / abs(full)
 
     oc = OptConfig(lr=TRAIN_LR, warmup_steps=0)
     state = opt_init(params, oc)
     step = trainer.make_train_step(model, trainer.TrainConfig(opt=oc))
-    opt_ms = []
-
-    def timed_opt(real, *args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real(*args, **kwargs)
-        torch.cuda.synchronize()
-        opt_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-
     torch.cuda.reset_peak_memory_stats()
-    losses, gnorms, step_ms = [], [], []
-    with _Recorded(trainer, "opt_update", timed_opt):
-        for i in range(TRAIN_STEPS):
-            if i == TRAIN_STEPS - 1:  # the last step under torch.profiler
-                box = []
-                prof = device_profile(torch, lambda: box.append(step(params, state, batch)))
-                (_, state, m), ms = box[0], prof["wall_ms"]
-            else:
-                (_, state, m), ms = synced(torch, lambda: step(params, state, batch))
-            losses.append(float(m["loss"]))
-            gnorms.append(float(m["grad_norm"]))
-            step_ms.append(ms)
+    steps = _timed_steps(torch, step, params, state, batch)
     peak = torch.cuda.max_memory_allocated()
-    del state, m
+    del state, step
     torch.cuda.empty_cache()
 
     eng = GenerationEngine(model=model, params=params, cache_len=LM_PROMPT * 3 + LM_NEW + 8)
@@ -3336,35 +3472,24 @@ def train_phase(torch, cfg, params, lm_batch, lm_out, seed: int, counters: dict)
     del eng
     launched = {k: c.launches - launched[k] for k, c in counters.items()}
 
-    timed_steps = step_ms[1:-1]  # the first pays the allocator and libraries
-    med = statistics.median(timed_steps)
-    opt_med = statistics.median(opt_ms[1:-1])
+    med = steps["step_ms_median"]
     opt_bound = OPT_BYTES_PER_PARAM * n_params / PEAK_BYTES_PER_S * 1e3
     line = {"phase": "train", "arch": cfg.name, "layers": cfg.n_layers, "dtype": "f32",
             "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "tokens": tokens,
             "optimizer": "adamw", "lr": TRAIN_LR, "remat": True,
             "chunked_loss": chunked, "full_logits_loss": full, "chunked_vs_full_rel": ce_rel,
-            "losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
-            "step_ms_median": med, "step_ms_min": min(timed_steps),
-            "step_ms_max": max(timed_steps), "opt_ms": opt_ms, "opt_ms_median": opt_med,
-            "fwd_bwd_ms_median": statistics.median(
-                s - o for s, o in zip(timed_steps, opt_ms[1:-1])),
-            "opt_bound_ms": opt_bound, "opt_share_of_bound": opt_bound / opt_med,
+            **steps, "opt_bound_ms": opt_bound,
+            "opt_share_of_bound": opt_bound / steps["opt_ms_median"],
             "tokens_per_s": tokens / (med / 1e3),
             "f32_peak_share_6NT": 6.0 * n_params * tokens / (med / 1e3) / PEAK_F32_FLOPS,
-            "f32_peak_share_8NT": 8.0 * n_params * tokens / (med / 1e3) / PEAK_F32_FLOPS,
             "peak_device_memory_gb": peak / 1e9,
             "device_memory_before_gb": before / 1e9,
-            "profiled_step": prof,
             "generate_equal": bool(np.array_equal(out, again)),
             "tokens_changed_from_lm_phase": int((out != lm_out).sum()),
             "tokens_generated": int(out.size), "kernel_launches": launched}
     emit(line)
-    assert ce_rel <= CE_RTOL, f"chunked loss {chunked} against full logits {full}"
-    assert all(np.isfinite(losses)) and all(np.isfinite(gnorms)), (losses, gnorms)
-    assert losses[-1] < losses[0], losses
+    _hold_training(line, launched)
     assert line["generate_equal"], "two generate calls on the trained params disagree"
-    assert not any(launched.values()), f"training launched a kernel of the port: {launched}"
     return line
 
 
@@ -3430,15 +3555,7 @@ def train_two_layer_phase(torch, cfg, seed: int, dev) -> dict:
     held = accum[TRAIN_LR]
 
     # remat on against off
-    p1 = fresh()
-    lr_on, g_on = _grad_step(torch, model, p1, batch, remat=True)
-    lr_off, g_off = _grad_step(torch, model, p1, batch, remat=False)
-    remat_max_abs = max(float((a - b).abs().max()) for a, b in zip(g_on, g_off))
-    remat_bitwise = all(torch.equal(a, b) for a, b in zip(g_on, g_off)) and bool(lr_on == lr_off)
-    remat_ok = abs(float(lr_on) - float(lr_off)) <= 1e-6 * abs(float(lr_off)) and all(
-        bool(torch.allclose(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max())))
-        for a, b in zip(g_on, g_off))
-    del g_on, g_off, p1
+    remat = _remat_on_off(torch, model, fresh(), batch)
     torch.cuda.empty_cache()
 
     # compression: the error-feedback identity over EF_STEPS steps
@@ -3482,8 +3599,7 @@ def train_two_layer_phase(torch, cfg, seed: int, dev) -> dict:
     line = {"phase": "train_2l", "arch": cfg2.name, "layers": 2, "params": n_params,
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "accum": list(accum.values()),
-            "remat": {"loss_on": float(lr_on), "loss_off": float(lr_off),
-                      "grads_max_abs_diff": remat_max_abs, "bitwise": remat_bitwise},
+            "remat": {k: v for k, v in remat.items() if k != "ok"},
             "compress": {"losses": comp_losses, "step_ms": comp_ms,
                          "ef_identity_max_abs_err": ef_err, "residual_finite": ef_finite},
             "adafactor": ada}
@@ -3491,7 +3607,7 @@ def train_two_layer_phase(torch, cfg, seed: int, dev) -> dict:
     assert held["loss_rel"] <= ACCUM_RTOL, held
     assert held["params_diff_global_norm"] < ACCUM_PARAM_BAR, held
     assert all(rec["grads_rel_diff"] <= ACCUM_RTOL for rec in accum.values()), accum
-    assert remat_ok, f"remat on and off differ: {remat_max_abs}"
+    assert remat["ok"], f"remat on and off differ: {remat['grads_max_abs_diff']}"
     assert all(np.isfinite(comp_losses)) and ef_finite, comp_losses
     assert ef_err < EF_BAR, f"error feedback: out + residual - raw = {ef_err}"
     assert np.isfinite(ada["loss"]) and np.isfinite(ada["grad_norm"]) and ada["params_finite"]
@@ -3687,15 +3803,21 @@ def _fit_depth(cfg, build_model, free_bytes: float) -> tuple:
     """``cfg`` cut (MoE layers first, keeping the dense ones) until its f32
     params leave FAMILY_HEADROOM_BYTES of ``free_bytes``: -> (cfg, bytes)."""
     import dataclasses
-    from math import prod
 
     def nbytes(c):
-        return 4 * sum(prod(s) for s in _shape_leaves(build_model(c).param_shapes()))
+        return 4 * _n_params(c, build_model)
     b = nbytes(cfg)
     while b + FAMILY_HEADROOM_BYTES > free_bytes and cfg.n_layers > cfg.n_dense_layers + 1:
         cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers - 1)
         b = nbytes(cfg)
     return cfg, b
+
+
+def _n_params(cfg, build_model) -> int:
+    """The params of ``cfg``'s model, counted from its shapes on no device."""
+    from math import prod
+
+    return sum(prod(s) for s in _shape_leaves(build_model(cfg).param_shapes()))
 
 
 def _shape_leaves(tree: dict) -> list:
@@ -3865,6 +3987,205 @@ def families_phase(torch, dev, seed: int) -> list:
             assert moe["loop_ok"], f"{name}: MoE off the per-token loop by {moe}"
         if "mla" in line:
             assert line["mla"]["ok"], f"{name}: absorbed MLA decode off {line['mla']}"
+    return lines
+
+
+def _flops_6nt(model, params, rows: int, seq: int) -> tuple[float, int]:
+    """(6 N T of a training step, the params of the products a decoder
+    token passes): each stack's params (a MoE layer's routed experts at
+    top_k of n_experts) times the tokens that pass it (an encoder's frames,
+    else the model's positions); the head and norms at the text positions
+    (``LMModel.loss`` takes no logits at a VLM's patch positions); an
+    untied embedding table not at all (a lookup)."""
+    from repro_torch.train._tree import leaves
+
+    cfg = model.cfg
+    rest = reached = sum(t.numel() for t in leaves(params)) - (
+        0 if cfg.tie_embeddings else params["embed"].numel())
+    work = 0.0
+    for si, sd in enumerate(model.stacks):
+        tree = params[f"stack{si}"]
+        whole = n = sum(t.numel() for t in leaves(tree))
+        for j, (kind, _) in enumerate(sd.spec):
+            if kind == "moe":
+                experts = sum(tree[f"sub{j}"][k].numel() for k in ("w_gate", "w_up", "w_down"))
+                n -= experts * (cfg.n_experts - cfg.top_k) // cfg.n_experts
+        rest -= whole
+        reached -= whole if sd.role == "encoder" else whole - n
+        work += n * rows * (cfg.enc_seq if sd.role == "encoder" else seq)
+    text = seq - (cfg.n_patches if cfg.vlm else 0)
+    return 6.0 * (work + rest * rows * text), reached
+
+
+def _two_layers(cfg):
+    """The 2-layer cut of the remat hold: whisper 2 encoder and 2 decoder
+    layers, deepseek-moe-16b its dense layer and one MoE layer, a stack of
+    dense layers only 2 of them, the rest 2 layers."""
+    import dataclasses
+
+    if cfg.encdec:
+        return dataclasses.replace(cfg, n_layers=2, n_enc_layers=2)
+    if cfg.n_dense_layers and cfg.n_layers == cfg.n_dense_layers:
+        return dataclasses.replace(cfg, n_layers=2, n_dense_layers=2)
+    return dataclasses.replace(cfg, n_layers=2)
+
+
+def train_family_phase(torch, dev, name: str, seed: int, counters: dict) -> dict:
+    """One family trained at full width (f32, params drawn on the card from
+    ``--seed``): AdamW at TRAIN_LR with remat, TRAIN_STEPS steps on one
+    ``TokenStream(cfg, seq, TRAIN_BATCH, seed)`` batch (its patch
+    embeddings and frames too), depth cut to TRAIN_FAMILY_LAYERS.
+    Recorded, for ``_hold_training`` and the remat hold: the chunked loss and the full logits' cross entropy, the losses
+    and grad norms, the launches; the remat hold at the 2-layer cut
+    (``_two_layers``, fresh params, ``_remat_on_off``); the cut
+    (``reduced``), params and the params a token reaches, the step's
+    walls (``_timed_steps``), tokens/s, the share of the f32 peak at
+    6 N T, the optimizer beside its byte bound, peak memory, the profiled
+    step; a MoE's drops at the train capacity, layer by layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import TokenStream, to_device
+    from repro_torch.models.lm import build_model
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.train import trainer
+    from repro_torch.train._tree import leaves
+    from repro_torch.train.optimizer import OptConfig, opt_init
+
+    def state_bytes(c):
+        return TRAIN_BYTES_PER_PARAM * _n_params(c, build_model)
+
+    full = get_config(name)
+    cfg, reduced = full, {}
+    free, total = torch.cuda.mem_get_info()
+    if name in TRAIN_FAMILY_LAYERS:
+        cfg = dataclasses.replace(full, **TRAIN_FAMILY_LAYERS[name])
+        reduced = {k: [getattr(full, k), v] for k, v in TRAIN_FAMILY_LAYERS[name].items()}
+        why = (f"device memory: {state_bytes(full) / 1e9:.0f} GB of f32 training state "
+               f"({TRAIN_BYTES_PER_PARAM} B a param) at the published depth, "
+               f"{state_bytes(cfg) / 1e9:.1f} GB at this cut, a card of {total / 1e9:.1f} GB")
+        if cfg.n_dense_layers == cfg.n_layers < full.n_layers:
+            dense = state_bytes(dataclasses.replace(full, n_layers=full.n_dense_layers))
+            layer = state_bytes(dataclasses.replace(
+                full, n_layers=full.n_dense_layers + 1)) - dense
+            why += (f"; dense MLA layers only: one MoE layer alone is "
+                    f"{layer / TRAIN_BYTES_PER_PARAM / 1e9:.2f} B params, "
+                    f"{layer / 1e9:.0f} GB of f32 training state; all "
+                    f"{full.n_dense_layers} dense layers, {dense / 1e9:.1f} GB, and the "
+                    f"step's activations outgrow what the earlier phases leave free")
+        reduced["why"] = why
+    seq = TRAIN_FAMILY_SEQ.get(name, TRAIN_SEQ) + (cfg.n_patches if cfg.vlm else 0)
+    model = build_model(cfg)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
+    n_params = sum(t.numel() for t in leaves(params))
+    batch = to_device(dev)(TokenStream(cfg, seq, TRAIN_BATCH, seed).batch_at(0))
+    tokens = TRAIN_BATCH * seq
+    launched = {k: c.launches for k, c in counters.items()}
+
+    (chunked, full_ce), moe_calls = moe_record(
+        torch, lambda: _ce_against_full(torch, model, params, batch))
+    drops = []
+    with torch.no_grad():
+        for p, x in moe_calls:
+            idx, _, capacity = moe_ffn.route(p, x, cfg)
+            _, _, keep = moe_ffn.dispatch(idx, capacity, cfg.n_experts)
+            drops.append((int((~keep).sum()), keep.numel(), capacity))
+    del moe_calls
+
+    t1 = time.perf_counter()
+    oc = OptConfig(lr=TRAIN_LR, warmup_steps=0)
+    state = opt_init(params, oc)
+    step = trainer.make_train_step(model, trainer.TrainConfig(opt=oc))
+    torch.cuda.reset_peak_memory_stats()
+    steps = _timed_steps(torch, step, params, state, batch)
+    peak = torch.cuda.max_memory_allocated()
+    flops, reached = _flops_6nt(model, params, TRAIN_BATCH, seq)
+    del state, step, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # remat on against off at the 2-layer cut, fresh params
+    t2 = time.perf_counter()
+    cfg2 = _two_layers(cfg)
+    model2 = build_model(cfg2)
+    remat = _remat_on_off(torch, model2, model2.init(
+        torch.Generator(device=dev).manual_seed(seed), device=dev), batch)
+    launched = {k: c.launches - launched[k] for k, c in counters.items()}
+    split = {"init_and_loss_check_s": t1 - t0, "steps_s": t2 - t1,
+             "remat_hold_s": time.perf_counter() - t2}
+    del batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    med = steps["step_ms_median"]
+    opt_bound = OPT_BYTES_PER_PARAM * n_params / PEAK_BYTES_PER_S * 1e3
+    line = {"phase": "train_families", "arch": cfg.name, "family": cfg.family, "dtype": "f32",
+            "layers": cfg.n_layers, "layers_published": full.n_layers, "reduced": reduced,
+            "d_model": cfg.d_model, "vocab": cfg.vocab, "params": n_params,
+            "params_per_token": reached, "training_state_gb": state_bytes(cfg) / 1e9,
+            "training_state_gb_published": state_bytes(full) / 1e9,
+            "batch": TRAIN_BATCH, "seq": seq, "tokens": tokens,
+            "optimizer": "adamw", "lr": TRAIN_LR,
+            "remat": "dots_with_no_batch_dims_saveable",
+            "chunked_loss": chunked, "full_logits_loss": full_ce,
+            "chunked_vs_full_rel": abs(chunked - full_ce) / abs(full_ce),
+            **steps, "opt_bound_ms": opt_bound,
+            "opt_share_of_bound": opt_bound / steps["opt_ms_median"],
+            "tokens_per_s": tokens / (med / 1e3), "flops_6NT": flops,
+            "f32_peak_share_6NT": flops / (med / 1e3) / PEAK_F32_FLOPS,
+            "peak_device_memory_gb": peak / 1e9, "device_memory_before_gb": before / 1e9,
+            "device_free_gb_before": free / 1e9,
+            "remat_2_layers": {"layers": cfg2.n_layers, **remat},
+            "kernel_launches": launched, "seconds_split": split}
+    if cfg.n_dense_layers:
+        line["dense_layers"] = cfg.n_dense_layers
+    if cfg.vlm:
+        line["patches"], line["text_seq"] = cfg.n_patches, seq - cfg.n_patches
+    if cfg.encdec:
+        line["encoder_frames"], line["encoder_layers"] = cfg.enc_seq, cfg.n_enc_layers
+    if drops:
+        line["moe"] = {"experts": cfg.n_experts, "top_k": cfg.top_k, "shared": cfg.n_shared,
+                       "capacity": drops[0][2], "drops": sum(d for d, _, _ in drops),
+                       "pairs": sum(n for _, n, _ in drops),
+                       "drops_by_layer": [d for d, _, _ in drops]}
+    return line
+
+
+def train_families_phase(torch, dev, seed: int, counters: dict) -> list:
+    """``train_family_phase`` for each of TRAIN_FAMILY_ARCHS in turn, one
+    model on the card at a time; every line is printed before its holds
+    are checked: ``_hold_training`` and remat on against off at the 2-layer
+    cut.  The done line names TRAIN_FAMILY_UNTRAINED and why: the params
+    of one period of its hybrid stack at TRAIN_BYTES_PER_PARAM."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import build_model
+
+    t_phase = time.perf_counter()
+    lines = []
+    for name in TRAIN_FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        line = train_family_phase(torch, dev, name, seed, counters)
+        line["seconds"] = time.perf_counter() - t0
+        emit(line)
+        lines.append(line)
+        _hold_training(line, line["kernel_launches"])
+        assert line["remat_2_layers"]["ok"], (
+            f"{name}: remat on and off differ: {line['remat_2_layers']}")
+    jamba = get_config(TRAIN_FAMILY_UNTRAINED)
+    period = dataclasses.replace(jamba, n_layers=jamba.hybrid_period)
+    n = _n_params(period, build_model)
+    emit({"phase": "train_families_done", "models": [f["arch"] for f in lines],
+          "seconds_by_model": {f["arch"]: f["seconds"] for f in lines},
+          "not_trained": {jamba.name: (
+              f"one period of {jamba.hybrid_period} layers (the least cut that keeps the "
+              f"hybrid layout, {jamba.n_layers // jamba.hybrid_period} periods published) holds "
+              f"{n / 1e9:.2f} B params, {n * TRAIN_BYTES_PER_PARAM / 1e9:.0f} GB of f32 "
+              f"training state at {TRAIN_BYTES_PER_PARAM} B a param: no card holds it")},
+          "seconds": time.perf_counter() - t_phase})
     return lines
 
 
@@ -4733,8 +5054,14 @@ def main() -> int:
           "seconds_by_model": {f["arch"]: f["seconds"] for f in fam},
           "seconds": time.perf_counter() - t0})
 
+    # ----------------------------------------------- 11b. train_families
+    # the served families are gone: each trained in turn
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_families_phase(torch, dev, args.seed, counters)
+
     # ------------------------------------------------------ 12. mesh_lm
-    # the families are gone: the LM side's mesh layer on a world of one
+    # the trained families are gone: the LM side's mesh layer on a world of one
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -10,9 +10,9 @@ the step eagerly on meta tensors (shapes and dtypes, no storage) under a
   *unsharded* meta tensors, the global program the reference's jaxpr is.
   Each op falls into the reference's classes: products (``mm``, ``bmm``,
   ``addmm``, ``baddbmm``, ``mv``, ``dot``, ``convolution``: what ``@``,
-  ``einsum`` and ``F.linear`` become, and an ``einsum`` that contracts no
-  index, which ATen computes as a broadcast ``mul``) at 2 M N K into
-  ``dot_flops``; the
+  ``einsum`` and ``F.linear`` become, and a pair of an ``einsum``'s
+  operands that shares no contracted index, which ATen computes as a
+  broadcast ``mul``) at 2 M N K into ``dot_flops``; the
   elementwise set (``_ELEMENTWISE``) at one FLOP an output element into
   ``ew_flops``; data movement and reductions into ``bytes`` (a reduction
   also adds its input's elements to ``ew_flops``).  An eager run has no
@@ -40,13 +40,13 @@ issues each loop trip itself.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import weakref
 from collections import defaultdict
 from typing import Any, Callable
 
 import torch
-from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -123,18 +123,21 @@ class _CostMode(TorchDispatchMode):
         super().__init__()
         self.acc: dict[str, float] = defaultdict(float)
         self.by_op: dict[str, float] = defaultdict(float)
-        self.paused = False
+        self.in_einsum = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         name = _name(func)
-        if self.paused or func.namespace != "aten" or name not in _COUNTED:
+        if func.namespace != "aten" or name not in _COUNTED:
             return out
         ins, outs = _tensors((args, kwargs)), _tensors(out)
         moved = sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
-        if name in _DOTS:
-            flops = _dot_flops(name, args, outs[0])
+        if name in _DOTS or (name == "mul" and self.in_einsum):
+            if name in _DOTS:
+                flops = _dot_flops(name, args, outs[0])
+            else:  # a product of one term: 2 FLOPs an output element
+                flops, name = 2.0 * outs[0].numel(), "einsum"
             self.acc["dot_flops"] += flops
             self.by_op[name] += flops
             self.acc["bytes"] += moved
@@ -149,39 +152,29 @@ class _CostMode(TorchDispatchMode):
         return out
 
 
-def _outer_product(args) -> bool:
-    """Whether ``torch.einsum(*args)`` multiplies two operands and
-    contracts no index (an outer product, batched or not)."""
-    if not args or not isinstance(args[0], str) or "->" not in args[0] or "." in args[0]:
-        return False
-    lhs, out = args[0].replace(" ", "").split("->")
-    ins = lhs.split(",")
-    return len(ins) == 2 and set("".join(ins)) <= set(out)
+@contextlib.contextmanager
+def _einsum_products(cost: _CostMode):
+    """A ``mul`` that ``torch.einsum`` issues multiplies two operands that
+    share no contracted index (an outer product, or the first pair of a
+    three-operand einsum), where the reference's ``dot_general`` counts a
+    product of one term, 2 FLOPs an output element: ``cost`` counts it as
+    the reference does.  ``torch.einsum`` is wrapped for the run, not
+    intercepted by a ``TorchFunctionMode``: no such mode is active in the
+    backward pass, where a checkpoint recomputes its unit."""
+    real = torch.einsum
 
-
-class _OuterProducts(TorchFunctionMode):
-    """``torch.einsum`` with no contracted index is a product of one term
-    in the reference (a ``dot_general`` with no contracting dims, 2 FLOPs
-    an output element), where ATen computes it as a broadcast ``mul``:
-    count it as the reference does, and not its ``mul``."""
-
-    def __init__(self, cost: _CostMode):
-        super().__init__()
-        self.cost = cost
-
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if func is not torch.einsum or not _outer_product(args):
-            return func(*args, **kwargs)
-        self.cost.paused = True
+    def einsum(*args, **kwargs):
+        cost.in_einsum = True
         try:
-            out = func(*args, **kwargs)
+            return real(*args, **kwargs)
         finally:
-            self.cost.paused = False
-        self.cost.acc["dot_flops"] += 2.0 * out.numel()
-        self.cost.by_op["einsum"] += 2.0 * out.numel()
-        self.cost.acc["bytes"] += sum(map(_nbytes, _tensors(args[1:]))) + _nbytes(out)
-        return out
+            cost.in_einsum = False
+
+    torch.einsum = einsum
+    try:
+        yield
+    finally:
+        torch.einsum = real
 
 
 def step_cost(fn: Callable, *args, ranks: int = 1, **kwargs) -> dict[str, Any]:
@@ -190,7 +183,7 @@ def step_cost(fn: Callable, *args, ranks: int = 1, **kwargs) -> dict[str, Any]:
     ``ranks`` (an SPMD body on one rank's shard: the ranks that run it),
     and ``dot_flops_by_op``, the products' FLOPs by ATen op."""
     mode = _CostMode()
-    with mode, _OuterProducts(mode):
+    with mode, _einsum_products(mode):
         fn(*args, **kwargs)
     out: dict[str, Any] = {k: v * ranks for k, v in mode.acc.items()}
     for k in ("dot_flops", "ew_flops", "bytes"):

@@ -142,6 +142,14 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.float32)
 
 
+def _heads_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, r) times w (r, H, e) -> (B, S, H, e), the reference's
+    ``bsr,rhe->bshe``: one ``matmul``, whose product the remat policy
+    keeps (an einsum would compute this product without batch dims as a
+    ``bmm`` of batch 1, and the policy would recompute it)."""
+    return matmul(x, w.flatten(1)).unflatten(-1, w.shape[1:])
+
+
 class mla:
     @staticmethod
     def init(generator: torch.Generator, cfg, dtype=torch.float32, lead: tuple = ()) -> dict:
@@ -169,18 +177,18 @@ class mla:
     def _q(p, x, cfg, positions):
         dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
         if cfg.q_lora_rank:
-            cq = rms_norm(x @ p["w_dq"], p["q_norm"], cfg.rms_eps)
-            q = torch.einsum("bsr,rhd->bshd", cq, p["w_uq"])
+            cq = rms_norm(matmul(x, p["w_dq"]), p["q_norm"], cfg.rms_eps)
+            q = _heads_proj(cq, p["w_uq"])
         else:
-            q = torch.einsum("bsd,dhe->bshe", x, p["w_q"])
+            q = _heads_proj(x, p["w_q"])
         q_nope, q_rope = q[..., :dn], q[..., dn:]
         sin, cos = rope_sin_cos(positions, dr, cfg.rope_theta)
         return q_nope, apply_rope(q_rope, sin, cos)
 
     @staticmethod
     def _latent(p, x, cfg, positions):
-        c_kv = rms_norm(x @ p["w_dkv"], p["kv_norm"], cfg.rms_eps)  # (B,S,rkv)
-        k_rope = (x @ p["w_kr"])[:, :, None, :]                     # (B,S,1,dr)
+        c_kv = rms_norm(matmul(x, p["w_dkv"]), p["kv_norm"], cfg.rms_eps)  # (B,S,rkv)
+        k_rope = matmul(x, p["w_kr"])[:, :, None, :]                     # (B,S,1,dr)
         sin, cos = rope_sin_cos(positions, cfg.qk_rope_head_dim, cfg.rope_theta)
         return c_kv, apply_rope(k_rope, sin, cos)[:, :, 0, :]       # (B,S,dr)
 
@@ -190,13 +198,13 @@ class mla:
         B, S, _ = x.shape
         q_nope, q_rope = mla._q(p, x, cfg, positions)
         c_kv, k_rope = mla._latent(p, x, cfg, positions)
-        k_nope = torch.einsum("bsr,rhd->bshd", c_kv, p["w_uk"])
-        v = torch.einsum("bsr,rhd->bshd", c_kv, p["w_uv"])
+        k_nope = _heads_proj(c_kv, p["w_uk"])
+        v = _heads_proj(c_kv, p["w_uv"])
         k_rope_h = k_rope[:, :, None, :].expand(B, S, cfg.n_heads, cfg.qk_rope_head_dim)
         q = torch.cat([q_nope, q_rope], -1)
         k = torch.cat([k_nope, k_rope_h], -1)
         y = chunked_attention(q, k, v, causal=causal)
-        return hints.merge_heads(y) @ p["wo"]
+        return matmul(hints.merge_heads(y), p["wo"])
 
     @staticmethod
     def forward_prefill(p, x, cfg, positions, cache_len: int):

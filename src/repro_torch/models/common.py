@@ -12,6 +12,8 @@ card run the same plain tensor code.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
@@ -22,6 +24,7 @@ from ..dist import hints
 __all__ = [
     "dense_init",
     "matmul",
+    "saving_products",
     "rms_norm",
     "act_fn",
     "rope_sin_cos",
@@ -43,14 +46,70 @@ def dense_init(generator: torch.Generator, shape, dtype=torch.float32,
     return torch.randn(shape, generator=generator, dtype=torch.float32).mul_(std).to(dtype)
 
 
+# The products a remat unit keeps (``models/lm.py:_remat``): while the
+# unit's forward records, ``matmul`` appends each product it computes; while
+# the checkpoint recomputes the unit, ``matmul`` hands the recorded ones back
+# in the same order instead of computing them again.
+_remat = threading.local()
+
+
+@contextlib.contextmanager
+def saving_products(products: list, replay: bool):
+    """``matmul`` records its products into ``products`` (``replay``
+    False) or returns them from it in order (``replay`` True) inside."""
+    prev = getattr(_remat, "state", None)
+    _remat.state = (products, replay, [0])
+    try:
+        yield
+    finally:
+        _remat.state = prev
+
+
+class _KeptProduct(torch.autograd.Function):
+    """In a checkpoint's recompute, ``a @ b`` (2-D) whose value ``y`` was
+    kept: returns it, and saves for the backward what autograd's ``mm``
+    saves, in its order (``b`` where ``a`` needs a grad, then ``a`` where
+    ``b`` does), since the checkpoint hands the recompute's saved tensors
+    to the forward's graph one for one.  The recompute's own graph is
+    never differentiated."""
+
+    @staticmethod
+    def forward(ctx, a, b, y):
+        ctx.save_for_backward(*[t for t, need in ((b, ctx.needs_input_grad[0]),
+                                                  (a, ctx.needs_input_grad[1])) if need])
+        return y.detach()
+
+    @staticmethod
+    def backward(ctx, g):
+        raise RuntimeError("a checkpoint's recompute is not differentiated")
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` under JAX's type promotion, where ``@`` refuses operands
-    of two dtypes: both go to the wider one first (bf16 with f32 meet at
-    f32, as a whisper encoder's f32 frames meet its bf16 weights)."""
+    """``a @ b`` for ``b`` a matrix (a product without batch dims: a
+    projection, the router) under JAX's type promotion, where ``@``
+    refuses operands of two dtypes: both go to the wider one first (bf16
+    with f32 meet at f32, as a whisper encoder's f32 frames meet its bf16
+    weights).  Inside ``saving_products`` it records or replays its
+    product as one ``mm`` of ``a``'s rows (what ``@`` computes): the
+    reference's remat policy keeps these products."""
     if a.dtype != b.dtype:
         dt = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(dt), b.to(dt)
-    return a @ b
+    state = getattr(_remat, "state", None)
+    if state is None:
+        return a @ b
+    if b.dim() != 2:
+        raise ValueError(f"matmul keeps products without batch dims; got b of shape "
+                         f"{tuple(b.shape)}")
+    products, replay, at = state
+    a2 = a.reshape(-1, a.shape[-1])
+    shape = (*a.shape[:-1], b.shape[1])
+    if not replay:
+        products.append(a2.mm(b))
+        return products[-1].view(shape)
+    y = products[at[0]]
+    at[0] += 1
+    return _KeptProduct.apply(a2, b, y).view(shape)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -20,8 +20,9 @@ Params are the reference's pytree as tensors: ``embed`` (V, d),
 wq, ...}`` with a leading unit axis.  Where the reference scans a stack,
 the port loops over its units in Python; each unit's params are views of
 the stacked tensors (``torch.unbind``, whose backward stacks the units'
-gradients into the stacked leaf once).  Training recomputes each unit in
-the backward pass (``remat``, ``torch.utils.checkpoint``), and the loss is
+gradients into the stacked leaf once).  Training checkpoints each unit
+under the reference's remat policy (``remat``: the products without batch
+dims are saved, the rest recomputed in the backward pass), and the loss is
 sequence-chunked (``chunked_ce_loss``): it never holds (B, S, V) logits.
 Caches are per-stack dicts with the same leading unit axis (``None`` for
 an encoder stack); ``decode_step`` has every sub-block write its new state
@@ -40,7 +41,7 @@ from ..configs.base import ArchConfig
 from ..core.device import resolve_device
 from ..dist import hints
 from .attention import gqa, mla
-from .common import dense_init, rms_norm
+from .common import dense_init, rms_norm, saving_products
 from .mamba import mamba2
 from .moe import dense_ffn, moe_ffn
 
@@ -49,6 +50,25 @@ __all__ = ["LayerSpec", "StackDef", "LMModel", "build_model", "chunked_ce_loss",
 
 # A sub-block: (kind, options). kinds: gqa | mla | mamba | ffn | moe | cross
 LayerSpec = tuple[tuple[str, dict], ...]
+
+
+def _remat(run, *args):
+    """``run(*args)`` checkpointed under the reference's remat policy,
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: a
+    ``torch.utils.checkpoint`` that keeps the output of every product
+    without batch dims (every ``common.matmul``: the projections, the
+    router) beside the inputs; its recompute in the backward pass gets
+    those products handed back (``saving_products``) and recomputes only
+    the rest (the batched products: attention, the SSD's einsums, the
+    experts' ``bmm``).  The backward runs the forward's own graph, so the
+    grads are those without remat, bit for bit."""
+    products, calls = [], [0]
+
+    def body(*a):
+        calls[0] += 1
+        with saving_products(products, replay=calls[0] > 1):
+            return run(*a)
+    return checkpoint(body, *args, use_reentrant=False)
 
 
 # --------------------------------------------------------------------------
@@ -416,11 +436,12 @@ class LMModel:
                     remat: bool = False, causal: bool = True):
         """Runs the stacks of ``role``; the others keep their caches (or
         ``None``).  ``remat`` (train mode, where autograd records): each
-        unit runs under ``torch.utils.checkpoint``, which keeps only the
-        unit's input and recomputes the unit in the backward pass.  The
-        reference's ``jax.checkpoint`` policy
-        (``dots_with_no_batch_dims_saveable``) also keeps some products;
-        recomputing all of them changes memory and time, not values."""
+        unit runs under the reference's policy
+        (``dots_with_no_batch_dims_saveable``, ``_remat``): the unit's
+        inputs and the output of each of its products without batch dims
+        are kept, and the backward pass recomputes the rest of the unit,
+        so the batched products run again and the projections do not.  It
+        changes memory and time, not values."""
         remat = remat and mode == "train" and torch.is_grad_enabled()
         new_caches = []
         for si, sd in enumerate(self.stacks):
@@ -431,11 +452,9 @@ class LMModel:
             unit_caches = []
             for u in range(sd.count):
                 if remat:
-                    x = checkpoint(
-                        lambda h, p=units[u], spec=sd.spec: apply_unit(
-                            p, h, spec, self.cfg, "train", positions,
-                            enc_out=enc_out, causal=causal)[0],
-                        x, use_reentrant=False)
+                    x = _remat(lambda h, p, e, spec=sd.spec: apply_unit(
+                        p, h, spec, self.cfg, "train", positions,
+                        enc_out=e, causal=causal)[0], x, units[u], enc_out)
                     continue
                 unit_c = _unit(caches[si], u) if mode == "decode" else None
                 x, nc = apply_unit(
@@ -493,9 +512,9 @@ class LMModel:
 
     # --------------------------------------------------------------- API
     def forward_train(self, params, batch, remat: bool = True) -> torch.Tensor:
-        """-> final hidden states (B, S, d).  ``remat`` recomputes each unit
-        in the backward pass (it has no effect where autograd records
-        nothing, as in serving)."""
+        """-> final hidden states (B, S, d).  ``remat`` checkpoints each
+        unit under the reference's policy (``_run_stacks``; it has no
+        effect where autograd records nothing, as in serving)."""
         x, positions, enc_out = self._inputs_to_x(params, batch, remat=remat)
         x, _ = self._run_stacks(params, x, "train", positions, enc_out=enc_out, remat=remat)
         return rms_norm(x, params["final_norm"], self.cfg.rms_eps)

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dist import hints
-from .common import dense_init, rms_norm
+from .common import dense_init, matmul, rms_norm
 
 __all__ = ["mamba2"]
 
@@ -62,7 +62,7 @@ class mamba2:
     @staticmethod
     def _split(p, x, cfg, d_model):
         di, H, P, G, N = _dims(cfg, d_model)
-        proj = x @ p["in_proj"]  # (B,S,2di+2GN+H)
+        proj = matmul(x, p["in_proj"])  # (B,S,2di+2GN+H)
         return torch.split(proj, [di, di, G * N, G * N, H], dim=-1)  # z, xs, B, C, dt
 
     @staticmethod
@@ -128,7 +128,7 @@ class mamba2:
         y = y + p["D"][None, None, :, None] * xs.reshape(B, S, H, P).to(_F32)
         y = y.reshape(B, S, di).to(x.dtype)
         y = rms_norm(y * F.silu(z), p["norm_w"], cfg.rms_eps)
-        out = y @ p["out_proj"]
+        out = matmul(y, p["out_proj"])
         if not return_state:
             return out
         # the conv tail is the last K-1 rows of the conv's input

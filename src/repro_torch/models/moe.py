@@ -112,7 +112,7 @@ class moe_ffn:
         G = groups or pick_group_count(T, E, k)
         Sg = T // G
         assert G * Sg == T, f"tokens {T} not divisible into {G} groups"
-        logits = (x.reshape(G, Sg, d) @ p["router"]).to(torch.float32)
+        logits = matmul(x.reshape(G, Sg, d), p["router"]).to(torch.float32)
         probs = torch.softmax(logits, dim=-1)
         select = logits + p["router_bias"] if cfg.router_aux_free else logits
         top_idx = _descending_order(select)[..., :k]

@@ -16,10 +16,12 @@ per module.  Tolerances:
     other level, which moves its element by up to ``lr`` (1 of 156,224
     elements in the second step here): at most 1 in 10,000 elements may
     differ by more than 1e-5, the rest are held to the bar;
-  * inside the port: remat on against off, and a resumed run against the
-    uninterrupted one, bit for bit; accumulation against the full batch
-    at the reference's bar (loss rtol 1e-4, params' difference < 1e-3);
-    overfitting one batch drops the loss by more than 0.5.
+  * inside the port: remat on against off (every family), and a resumed
+    run against the uninterrupted one, bit for bit; remat recomputes no
+    product without batch dims (the reference's policy); accumulation
+    against the full batch at the reference's bar (loss rtol 1e-4,
+    params' difference < 1e-3); overfitting one batch drops the loss by
+    more than 0.5.
 """
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro import configs as jconfigs
 from repro.data.pipeline import TokenStream as JTokenStream
@@ -45,6 +48,8 @@ from repro_torch.train.optimizer import OptConfig, global_norm, opt_init
 from repro_torch.train.trainer import TrainConfig, init_train_state, make_train_step
 
 DENSE = ("llama3.2-3b", "gemma-2b", "qwen2-72b", "granite-3-8b")
+FAMILIES = ("llama3.2-3b", "deepseek-moe-16b", "deepseek-v3-671b", "jamba-v0.1-52b",
+            "mamba2-370m", "internvl2-1b", "whisper-small")
 
 
 def to_arrays(tree):
@@ -67,7 +72,9 @@ def loss_and_grads(model, params, batch, remat=True):
         p.requires_grad_(True)
     try:
         loss = model.loss(params, batch, remat=remat)
-        return loss.detach(), [g.detach() for g in torch.autograd.grad(loss, flat)]
+        # a leaf the loss does not reach (DeepSeek-V3's router bias) gets zeros
+        return loss.detach(), [g.detach() for g in torch.autograd.grad(
+            loss, flat, allow_unused=True, materialize_grads=True)]
     finally:
         for p in flat:
             p.requires_grad_(False)
@@ -152,11 +159,55 @@ def test_the_loss_never_saves_full_logits_for_the_backward():
     assert saved and max(saved) < B * S * cfg.vocab, (max(saved), B * S * cfg.vocab)
 
 
-def test_remat_on_and_off_are_bit_for_bit():
-    """Recomputing each unit in the backward pass changes neither the loss
-    nor a grad, nor a train step's params, by one bit."""
-    _, _, tm, tp = setup("llama3.2-3b")
-    batch = TokenStream(tm.cfg, 16, 2, seed=2).batch_at(0)
+class _Products(TorchDispatchMode):
+    """Counts the products of a run: ``flat`` those without batch dims
+    (``mm``, ``addmm``, and a ``bmm`` or ``baddbmm`` of batch 1, which is
+    what an einsum makes of one), ``batched`` the other ``bmm`` and
+    ``baddbmm``."""
+
+    def __init__(self):
+        super().__init__()
+        self.flat = self.batched = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        op = func._overloadpacket
+        if op in (torch.ops.aten.mm, torch.ops.aten.addmm):
+            self.flat += 1
+        elif op in (torch.ops.aten.bmm, torch.ops.aten.baddbmm):
+            lhs = args[1] if op is torch.ops.aten.baddbmm else args[0]
+            if lhs.shape[0] == 1:
+                self.flat += 1
+            else:
+                self.batched += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "deepseek-v3-671b"])
+def test_remat_recomputes_no_product_without_batch_dims(arch):
+    """The reference's remat policy (``dots_with_no_batch_dims_saveable``):
+    the forward and backward of ``model.loss`` issue as many products
+    without batch dims with remat as without (the backward recomputes none
+    of them; for deepseek-v3 MLA's head projections too, which as einsums
+    would be ``bmm`` of batch 1), and more batched ones (the backward
+    recomputes those)."""
+    _, _, tm, tp = setup(arch)
+    batch = TokenStream(tm.cfg, 32, 2, seed=2).batch_at(0)
+    counts = {}
+    for remat in (True, False):
+        with _Products() as mode:
+            loss_and_grads(tm, tp, batch, remat=remat)
+        counts[remat] = mode
+    assert counts[True].flat == counts[False].flat > 0
+    assert counts[True].batched > counts[False].batched
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_remat_on_and_off_are_bit_for_bit(arch):
+    """Checkpointing each unit under the remat policy changes neither the
+    loss nor a grad, nor a train step's params, by one bit (S = 32: two
+    SSD chunks, so the carried state's backward runs)."""
+    _, _, tm, tp = setup(arch)
+    batch = TokenStream(tm.cfg, 32, 2, seed=2).batch_at(0)
     l1, g1 = loss_and_grads(tm, tp, batch, remat=True)
     l0, g0 = loss_and_grads(tm, tp, batch, remat=False)
     assert torch.equal(l1, l0)

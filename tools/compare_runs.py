@@ -11,9 +11,10 @@ the change's times alone), then each change run's ``tiered`` and
 its ``serve`` and ``serve_churn`` phases: QPS, latency, recall, idle share,
 upload overlap and swaps, its ``lm`` and ``rag`` phases with their
 profiles' busy and idle time, its ``train``, ``train_2l`` and
-``train_reduced`` phases, its ``families`` lines (one per model: times,
-bounds, holds, the MoE and MLA records, the decode profile's busy and
-idle time), its ``mesh_lm`` phase (its holds, walls and a sharded decode
+``train_reduced`` phases (``train``'s step walls and peak memory for the
+parent runs too), its ``families`` and ``train_families`` lines (one per
+model: times, bounds, holds, the MoE and MLA records, the profiles' busy
+and idle time), its ``mesh_lm`` phase (its holds, walls and a sharded decode
 step's profile), its ``dryrun`` phase (each CLI cell's status, seconds and
 counts; the estimator's cells, the f8 agreement, the PDX rank's rows),
 and its ``routing``, ``sharded`` and ``routed`` phases
@@ -57,6 +58,10 @@ def main() -> None:
                 for dt, rec in line["routed_tiered"].items():
                     print("    routed_tiered", dt, {k: v for k, v in rec.items()
                                                     if k != "walls_ms"})
+            elif line.get("phase") == "train":
+                print(path, "train step", {k: line.get(k) for k in (
+                    "step_ms_median", "step_ms_min", "step_ms_max", "fwd_bwd_ms_median",
+                    "opt_ms_median", "peak_device_memory_gb")})
             elif line.get("phase") == "fused_scan_wall":
                 print(path, "fused_scan_wall median ms",
                       {dt: rec.get("ms_per_query_median") for dt, rec in line.items()
@@ -122,6 +127,13 @@ def main() -> None:
             elif line.get("phase") == "train":
                 print(path, "train", {k: v for k, v in line.items() if k not in (
                     "phase", "profiled_step", "step_ms", "opt_ms", "grad_norms")})
+                prof = line["profiled_step"]
+                print("    profiled_step", {f: prof[f] for f in (
+                    "wall_ms", "device_busy_ms", "device_idle_share")},
+                    [(t["kernel"][:40], round(t["ms"], 3)) for t in prof["top"][:4]])
+            elif line.get("phase") == "train_families":
+                print(path, "train_families", line["arch"], {k: v for k, v in line.items() if k not in (
+                    "phase", "arch", "profiled_step", "step_ms", "opt_ms", "grad_norms")})
                 prof = line["profiled_step"]
                 print("    profiled_step", {f: prof[f] for f in (
                     "wall_ms", "device_busy_ms", "device_idle_share")},
