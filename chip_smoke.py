@@ -527,6 +527,12 @@ TRAIN_BYTES_PER_PARAM = 16
 # bf16 at full depth, since 28 layers of f32 params (65.6 GB) and their
 # DTensor copies do not fit on the card together
 MESH_MOE_ARCH, MESH_MOE_DTYPE = "deepseek-moe-16b", "bfloat16"
+# phase 12 (mesh_lm): the head-split paths at full width, f32, a 2-layer
+# step each: the Mamba2 mixer by blocks of heads, and deepseek-v3's first 2
+# (dense) MLA layers, as phase train_families cuts it
+MESH_TP_ARCHS = ("mamba2-370m", "deepseek-v3-671b")
+MESH_TP_LAYERS = {"mamba2-370m": {"n_layers": 2},
+                  "deepseek-v3-671b": TRAIN_FAMILY_LAYERS["deepseek-v3-671b"]}
 # phase 13 (dryrun): the CLIs' cells on a fake group of 256 ranks (each
 # timed at under about 30 s of meta run on a CPU), the estimator's LM cells
 # (batch, sequence or cache length) held to the card's allocator at
@@ -4241,11 +4247,12 @@ def _mesh_train(torch, dev, mesh, cfg2, seed: int):
     sp, so = device_put(plain, ps), device_put(opt_init(plain, oc), os_)
     with hints.activation_sharding(mesh):
         (sp, so, ms_), sharded_ms = synced(torch, lambda: step(sp, so, sb))
-    (plain, _, mp), plain_ms = synced(torch, lambda: step(plain, opt_init(plain, oc), batch))
     on_layout = all(tuple(x.placements) == s.placements
                     for tree in (sp, so["mu"], so["nu"])
                     for x, s in zip(leaves(tree), leaves(ps)))
     full = [x.full_tensor() for x in leaves(sp)]
+    del so  # the sharded moments: room for the plain step's own
+    (plain, _, mp), plain_ms = synced(torch, lambda: step(plain, opt_init(plain, oc), batch))
     ls, lp = float(ms_["loss"].full_tensor()), float(mp["loss"])
     diff = float(global_norm([a - b for a, b in zip(full, leaves(plain))]))
     train = {"layers": cfg2.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
@@ -4358,6 +4365,52 @@ def _mesh_moe(torch, dev, mesh, seed: int) -> dict:
             "expert_parallel": ep}
 
 
+def _mesh_tp(torch, dev, mesh, seed: int) -> list:
+    """MESH_TP_ARCHS at full width, cut to MESH_TP_LAYERS: each one's FSDP x
+    TP step (f32) against the plain step through the head-split paths,
+    recorded: the Mamba2 mixer's blocks of heads (``hints.per_heads``; on
+    the mesh, not its ``per_rows`` fallback), MLA's head products laid out
+    by ``hints.heads_operands`` and the heads each rank attends over
+    (``hints.per_head``)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import hints
+
+    out = []
+    for arch in MESH_TP_ARCHS:
+        cfg = dataclasses.replace(get_config(arch), **MESH_TP_LAYERS[arch])
+        seen = {"blocks": set(), "operands": 0, "attn_heads": set()}
+
+        def per_heads(real, fn, p, x, n_heads, *a, **kw):
+            def inner(pl, xl, heads, *aa, **kk):
+                seen["blocks"].add((heads.lo, heads.hi, heads.n, heads.axis))
+                return fn(pl, xl, heads, *aa, **kk)
+            return real(inner, p, x, n_heads, *a, **kw)
+
+        def operands(real, x, w):
+            seen["operands"] += 1
+            return real(x, w)
+
+        def per_head(real, fn, q, *a, **kw):
+            seen["attn_heads"].add(int(q.to_local().shape[2]))
+            return real(fn, q, *a, **kw)
+
+        with _Recorded(hints, "per_heads", per_heads), \
+                _Recorded(hints, "heads_operands", operands), \
+                _Recorded(hints, "per_head", per_head):
+            train, plain, _ = _mesh_train(torch, dev, mesh, cfg, seed)
+        del plain
+        gc.collect()
+        torch.cuda.empty_cache()
+        heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim if cfg.ssm else cfg.n_heads
+        out.append({"arch": cfg.name, "heads": heads, "train": train,
+                    "mixer_blocks": [list(b) for b in sorted(seen["blocks"])],
+                    "heads_operands_calls": seen["operands"],
+                    "attn_local_heads": sorted(seen["attn_heads"])})
+    return out
+
+
 def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) -> dict:
     """Phase 12 (``mesh_lm``): the LM side's mesh layer on a (1, 1)
     ("data", "model") mesh in an NCCL world of one (its own, destroyed at
@@ -4378,7 +4431,11 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
     (``_mesh_moe``): MESH_MOE_ARCH at full width, its 2-layer step held as
     llama's, its weight-stationary decode at full depth in MESH_MOE_DTYPE
     giving the plain decode's tokens, every MoE layer through
-    ``hints.per_experts`` with its experts split over "model".  No kernel
+    ``hints.per_experts`` with its experts split over "model".  The
+    head-split paths (``_mesh_tp``): mamba2-370m's and deepseek-v3's 2-layer
+    steps held as llama's, the Mamba2 mixer through ``hints.per_heads`` on
+    the mesh (one block of every head), MLA's head products through
+    ``hints.heads_operands``.  No kernel
     of the port launched.  Recorded: bit-for-bit equality of the sharded
     and plain steps, both step walls, decode ms a token beside the plain
     path's (and llama's beside phase lm's), a sharded llama decode step's
@@ -4457,12 +4514,15 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
 
         # ---- the expert-parallel MoE: deepseek-moe-16b at full width
         moe = _mesh_moe(torch, dev, mesh, seed)
+
+        # ---- the head-split paths: mamba2's mixer and deepseek-v3's MLA
+        tp = _mesh_tp(torch, dev, mesh, seed)
     finally:
         tdist.destroy_process_group()
     launched = {k: c.launches - launched[k] for k, c in counters.items()}
     line = {"phase": "mesh_lm", "arch": cfg.name, "dtype": "f32", **world, "train": train,
             "restore": restore, "pipeline": pipe, "serve": serve, "moe": moe,
-            "kernel_launches": launched}
+            "tensor_parallel": tp, "kernel_launches": launched}
     emit(line)
     assert train["loss_rel"] <= CE_RTOL, train
     assert train["params_diff_global_norm"] < ACCUM_PARAM_BAR, train
@@ -4477,6 +4537,15 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
     assert ms["tokens_equal"], "the MoE's weight-stationary decode's tokens differ"
     assert ep["train_calls"] > 0 and ep["serve_calls"] > 0 and ep["ep_dims"] == [1], ep
     assert ep["experts_local"] == [moe["experts"]] and ep["first"] == [0], ep
+    for rec in tp:
+        t = rec["train"]
+        assert t["loss_rel"] <= CE_RTOL, (rec["arch"], t)
+        assert t["params_diff_global_norm"] < ACCUM_PARAM_BAR, (rec["arch"], t)
+        assert t["on_param_shardings"], f"a {rec['arch']} param or moment left its sharding"
+    mamba, v3 = tp
+    # a (1, 1) mesh: one block of every head, on the mesh (its sum and gather)
+    assert mamba["mixer_blocks"] == [[0, mamba["heads"], mamba["heads"], "model"]], mamba
+    assert v3["heads_operands_calls"] > 0 and v3["attn_local_heads"] == [v3["heads"]], v3
     assert not any(launched.values()), f"mesh_lm launched a kernel of the port: {launched}"
     return line
 

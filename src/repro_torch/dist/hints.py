@@ -12,11 +12,14 @@ over model, residual stream replicated over model.
 
 GSPMD also reshards by itself wherever a view needs it; DTensor does not,
 so port-only anchors sit where the model handles heads: ``split_heads``
-(the (B, S, H * hd) -> (B, S, H, hd) view of q, k and v) and
-``per_head`` (attention run on each rank's own rows and heads); ``rows``
-looks the token embedding up in the table gathered whole; ``per_rows``
-runs a block on each rank's own rows with its weights gathered whole, and
-``per_experts`` the MoE on them with each rank's own experts.
+(the (B, S, H * hd) -> (B, S, H, hd) view of q, k and v),
+``heads_operands`` and ``like`` (MLA's head products and its rope key,
+split by heads over model) and ``per_head`` (attention run on each rank's
+own rows and heads); ``rows`` looks the token embedding up in the table
+gathered whole; ``per_rows`` runs a block on each rank's own rows with its
+weights gathered whole, ``per_experts`` the MoE on them with each rank's
+own experts, and ``per_heads`` the Mamba2 mixer with each rank's own
+heads.
 Inside the context plain tensors that the model builds (positions, RoPE
 tables, masks) count as replicated (``implicit_replication``).
 """
@@ -42,8 +45,9 @@ class activation_sharding:
     (defaults to the mesh's data axes).  ``anchor=False`` leaves ``act``,
     ``heads`` and ``ffn_hidden`` identities, as the reference's hints are
     outside their context, and keeps only the port-only reshards
-    (``split_heads``, ``per_head``, ``rows``) that DTensor needs where
-    GSPMD reshards by itself: the dry-run's step without ``--hints``.
+    (``split_heads``, ``heads_operands``, ``like``, ``per_head``, ``rows``
+    and the ``per_*`` blocks) that DTensor needs where GSPMD reshards by
+    itself: the dry-run's step without ``--hints``.
     """
 
     def __init__(self, mesh, batch_axes=None, *, anchor: bool = True):
@@ -125,6 +129,38 @@ def split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     return x.reshape(B, S, n_heads, head_dim)
 
 
+def heads_operands(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (..., r) and ``w`` (r, H, e) laid out for the product ``x @
+    w`` split by heads: under the context ``x`` keeps its batch split and is
+    gathered over every other mesh dim, ``w`` is split over model on H
+    (whole heads, where H divides; else gathered whole) and gathered over
+    the rest, so that DTensor's product gives each rank its own heads
+    without a collective.  GSPMD finds this layout by itself; DTensor,
+    given an ``x`` split over r (a column-parallel product before it),
+    sums a partial product of every head instead."""
+    if not (_ACTIVE and _dtensor(x) and _dtensor(w)):
+        return x, w
+    from torch.distributed.tensor import Replicate
+
+    mesh = w.device_mesh
+    rows = tuple(q if q.is_shard(0) else Replicate() for q in x.placements)
+    return _to(x, mesh, rows), _to(w, mesh, placements(
+        mesh, _divisible(P(None, "model", None), tuple(w.shape), mesh)))
+
+
+def like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``x`` on ``ref``'s splits under the context (MLA's head-less rope key,
+    broadcast over the heads, takes the head split of the keys it is
+    concatenated with; where ``ref`` is a partial sum, ``x`` is whole);
+    anything else comes back as it is."""
+    if not (_ACTIVE and _dtensor(x) and _dtensor(ref)):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return _to(x, ref.device_mesh,
+               tuple(Replicate() if q.is_partial() else q for q in ref.placements))
+
+
 def merge_heads(y: torch.Tensor) -> torch.Tensor:
     """(B, S, H, hd) -> (B, S, H * hd).  Under the context a DTensor's
     result goes through ``redistribute`` to the layout the view gave it, so
@@ -156,7 +192,7 @@ def per_rows(fn, p: dict, x: torch.Tensor, *args, whole: bool = False, **kwargs)
     """``fn(p, x, *args, **kwargs)`` run by every rank on its own batch
     rows of the DTensor ``x`` as plain tensors, with the params ``p``
     gathered whole (the FSDP unshard, as ``rows`` gathers the embedding,
-    and over any other dim that splits them: the Mamba2 mixer's weights,
+    and over any other dim that splits them: the Mamba2 decode's weights,
     experts that no rule splits; ``per_experts`` keeps split experts);
     ``whole`` makes every rank run the whole batch.  A DTensor in ``args``
     (a decode cache, split over the batch) goes in as its local tensor, so
@@ -303,6 +339,104 @@ def per_experts(fn, p: dict, x: torch.Tensor, experts: tuple[str, ...], *,
     back = tuple(Shard(0) if i in ep and x.placements[i].is_shard(0) and not whole
                  else rows[i] for i in dims)
     return DTensor.from_local(y, mesh, share).redistribute(mesh, back)
+
+
+class _SumOver(torch.autograd.Function):
+    """``dist.psum`` over the mesh axis ``axis``, differentiable: every
+    rank's result is the sum of every rank's input, so each input's
+    gradient is the sum of every rank's result gradient (a psum again)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        from . import psum
+
+        ctx.mesh, ctx.axis = mesh, axis
+        return psum(t, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        from . import psum
+
+        return psum(g, ctx.mesh, ctx.axis), None, None
+
+
+class Heads:
+    """The block of heads ``[lo, hi)`` of ``n`` that a rank computes
+    (``per_heads``), with the sum and the gather over the ranks of the mesh
+    axis ``axis`` that compute the other blocks.  ``Heads(0, n, n)``, every
+    head on its rank and no axis, sums and gathers nothing."""
+
+    def __init__(self, lo: int, hi: int, n: int, mesh=None, axis: str | None = None):
+        self.lo, self.hi, self.n, self.mesh, self.axis = lo, hi, n, mesh, axis
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the blocks, the same on every rank;
+        differentiable."""
+        return t if self.axis is None else _SumOver.apply(t, self.mesh, self.axis)
+
+    def gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every block's ``t`` concatenated along ``dim`` in block order,
+        the same on every rank.  The result carries no gradient (it is a
+        prefill's state)."""
+        if self.axis is None:
+            return t
+        from . import all_gather
+
+        return all_gather(t.detach().movedim(dim, 0), self.mesh, self.axis).movedim(0, dim)
+
+
+def per_heads(fn, p: dict, x: torch.Tensor, n_heads: int, *args, groups: int = 1, **kwargs):
+    """``fn(p, x, heads, *args, **kwargs)``, a block of ``n_heads`` heads
+    (the Mamba2 mixer), run by every rank on its own batch rows of the
+    DTensor ``x`` as plain tensors and on its own block of heads, ``heads``
+    (a ``Heads``: the ranks of the "model" axis split the heads evenly, in
+    the order of their coordinate), with the params ``p`` gathered whole
+    (``fn`` takes its heads' share of them).  ``fn`` gives its block's share
+    of the result, a partial sum (a row-parallel product), or a tuple of it
+    and tensors that are whole on every rank of the axis (``heads.gather``
+    made them so: a prefill's state); the shares are summed over "model"
+    (an all-reduce, or a reduce-scatter back to ``x``'s split), the rest
+    come back DTensors on the rows' layout.  The heads share inputs by
+    ``groups`` (Mamba2's B and C): a block must hold whole groups or lie
+    within one.
+
+    Gradients: every param's, a partial sum over the dims that split the
+    rows and over "model" (the other blocks' columns get zeros from this
+    rank); ``x``'s, a partial sum over "model".  Where the heads do not
+    split evenly over "model" (or a block would cut a group), this is
+    ``per_rows`` with every head on every rank; on a mesh without a
+    "model" axis, one block of every head."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    from ..train._tree import tree_map
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    d = names.index("model") if "model" in names else None
+    m = 1 if d is None else mesh.size(d)
+    size, rep = n_heads // m, n_heads // groups
+    if n_heads % m or (size % rep and rep % size):
+        return per_rows(lambda p_, x_, *a, **k: fn(p_, x_, Heads(0, n_heads, n_heads), *a, **k),
+                        p, x, *args, **kwargs)
+    dims = range(mesh.ndim)
+    rows = tuple(q if q.is_shard(0) and i != d else Replicate()
+                 for i, q in enumerate(x.placements))
+    share = tuple(Partial() if i == d else rows[i] for i in dims)
+    grad = tuple(Partial() if i == d or rows[i].is_shard(0) else Replicate() for i in dims)
+    every = (Replicate(),) * mesh.ndim
+    block = 0 if d is None else mesh.get_coordinate()[d]
+    heads = Heads(block * size, (block + 1) * size, n_heads, mesh,
+                  None if d is None else "model")
+    local = tree_map(lambda v: _to(v, mesh, every).to_local(grad_placements=grad)
+                     if _dtensor(v) else v, p)
+    out = fn(local, _to(x, mesh, rows).to_local(grad_placements=share), heads, *args, **kwargs)
+    y, rest = (out[0], out[1:]) if isinstance(out, tuple) else (out, None)
+    back = tuple(q if i == d and q.is_shard(0) else rows[i] for i, q in enumerate(x.placements))
+    y = DTensor.from_local(y, mesh, share).redistribute(mesh, back)
+    if rest is None:
+        return y
+    return (y, *tree_map(lambda t: DTensor.from_local(t, mesh, rows)
+                         if isinstance(t, torch.Tensor) else t, rest))
 
 
 def on_mesh(x) -> bool:

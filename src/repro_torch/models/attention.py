@@ -18,6 +18,9 @@ The cross-attention trio (``gqa.forward_cross``, ``cross_kv``,
 ``forward_cross_cached``) has no RoPE and no causal mask.  GQA's q, k and
 v pass through ``dist.hints.heads``, as in the reference: an identity off
 a mesh, a redistribution of a DTensor inside ``activation_sharding``.
+MLA's head products and its broadcast rope key are laid out by heads over
+model there (``hints.heads_operands``, ``hints.like``), so that each rank
+attends over its own heads, as GSPMD partitions the reference's.
 Every GQA product promotes as JAX does (``common.matmul``): f32 frames
 through a bf16 whisper encoder stay f32, and so do the cross-attention
 K/V made from them.
@@ -146,7 +149,9 @@ def _heads_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, r) times w (r, H, e) -> (B, S, H, e), the reference's
     ``bsr,rhe->bshe``: one ``matmul``, whose product the remat policy
     keeps (an einsum would compute this product without batch dims as a
-    ``bmm`` of batch 1, and the policy would recompute it)."""
+    ``bmm`` of batch 1, and the policy would recompute it).  On a mesh the
+    product is split by heads over model (``hints.heads_operands``)."""
+    x, w = hints.heads_operands(x, w)
     return matmul(x, w.flatten(1)).unflatten(-1, w.shape[1:])
 
 
@@ -200,7 +205,8 @@ class mla:
         c_kv, k_rope = mla._latent(p, x, cfg, positions)
         k_nope = _heads_proj(c_kv, p["w_uk"])
         v = _heads_proj(c_kv, p["w_uv"])
-        k_rope_h = k_rope[:, :, None, :].expand(B, S, cfg.n_heads, cfg.qk_rope_head_dim)
+        k_rope_h = hints.like(
+            k_rope[:, :, None, :].expand(B, S, cfg.n_heads, cfg.qk_rope_head_dim), k_nope)
         q = torch.cat([q_nope, q_rope], -1)
         k = torch.cat([k_nope, k_rope_h], -1)
         y = chunked_attention(q, k, v, causal=causal)

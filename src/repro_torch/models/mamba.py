@@ -34,6 +34,18 @@ def _dims(cfg, d_model: int):
     return di, H, P, G, N
 
 
+def _gated_norm(y, z, w, eps: float, heads, di: int) -> torch.Tensor:
+    """``rms_norm(y * silu(z), w)`` over all of d_inner, which spans every
+    head: a block of heads (``hints.Heads``) sums its rows' squares over
+    the other blocks before it scales them."""
+    g = y * F.silu(z)
+    if heads.axis is None:
+        return rms_norm(g, w, eps)
+    g32 = g.to(_F32)
+    var = heads.sum((g32 * g32).sum(dim=-1, keepdim=True)) / di
+    return ((g32 * torch.rsqrt(var + eps)) * w.to(_F32)).to(g.dtype)
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: log(1 + e^x) as ``logaddexp(x, 0)``."""
     return torch.logaddexp(x, torch.zeros_like(x))
@@ -76,64 +88,116 @@ class mamba2:
     # ------------------------------------------------------------------
     @staticmethod
     def forward_train(p, x, cfg, d_model: int, return_state: bool = False):
-        if hints.on_mesh(x):  # the scan runs per rank on its own batch rows
-            return hints.per_rows(mamba2.forward_train, p, x, cfg, d_model, return_state)
+        """The chunked SSD over x (B, S, d) -> out, with ``return_state``
+        (out, {"ssm": (B, H, N, P) state, "conv": the conv's last K-1 input
+        rows}).  On a mesh every rank runs its own batch rows and its own
+        block of H/m heads (``hints.per_heads``), as the reference's rules
+        split the mixer over model."""
+        di, H, P, G, N = _dims(cfg, d_model)
+        if hints.on_mesh(x):
+            return hints.per_heads(mamba2._heads, p, x, H, cfg, d_model, return_state,
+                                   groups=G)
+        return mamba2._heads(p, x, hints.Heads(0, H, H), cfg, d_model, return_state)
+
+    @staticmethod
+    def _block(p, cfg, d_model, heads, g0, g1) -> dict:
+        """The mixer's params for the heads of the block ``heads`` and the
+        groups [g0, g1) of B and C: in_proj's columns and the conv's
+        channels of them, the per-head vectors, norm_w's and out_proj's
+        rows of the heads' d_inner span."""
+        di, H, P, G, N = _dims(cfg, d_model)
+        h0, h1 = heads.lo, heads.hi
+        xs, bc = (h0 * P, h1 * P), (g0 * N, g1 * N)
+
+        def cols(t, *spans):
+            return torch.cat([t[..., o + a:o + b] for o, (a, b) in spans], dim=-1)
+
+        conv = ((0, xs), (di, bc), (di + G * N, bc))
+        return {"in_proj": cols(p["in_proj"], (0, xs), *((di + o, s) for o, s in conv),
+                                (2 * di + 2 * G * N, (h0, h1))),
+                "conv_w": cols(p["conv_w"], *conv), "conv_b": cols(p["conv_b"], *conv),
+                "A_log": p["A_log"][..., h0:h1], "dt_bias": p["dt_bias"][..., h0:h1],
+                "D": p["D"][..., h0:h1], "norm_w": p["norm_w"][..., xs[0]:xs[1]],
+                "out_proj": p["out_proj"][xs[0]:xs[1]]}
+
+    @staticmethod
+    def _heads(p, x, heads, cfg, d_model: int, return_state: bool = False):
+        """``forward_train`` for the block of heads ``heads`` (a
+        ``hints.Heads``; every head off a mesh): the block's share of out
+        (its rows of out_proj: a partial sum over the blocks) and, with
+        ``return_state``, the whole state (``heads.gather``)."""
         B, S, _ = x.shape
         di, H, P, G, N = _dims(cfg, d_model)
         Q = min(cfg.ssm_chunk, S)
         assert S % Q == 0, f"seq {S} must divide chunk {Q}"
         nc = S // Q
         K = cfg.conv_kernel
+        Hl, rep = heads.hi - heads.lo, H // G
+        # the groups of B and C the heads read, [r0, r1); a block that holds
+        # whole groups computes only its own, one within a group all G
+        r0, r1 = heads.lo // rep, (heads.hi - 1) // rep + 1
+        g0, g1 = (r0, r1) if Hl % rep == 0 else (0, G)
+        if Hl < H:
+            p = mamba2._block(p, cfg, d_model, heads, g0, g1)
+        dl, gn = Hl * P, (g1 - g0) * N
 
-        z, xs, Bc, Cc, dt = mamba2._split(p, x, cfg, d_model)
+        proj = matmul(x, p["in_proj"])  # (B,S,2dl+2gn+Hl)
+        z, xs, Bc, Cc, dt = torch.split(proj, [dl, dl, gn, gn, Hl], dim=-1)
         conv_in = torch.cat([xs, Bc, Cc], dim=-1)
         conv_out = mamba2._conv_train(p, conv_in, K)
-        xs, Bc, Cc = torch.split(conv_out, [di, G * N, G * N], dim=-1)
+        xs, Bc, Cc = torch.split(conv_out, [dl, gn, gn], dim=-1)
+        Gl = r1 - r0
+        if (g0, g1) != (r0, r1):
+            Bc = Bc[..., (r0 - g0) * N:(r1 - g0) * N]
+            Cc = Cc[..., (r0 - g0) * N:(r1 - g0) * N]
 
-        dt = _softplus(dt.to(_F32) + p["dt_bias"])    # (B,S,H)
-        A = -torch.exp(p["A_log"])                    # (H,)
-        a = dt * A[None, None, :]                     # (B,S,H) <= 0
+        dt = _softplus(dt.to(_F32) + p["dt_bias"])    # (B,S,Hl)
+        A = -torch.exp(p["A_log"])                    # (Hl,)
+        a = dt * A[None, None, :]                     # (B,S,Hl) <= 0
 
         # chunk by chunk, one (B, Q, ...) working set at a time, carrying
-        # the (B, H, N, P) state
-        rep = H // G
-        xh = xs.reshape(B, nc, Q, H, P).to(_F32)
-        Bh = Bc.reshape(B, nc, Q, G, N).to(_F32)
-        Ch = Cc.reshape(B, nc, Q, G, N).to(_F32)
-        ac = a.reshape(B, nc, Q, H)
-        dtc = dt.reshape(B, nc, Q, H)
+        # the (B, Hl, N, P) state
+        rep = Hl // Gl
+        xh = xs.reshape(B, nc, Q, Hl, P).to(_F32)
+        Bh = Bc.reshape(B, nc, Q, Gl, N).to(_F32)
+        Ch = Cc.reshape(B, nc, Q, Gl, N).to(_F32)
+        ac = a.reshape(B, nc, Q, Hl)
+        dtc = dt.reshape(B, nc, Q, Hl)
         mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
 
-        h = torch.zeros((B, H, N, P), dtype=_F32, device=x.device)
+        h = torch.zeros((B, Hl, N, P), dtype=_F32, device=x.device)
         ys = []
         for c in range(nc):
             xc, bc, cc, a_c, dt_c = xh[:, c], Bh[:, c], Ch[:, c], ac[:, c], dtc[:, c]
             xbar = xc * dt_c[..., None]
-            cum = torch.cumsum(a_c, dim=1)                      # (B,Q,H)
-            li = cum[:, :, None, :] - cum[:, None, :, :]        # (B,Q,Q,H)
+            cum = torch.cumsum(a_c, dim=1)                      # (B,Q,Hl)
+            li = cum[:, :, None, :] - cum[:, None, :, :]        # (B,Q,Q,Hl)
             Lm = torch.where(mask[None, :, :, None], torch.exp(li), 0.0)
-            scores = torch.einsum("bqgn,bsgn->bqsg", cc, bc)    # (B,Q,Q,G)
+            scores = torch.einsum("bqgn,bsgn->bqsg", cc, bc)    # (B,Q,Q,Gl)
             att = torch.repeat_interleave(scores, rep, dim=-1) * Lm
             y_intra = torch.einsum("bqsh,bshp->bqhp", att, xbar)
             # inter-chunk contribution from the carried state
-            cc_h = torch.repeat_interleave(cc, rep, dim=2)      # (B,Q,H,N)
+            cc_h = torch.repeat_interleave(cc, rep, dim=2)      # (B,Q,Hl,N)
             y_inter = torch.einsum("bqh,bqhn,bhnp->bqhp", torch.exp(cum), cc_h, h)
             # state update
-            decay_to_end = torch.exp(cum[:, -1:, :] - cum)      # (B,Q,H)
+            decay_to_end = torch.exp(cum[:, -1:, :] - cum)      # (B,Q,Hl)
             bc_h = torch.repeat_interleave(bc, rep, dim=2)
             s_c = torch.einsum("bqh,bqhn,bqhp->bhnp", decay_to_end, bc_h, xbar)
             h = h * torch.exp(cum[:, -1, :])[:, :, None, None] + s_c
             ys.append(y_intra + y_inter)
-        y = torch.stack(ys, dim=1).reshape(B, S, H, P)
-        y = y + p["D"][None, None, :, None] * xs.reshape(B, S, H, P).to(_F32)
-        y = y.reshape(B, S, di).to(x.dtype)
-        y = rms_norm(y * F.silu(z), p["norm_w"], cfg.rms_eps)
-        out = matmul(y, p["out_proj"])
+        y = torch.stack(ys, dim=1).reshape(B, S, Hl, P)
+        y = y + p["D"][None, None, :, None] * xs.reshape(B, S, Hl, P).to(_F32)
+        y = y.reshape(B, S, dl).to(x.dtype)
+        out = matmul(_gated_norm(y, z, p["norm_w"], cfg.rms_eps, heads, di), p["out_proj"])
         if not return_state:
             return out
         # the conv tail is the last K-1 rows of the conv's input
-        conv_tail = conv_in[:, -(K - 1):, :] if K > 1 else conv_in[:, :0, :]
-        return out, {"ssm": h, "conv": conv_tail.to(x.dtype)}
+        tail = conv_in[:, -(K - 1):, :] if K > 1 else conv_in[:, :0, :]
+        xt, bt, ct = torch.split(tail, [dl, gn, gn], dim=-1)
+        if g1 - g0 < G:  # each block computed its own groups
+            bt, ct = heads.gather(bt, 2), heads.gather(ct, 2)
+        conv_tail = torch.cat([heads.gather(xt, 2), bt, ct], dim=-1)
+        return out, {"ssm": heads.gather(h, 1), "conv": conv_tail.to(x.dtype)}
 
     # ------------------------------------------------------------------
     @staticmethod

@@ -202,3 +202,96 @@ def test_a_world_of_another_size_raises():
     run = subprocess.run([sys.executable, "-c", _WRONG_WORLD], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0 and "raised" in run.stdout, run.stderr[-3000:]
+
+
+# The reduced deepseek-v3 and mamba2 train steps (remat on) on a fake (2, 4)
+# group, meta tensors: the shape of every storage rank 0 makes
+_HEADS = r"""
+import json
+import sys
+import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.dist import hints, make_mesh
+from repro_torch.dist.sharding import (NamedSharding, PartitionSpec as P, batch_shardings,
+                                       device_put, param_shardings)
+from repro_torch.launch import analysis
+from repro_torch.launch.specs import input_specs
+from repro_torch.models.lm import build_model
+from repro_torch.train.optimizer import OptConfig, opt_init
+from repro_torch.train.trainer import TrainConfig, make_train_step
+
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+made = []
+track = analysis._Trace._track
+def tracked(self, t):
+    if id(t.untyped_storage()) not in self._seen:
+        made.append([list(t.shape), str(sys._getframe(1).f_locals.get("func"))])
+    track(self, t)
+analysis._Trace._track = tracked
+out = {}
+for arch in ("deepseek-v3-671b", "mamba2-370m"):
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    with torch.device("meta"):
+        params = model._draw(torch.Generator(), torch.float32)
+    ps = param_shardings(params, mesh, cfg)
+    oc = OptConfig()
+    batch = input_specs(cfg, ShapeSpec("x", 64, 8, "train"), dtype=torch.float32)
+    args = device_put((params, opt_init(params, oc), batch),
+                      (ps, {"mu": ps, "nu": ps, "step": NamedSharding(mesh, P())},
+                       batch_shardings(batch, mesh)))
+    made.clear()
+    with hints.activation_sharding(mesh):
+        analysis.memory_trace(make_train_step(model, TrainConfig(opt=oc, remat=True)), *args)
+    out[arch] = list(made)
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def head_split_shapes():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, "-c", _HEADS], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def _products(made, rows, width):
+    """How many ``mm`` products of (rows, width) rank 0 made."""
+    return sum(1 for shape, op in made if shape == [rows, width] and op == "aten.mm.default")
+
+
+def test_mla_attention_blocks_carry_only_the_ranks_heads(head_split_shapes):
+    """deepseek-v3-671b reduced (4 MLA heads, 4 layers) trained at B = 8,
+    S = 64 on a fake (2, 4) group: every attention block rank 0 makes,
+    (rows, kv heads, 1, q, k), holds its 4 rows and 4 / 4 = 1 head, never
+    all 4 (the full-width ``train_4k`` cell's peak was such a block of 128
+    heads); q's head product over its 4 x 64 rows is its one head's 16 + 8
+    columns, made once a layer: remat's recompute gets it back
+    (``common.saving_products``)."""
+    H, m, S = 4, 4, 64
+    made = head_split_shapes["deepseek-v3-671b"]
+    blocks = [shape for shape, _ in made if len(shape) == 5 and shape[3:] == [S, S]]
+    assert blocks
+    assert {tuple(s[:3]) for s in blocks} == {(8 // 2, H // m, 1)}, blocks
+    assert _products(made, 4 * S, 24) == 4 and _products(made, 4 * S, H * 24) == 0
+
+
+def test_mamba2_mixer_products_carry_only_the_ranks_heads(head_split_shapes):
+    """mamba2-370m reduced (8 heads of 16, state 16, one group, 4 layers)
+    trained at B = 8, S = 64 on a fake (2, 4) group: rank 0's in_proj
+    product over its 4 x 64 rows has its 2 heads' z, x and dt columns and
+    the group's B and C (2 x 32 + 2 x 16 + 2 = 98), never all 2 x 128 + 2 x
+    16 + 8 = 296, made once a layer (remat's recompute gets it back); the
+    scan's (rows, Q, Q, heads) blocks hold 2 heads."""
+    rows, Hl, Q = 4 * 64, 2, 16
+    made = head_split_shapes["mamba2-370m"]
+    widths = {shape[1] for shape, _ in made if len(shape) == 2 and shape[0] == rows}
+    assert 98 in widths and 296 not in widths, widths
+    assert _products(made, rows, 98) == 4
+    scan = [shape for shape, _ in made if len(shape) == 4 and shape[1:3] == [Q, Q]]
+    assert scan and {s[3] for s in scan} == {Hl}, scan

@@ -8,8 +8,10 @@ in turns within one call.
 PHASE is ``train``: phase ``train``'s step on its own (llama3.2-3b at full
 width, f32, params drawn on the card from ``--seed``, AdamW at
 ``TRAIN_LR``, remat, ``TRAIN_STEPS`` steps on one ``TokenStream`` batch of
-``TRAIN_BATCH`` x ``TRAIN_SEQ``, timed by ``chip_smoke._timed_steps``), or
-``train_families``: ``chip_smoke.train_families_phase`` itself.  The
+``TRAIN_BATCH`` x ``TRAIN_SEQ``, timed by ``chip_smoke._timed_steps``),
+``train_families``: ``chip_smoke.train_families_phase`` itself, or
+``mesh_lm``: ``chip_smoke.mesh_lm_phase`` itself (its own NCCL world of
+one; no decode of phase ``lm`` to set beside its own).  The
 helpers always come from this tree's ``chip_smoke.py``; ``--src`` is the
 ``src/`` directory whose ``repro_torch`` they run (default: this tree's;
 a parent unpacked with ``git archive`` under ``build/`` works too, for
@@ -55,7 +57,7 @@ def train_step(torch, cs, dev, seed: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("phases", nargs="+", choices=("train", "train_families"))
+    ap.add_argument("phases", nargs="+", choices=("train", "train_families", "mesh_lm"))
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -80,9 +82,12 @@ def main() -> int:
         t0 = time.perf_counter()
         if phase == "train":
             line = {"phase": "train_alone", **train_step(torch, cs, dev, args.seed)}
-        else:
+        elif phase == "train_families":
             cs.train_families_phase(torch, dev, args.seed, counters)
             line = {"phase": "train_families_alone"}
+        else:
+            cs.mesh_lm_phase(torch, dev, args.seed, None, counters)
+            line = {"phase": "mesh_lm_alone"}
         gc.collect()
         torch.cuda.empty_cache()
         print(json.dumps({**line, "src": args.src, "seconds": time.perf_counter() - t0}),

@@ -14,8 +14,8 @@ profiles' busy and idle time, its ``train``, ``train_2l`` and
 ``train_reduced`` phases (``train``'s step walls and peak memory for the
 parent runs too), its ``families`` and ``train_families`` lines (one per
 model: times, bounds, holds, the MoE and MLA records, the profiles' busy
-and idle time), its ``mesh_lm`` phase (its holds, walls and a sharded decode
-step's profile), its ``dryrun`` phase (each CLI cell's status, seconds and
+and idle time), its ``mesh_lm`` phase (its holds, walls, a sharded decode
+step's profile, the MoE's step and the head-split steps), its ``dryrun`` phase (each CLI cell's status, seconds and
 counts; the estimator's cells, the f8 agreement, the PDX rank's rows),
 and its ``routing``, ``sharded`` and ``routed`` phases
 and the ``fused_scan_wall`` medians, in each run given (parent runs too).
@@ -150,6 +150,9 @@ def main() -> None:
                 print("    decode_profile", {f: prof[f] for f in (
                     "wall_ms", "device_busy_ms", "device_idle_share")},
                     [(t["kernel"][:40], round(t["ms"], 3)) for t in prof["top"][:4]])
+                print(path, "mesh_lm moe train", line["moe"]["train"])
+                for rec in line.get("tensor_parallel", []):
+                    print(path, "mesh_lm tensor_parallel", rec)
             elif line.get("phase") == "dryrun_cell":
                 print(path, "dryrun_cell", line["cell"], line["rc"], line["status"],
                       line["meta_run_s"], (line["jaxpr_cost"] or {}).get("flops"),

@@ -11,8 +11,12 @@ It runs ``repro_torch.launch.dryrun.run_cell`` (meta tensors over a
 wrapped, so the cell's record is the one the dry-run writes, and prints
 the peak twice: over the ops that run inside the model's code (forward
 and remat's recompute) and over those autograd's engine runs with no
-model frame (the backward).  The wrapper walks the Python stack at every
-tracked storage, so a cell takes several times its plain meta run.
+model frame (the backward).  Then the largest storage that each model
+line made over the whole run (which heads a rank's attention blocks and
+mixer products carry, whether or not they hold the peak), keyed by the
+innermost model line and its caller.  The wrapper
+walks the Python stack at every tracked storage, so a cell takes several
+times its plain meta run.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ def main(argv=None) -> None:
 
     made = {}  # id of storage -> (shape, op, model lines)
     peak = {"forward": (0.0, []), "backward": (0.0, [])}
+    by_line = {}  # innermost two model lines -> (bytes, shape, op) of its largest storage
     track = analysis._Trace._track
 
     def tracked(self, t):
@@ -44,6 +49,9 @@ def main(argv=None) -> None:
                  for f in traceback.extract_stack()
                  if "repro_torch/models" in f.filename or "repro_torch/dist" in f.filename]
         made[key] = (tuple(t.shape), str(op), lines[-3:])
+        n, at = t.untyped_storage().nbytes(), " < ".join(reversed(lines[-2:]))
+        if lines and n > by_line.get(at, (0,))[0]:
+            by_line[at] = (n, tuple(t.shape), str(op))
         track(self, t)
         phase = "forward" if made[key][2] else "backward"
         if self.live > peak[phase][0]:
@@ -61,6 +69,9 @@ def main(argv=None) -> None:
         print(f"{phase} peak {live:.6g} B; largest live storages:")
         for n, (shape, op, lines) in top:
             print(f"  {n:.4g} B  {shape}  {op}  {' < '.join(reversed(lines))}")
+    print("largest storage by model line (and its caller):")
+    for line, (n, shape, op) in sorted(by_line.items(), key=lambda kv: -kv[1][0])[:args.top]:
+        print(f"  {n:.4g} B  {shape}  {op}  {line}")
 
 
 if __name__ == "__main__":
