@@ -4218,11 +4218,11 @@ def _greedy(torch, model, params, tokens, cache_len: int, steps: int, reshard=No
     return torch.stack(out, 1).cpu().numpy(), prefill_ms, step_ms
 
 
-def _mesh_train(torch, dev, mesh, cfg2, seed: int):
+def _mesh_train(torch, dev, mesh, cfg2, seed: int, seq: int = TRAIN_SEQ):
     """The FSDP x TP train step of ``cfg2`` (f32, AdamW at TRAIN_LR,
-    remat; DTensor params, moments and batch, the hints active) against
-    the plain step from the same params -> (the record, the plain step's
-    params, their shardings)."""
+    remat; DTensor params, moments and batch of ``seq`` positions, the
+    hints active) against the plain step from the same params -> (the
+    record, the plain step's params, their shardings)."""
     from repro_torch.data.pipeline import TokenStream, to_device
     from repro_torch.dist import hints
     from repro_torch.dist.sharding import (
@@ -4235,7 +4235,7 @@ def _mesh_train(torch, dev, mesh, cfg2, seed: int):
     model2 = build_model(cfg2)
     oc = OptConfig(lr=TRAIN_LR, warmup_steps=0)
     step = trainer.make_train_step(model2, trainer.TrainConfig(opt=oc))
-    batch = to_device(dev)(TokenStream(cfg2, TRAIN_SEQ, TRAIN_BATCH, seed).batch_at(0))
+    batch = to_device(dev)(TokenStream(cfg2, seq, TRAIN_BATCH, seed).batch_at(0))
     plain = model2.init(torch.Generator(device=dev).manual_seed(seed), device=dev)
     ps = param_shardings(plain, mesh, cfg2)
     os_ = {"mu": ps, "nu": ps, "step": NamedSharding(mesh, PartitionSpec())}
@@ -4255,7 +4255,7 @@ def _mesh_train(torch, dev, mesh, cfg2, seed: int):
     (plain, _, mp), plain_ms = synced(torch, lambda: step(plain, opt_init(plain, oc), batch))
     ls, lp = float(ms_["loss"].full_tensor()), float(mp["loss"])
     diff = float(global_norm([a - b for a, b in zip(full, leaves(plain))]))
-    train = {"layers": cfg2.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+    train = {"layers": cfg2.n_layers, "batch": TRAIN_BATCH, "seq": seq, "lr": TRAIN_LR,
              "loss_sharded": ls, "loss_plain": lp, "loss_rel": abs(ls - lp) / abs(lp),
              "grad_norm_sharded": float(ms_["grad_norm"].full_tensor()),
              "grad_norm_plain": float(mp["grad_norm"]),
@@ -4367,8 +4367,9 @@ def _mesh_moe(torch, dev, mesh, seed: int) -> dict:
 
 def _mesh_tp(torch, dev, mesh, seed: int) -> list:
     """MESH_TP_ARCHS at full width, cut to MESH_TP_LAYERS: each one's FSDP x
-    TP step (f32) against the plain step through the head-split paths,
-    recorded: the Mamba2 mixer's blocks of heads (``hints.per_heads``; on
+    TP step (f32) against the plain step through the head-split paths, at
+    TRAIN_FAMILY_SEQ's positions where it names the model (mamba2's four
+    SSD chunks, so that the carried state and its backward run), recorded: the Mamba2 mixer's blocks of heads (``hints.per_heads``; on
     the mesh, not its ``per_rows`` fallback), MLA's head products laid out
     by ``hints.heads_operands`` and the heads each rank attends over
     (``hints.per_head``)."""
@@ -4399,12 +4400,14 @@ def _mesh_tp(torch, dev, mesh, seed: int) -> list:
         with _Recorded(hints, "per_heads", per_heads), \
                 _Recorded(hints, "heads_operands", operands), \
                 _Recorded(hints, "per_head", per_head):
-            train, plain, _ = _mesh_train(torch, dev, mesh, cfg, seed)
+            train, plain, _ = _mesh_train(torch, dev, mesh, cfg, seed,
+                                          TRAIN_FAMILY_SEQ.get(arch, TRAIN_SEQ))
         del plain
         gc.collect()
         torch.cuda.empty_cache()
         heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim if cfg.ssm else cfg.n_heads
         out.append({"arch": cfg.name, "heads": heads, "train": train,
+                    "ssd_chunks": train["seq"] // cfg.ssm_chunk if cfg.ssm else None,
                     "mixer_blocks": [list(b) for b in sorted(seen["blocks"])],
                     "heads_operands_calls": seen["operands"],
                     "attn_local_heads": sorted(seen["attn_heads"])})
@@ -4432,8 +4435,8 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
     llama's, its weight-stationary decode at full depth in MESH_MOE_DTYPE
     giving the plain decode's tokens, every MoE layer through
     ``hints.per_experts`` with its experts split over "model".  The
-    head-split paths (``_mesh_tp``): mamba2-370m's and deepseek-v3's 2-layer
-    steps held as llama's, the Mamba2 mixer through ``hints.per_heads`` on
+    head-split paths (``_mesh_tp``): mamba2-370m's (at 1024 positions, four
+    SSD chunks) and deepseek-v3's 2-layer steps held as llama's, the Mamba2 mixer through ``hints.per_heads`` on
     the mesh (one block of every head), MLA's head products through
     ``hints.heads_operands``.  No kernel
     of the port launched.  Recorded: bit-for-bit equality of the sharded
@@ -4545,6 +4548,7 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
     mamba, v3 = tp
     # a (1, 1) mesh: one block of every head, on the mesh (its sum and gather)
     assert mamba["mixer_blocks"] == [[0, mamba["heads"], mamba["heads"], "model"]], mamba
+    assert mamba["ssd_chunks"] >= 4, "the mesh step ran too few SSD chunks to carry a state"
     assert v3["heads_operands_calls"] > 0 and v3["attn_local_heads"] == [v3["heads"]], v3
     assert not any(launched.values()), f"mesh_lm launched a kernel of the port: {launched}"
     return line

@@ -188,6 +188,43 @@ def rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.embedding(idx, whole)
 
 
+def _whole(v, grad: tuple):
+    """The DTensor ``v`` gathered whole as a plain tensor whose gradient
+    goes back on the placements ``grad``; anything else as it is."""
+    if not _dtensor(v):
+        return v
+    from torch.distributed.tensor import Replicate
+
+    mesh = v.device_mesh
+    return _to(v, mesh, (Replicate(),) * mesh.ndim).to_local(grad_placements=grad)
+
+
+def _blocks(x: torch.Tensor, dims: tuple[int, ...], whole: bool = False):
+    """The layouts for a block of work computed by each rank of the mesh
+    dims ``dims`` on the same batch rows of the DTensor ``x``, the blocks'
+    results summed over ``dims`` -> ``(rows, share, grad, back, block)``:
+    the rows each rank runs (``x`` gathered over ``dims``; over every dim
+    with ``whole``), a block's result (a partial sum over ``dims``), the
+    gradient of a param gathered whole (a partial sum over ``dims`` and the
+    dims that split the rows), the sum's layout (``x``'s own split) and the
+    rank's block over ``dims`` (DTensor's order of a dim split over several
+    mesh dims)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    rows = tuple(q if q.is_shard(0) and not whole and i not in dims else Replicate()
+                 for i, q in enumerate(x.placements))
+    share = tuple(Partial() if i in dims else q for i, q in enumerate(rows))
+    grad = tuple(Partial() if i in dims or q.is_shard(0) else Replicate()
+                 for i, q in enumerate(rows))
+    back = tuple(Shard(0) if i in dims and x.placements[i].is_shard(0) and not whole else q
+                 for i, q in enumerate(rows))
+    coord, block = mesh.get_coordinate(), 0
+    for i in dims:
+        block = block * mesh.size(i) + coord[i]
+    return rows, share, grad, back, block
+
+
 def per_rows(fn, p: dict, x: torch.Tensor, *args, whole: bool = False, **kwargs):
     """``fn(p, x, *args, **kwargs)`` run by every rank on its own batch
     rows of the DTensor ``x`` as plain tensors, with the params ``p``
@@ -213,10 +250,6 @@ def per_rows(fn, p: dict, x: torch.Tensor, *args, whole: bool = False, **kwargs)
     else:
         rows = tuple(q if q.is_shard(0) and not whole else Replicate() for q in x.placements)
     partial = tuple(Partial() if q.is_shard(0) else Replicate() for q in rows)
-    every = (Replicate(),) * mesh.ndim
-
-    def param(v):
-        return _to(v, mesh, every).to_local(grad_placements=partial) if _dtensor(v) else v
 
     def local(v):
         if not _dtensor(v):
@@ -225,8 +258,8 @@ def per_rows(fn, p: dict, x: torch.Tensor, *args, whole: bool = False, **kwargs)
             raise ValueError(f"per_rows: an argument on {tuple(v.placements)}, the rows on {rows}")
         return v.to_local()
 
-    out = fn(tree_map(param, p), _to(x, mesh, rows).to_local(), *tree_map(local, args),
-             **kwargs)
+    out = fn(tree_map(lambda v: _whole(v, partial), p), _to(x, mesh, rows).to_local(),
+             *tree_map(local, args), **kwargs)
     return tree_map(lambda t: DTensor.from_local(t, mesh, rows)
                     if isinstance(t, torch.Tensor) else t, out)
 
@@ -287,7 +320,7 @@ def per_experts(fn, p: dict, x: torch.Tensor, experts: tuple[str, ...], *,
     are partial sums over every dim that splits the rows, and over the
     expert dims where each rank saw only its block's share (``x``'s too).
     Where the experts split over no dim, this is ``per_rows``."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from ..train._tree import tree_map
 
@@ -295,49 +328,33 @@ def per_experts(fn, p: dict, x: torch.Tensor, experts: tuple[str, ...], *,
     if not ep:
         return per_rows(lambda p_, x_: fn(p_, x_, 0, None), p, x, whole=whole)
     mesh = x.device_mesh
-    dims = range(mesh.ndim)
-    if exchange:
-        if len(ep) != 1 or not x.placements[ep[0]].is_shard(0) or whole:
-            raise ValueError(f"per_experts: an exchange needs the rows split over the one "
-                             f"expert dim, got experts over {ep}, x on {tuple(x.placements)}")
-        rows = tuple(q if q.is_shard(0) else Replicate() for q in x.placements)
-    else:
-        rows = tuple(q if q.is_shard(0) and not whole and i not in ep else Replicate()
-                     for i, q in enumerate(x.placements))
-    split = tuple(i for i in dims if rows[i].is_shard(0))
-    summed = () if exchange else ep  # the dims over which the blocks' shares sum
+    if exchange and (len(ep) != 1 or not x.placements[ep[0]].is_shard(0) or whole):
+        raise ValueError(f"per_experts: an exchange needs the rows split over the one "
+                         f"expert dim, got experts over {ep}, x on {tuple(x.placements)}")
+    # an exchange keeps each rank's own rows and sums nothing
+    rows, share, grad, back, block = _blocks(x, () if exchange else ep, whole)
     n_blocks = math.prod(mesh.size(i) for i in ep)
     E = p[experts[0]].shape[0]
     if E % n_blocks:
         raise ValueError(f"per_experts: {E} experts do not split evenly over {n_blocks} ranks")
-    coord, block = mesh.get_coordinate(), 0
-    for i in ep:  # DTensor's order of a dim split over several mesh dims
-        block = block * mesh.size(i) + coord[i]
-    own = tuple(Shard(0) if i in ep else Replicate() for i in dims)
+    own = tuple(Shard(0) if i in ep else Replicate() for i in range(mesh.ndim))
+    own_grad = tuple(Shard(0) if i in ep else g for i, g in enumerate(grad))
 
     def param(name, v):
-        if not _dtensor(v):
-            return v
-        if name in experts:
-            if expert_dims(v) != ep:
-                raise ValueError(f"per_experts: {name} splits its experts over mesh dims "
-                                 f"{expert_dims(v)}, {experts[0]} over {ep}")
-            grad = tuple(Shard(0) if i in ep else Partial() if i in split else Replicate()
-                         for i in dims)
-            return _to(v, mesh, own).to_local(grad_placements=grad)
-        grad = tuple(Partial() if i in split or i in summed else Replicate() for i in dims)
-        return _to(v, mesh, (Replicate(),) * mesh.ndim).to_local(grad_placements=grad)
+        if not _dtensor(v) or name not in experts:
+            return _whole(v, grad)
+        if expert_dims(v) != ep:
+            raise ValueError(f"per_experts: {name} splits its experts over mesh dims "
+                             f"{expert_dims(v)}, {experts[0]} over {ep}")
+        return _to(v, mesh, own).to_local(grad_placements=own_grad)
 
     local = {k: tree_map(lambda t, k=k: param(k, t), v) for k, v in p.items()}
-    share = tuple(Partial() if i in summed else rows[i] for i in dims)
     xl = _to(x, mesh, rows).to_local(grad_placements=share)
     if exchange:
         axis = mesh.mesh_dim_names[ep[0]]
         y = fn(local, xl, 0, lambda t: _AllToAll.apply(t, mesh, axis))
         return DTensor.from_local(y, mesh, rows)
     y = fn(local, xl, block * (E // n_blocks), None)
-    back = tuple(Shard(0) if i in ep and x.placements[i].is_shard(0) and not whole
-                 else rows[i] for i in dims)
     return DTensor.from_local(y, mesh, share).redistribute(mesh, back)
 
 
@@ -406,7 +423,7 @@ def per_heads(fn, p: dict, x: torch.Tensor, n_heads: int, *args, groups: int = 1
     split evenly over "model" (or a block would cut a group), this is
     ``per_rows`` with every head on every rank; on a mesh without a
     "model" axis, one block of every head."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor
 
     from ..train._tree import tree_map
 
@@ -418,20 +435,12 @@ def per_heads(fn, p: dict, x: torch.Tensor, n_heads: int, *args, groups: int = 1
     if n_heads % m or (size % rep and rep % size):
         return per_rows(lambda p_, x_, *a, **k: fn(p_, x_, Heads(0, n_heads, n_heads), *a, **k),
                         p, x, *args, **kwargs)
-    dims = range(mesh.ndim)
-    rows = tuple(q if q.is_shard(0) and i != d else Replicate()
-                 for i, q in enumerate(x.placements))
-    share = tuple(Partial() if i == d else rows[i] for i in dims)
-    grad = tuple(Partial() if i == d or rows[i].is_shard(0) else Replicate() for i in dims)
-    every = (Replicate(),) * mesh.ndim
-    block = 0 if d is None else mesh.get_coordinate()[d]
+    rows, share, grad, back, block = _blocks(x, () if d is None else (d,))
     heads = Heads(block * size, (block + 1) * size, n_heads, mesh,
                   None if d is None else "model")
-    local = tree_map(lambda v: _to(v, mesh, every).to_local(grad_placements=grad)
-                     if _dtensor(v) else v, p)
+    local = tree_map(lambda v: _whole(v, grad), p)
     out = fn(local, _to(x, mesh, rows).to_local(grad_placements=share), heads, *args, **kwargs)
     y, rest = (out[0], out[1:]) if isinstance(out, tuple) else (out, None)
-    back = tuple(q if i == d and q.is_shard(0) else rows[i] for i, q in enumerate(x.placements))
     y = DTensor.from_local(y, mesh, share).redistribute(mesh, back)
     if rest is None:
         return y

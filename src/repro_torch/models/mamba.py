@@ -37,10 +37,8 @@ def _dims(cfg, d_model: int):
 def _gated_norm(y, z, w, eps: float, heads, di: int) -> torch.Tensor:
     """``rms_norm(y * silu(z), w)`` over all of d_inner, which spans every
     head: a block of heads (``hints.Heads``) sums its rows' squares over
-    the other blocks before it scales them."""
+    the other blocks before it scales them (every head: a sum of one)."""
     g = y * F.silu(z)
-    if heads.axis is None:
-        return rms_norm(g, w, eps)
     g32 = g.to(_F32)
     var = heads.sum((g32 * g32).sum(dim=-1, keepdim=True)) / di
     return ((g32 * torch.rsqrt(var + eps)) * w.to(_F32)).to(g.dtype)
