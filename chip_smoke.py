@@ -3298,13 +3298,15 @@ def _finite(torch, tensors) -> bool:
 
 class _Recorded:
     """Replaces ``module.name`` (looked up at each call) with a wrapper that
-    calls ``hook(result, *args)``; restores it on exit."""
+    calls ``hook(result, *args)``; restores it on exit (a class's
+    staticmethod as such)."""
 
     def __init__(self, module, name: str, hook):
         self.module, self.name, self.hook = module, name, hook
 
     def __enter__(self):
-        real = self.real = getattr(self.module, self.name)
+        self.raw = vars(self.module)[self.name]
+        real = getattr(self.module, self.name)
 
         def wrapped(*args, **kwargs):
             return self.hook(real, *args, **kwargs)
@@ -3312,7 +3314,7 @@ class _Recorded:
         return self
 
     def __exit__(self, *exc):
-        setattr(self.module, self.name, self.real)
+        setattr(self.module, self.name, self.raw)
 
 
 def _timed_steps(torch, step, params, state, batch) -> dict:
@@ -4369,48 +4371,88 @@ def _mesh_tp(torch, dev, mesh, seed: int) -> list:
     """MESH_TP_ARCHS at full width, cut to MESH_TP_LAYERS: each one's FSDP x
     TP step (f32) against the plain step through the head-split paths, at
     TRAIN_FAMILY_SEQ's positions where it names the model (mamba2's four
-    SSD chunks, so that the carried state and its backward run), recorded: the Mamba2 mixer's blocks of heads (``hints.per_heads``; on
-    the mesh, not its ``per_rows`` fallback), MLA's head products laid out
-    by ``hints.heads_operands`` and the heads each rank attends over
-    (``hints.per_head``)."""
+    SSD chunks, so that the carried state and its backward run), then its
+    weight-stationary decode (``_mesh_serve``, f32) against the plain
+    decode, recorded: the Mamba2 mixer's blocks of heads in the step and in
+    the decode (``hints.per_heads``; on the mesh, not its ``per_rows``
+    fallback; the decode's ``in_proj`` as the rank holds it), MLA's head
+    products laid out by ``hints.column_operands`` (a weight with a head
+    axis), the heads each rank attends over in the step (``hints.per_head``)
+    and in the absorbed decode (``mla._absorbed``'s query, split by heads
+    over "model")."""
     import dataclasses
+
+    from torch.distributed.tensor import DTensor
 
     from repro_torch.configs import get_config
     from repro_torch.dist import hints
+    from repro_torch.models.attention import mla
 
     out = []
     for arch in MESH_TP_ARCHS:
         cfg = dataclasses.replace(get_config(arch), **MESH_TP_LAYERS[arch])
-        seen = {"blocks": set(), "operands": 0, "attn_heads": set()}
+        seen = {"blocks": set(), "operands": 0, "attn_heads": set(), "decode_blocks": set(),
+                "per_rows": 0, "latent_heads": set()}
 
         def per_heads(real, fn, p, x, n_heads, *a, **kw):
+            decode = "own" in kw
+
             def inner(pl, xl, heads, *aa, **kk):
-                seen["blocks"].add((heads.lo, heads.hi, heads.n, heads.axis))
+                if decode:
+                    seen["decode_blocks"].add((heads.lo, heads.hi, heads.n, heads.axis,
+                                               int(pl["in_proj"].shape[-1])))
+                else:
+                    seen["blocks"].add((heads.lo, heads.hi, heads.n, heads.axis))
                 return fn(pl, xl, heads, *aa, **kk)
             return real(inner, p, x, n_heads, *a, **kw)
 
         def operands(real, x, w):
-            seen["operands"] += 1
+            seen["operands"] += w.ndim == 3
             return real(x, w)
 
         def per_head(real, fn, q, *a, **kw):
             seen["attn_heads"].add(int(q.to_local().shape[2]))
             return real(fn, q, *a, **kw)
 
+        def per_rows(real, *a, **kw):
+            seen["per_rows"] += 1
+            return real(*a, **kw)
+
+        def absorbed(real, q_nope, *a, **kw):
+            if isinstance(q_nope, DTensor):  # the sharded decode, not the plain one
+                model = q_nope.device_mesh.mesh_dim_names.index("model")
+                seen["latent_heads"].add((int(q_nope.to_local().shape[2]),
+                                          q_nope.placements[model].is_shard(2)))
+            return real(q_nope, *a, **kw)
+
         with _Recorded(hints, "per_heads", per_heads), \
-                _Recorded(hints, "heads_operands", operands), \
+                _Recorded(hints, "column_operands", operands), \
                 _Recorded(hints, "per_head", per_head):
             train, plain, _ = _mesh_train(torch, dev, mesh, cfg, seed,
                                           TRAIN_FAMILY_SEQ.get(arch, TRAIN_SEQ))
         del plain
         gc.collect()
         torch.cuda.empty_cache()
+        # a cut of dense layers alone leaves an MoE stack of no units, which
+        # neither package can prefill: the decode runs the same layers as
+        # one dense stack
+        scfg = (dataclasses.replace(cfg, moe=False, n_dense_layers=0, d_ff=cfg.d_ff_dense)
+                if cfg.moe and cfg.n_layers == cfg.n_dense_layers else cfg)
+        with _Recorded(hints, "per_heads", per_heads), _Recorded(hints, "per_rows", per_rows), \
+                _Recorded(mla, "_absorbed", absorbed):
+            serve = _mesh_serve(torch, dev, mesh, scfg, seed, torch.float32)
         heads = cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim if cfg.ssm else cfg.n_heads
-        out.append({"arch": cfg.name, "heads": heads, "train": train,
+        out.append({"arch": cfg.name, "heads": heads, "train": train, "serve": serve,
                     "ssd_chunks": train["seq"] // cfg.ssm_chunk if cfg.ssm else None,
+                    "in_proj_cols": (2 * cfg.ssm_expand * cfg.d_model
+                                     + 2 * cfg.ssm_groups * cfg.ssm_state + heads
+                                     if cfg.ssm else None),
                     "mixer_blocks": [list(b) for b in sorted(seen["blocks"])],
+                    "decode_blocks": [list(b) for b in sorted(seen["decode_blocks"])],
+                    "decode_per_rows_calls": seen["per_rows"],
                     "heads_operands_calls": seen["operands"],
-                    "attn_local_heads": sorted(seen["attn_heads"])})
+                    "attn_local_heads": sorted(seen["attn_heads"]),
+                    "decode_local_heads": [list(h) for h in sorted(seen["latent_heads"])]})
     return out
 
 
@@ -4436,10 +4478,13 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
     giving the plain decode's tokens, every MoE layer through
     ``hints.per_experts`` with its experts split over "model".  The
     head-split paths (``_mesh_tp``): mamba2-370m's (at 1024 positions, four
-    SSD chunks) and deepseek-v3's 2-layer steps held as llama's, the Mamba2 mixer through ``hints.per_heads`` on
-    the mesh (one block of every head), MLA's head products through
-    ``hints.heads_operands``.  No kernel
-    of the port launched.  Recorded: bit-for-bit equality of the sharded
+    SSD chunks) and deepseek-v3's 2-layer steps held as llama's, the Mamba2
+    mixer through ``hints.per_heads`` on the mesh (one block of every
+    head), MLA's head products through ``hints.column_operands``; their
+    weight-stationary decodes at the same cut (f32) giving the plain
+    decodes' tokens, the Mamba2 decode through ``per_heads`` on the mesh
+    (never ``per_rows``), MLA's query split by heads.  No
+    kernel of the port launched.  Recorded: bit-for-bit equality of the sharded
     and plain steps, both step walls, decode ms a token beside the plain
     path's (and llama's beside phase lm's), a sharded llama decode step's
     device profile."""
@@ -4546,10 +4591,17 @@ def mesh_lm_phase(torch, dev, seed: int, lm_decode_ms: float, counters: dict) ->
         assert t["params_diff_global_norm"] < ACCUM_PARAM_BAR, (rec["arch"], t)
         assert t["on_param_shardings"], f"a {rec['arch']} param or moment left its sharding"
     mamba, v3 = tp
-    # a (1, 1) mesh: one block of every head, on the mesh (its sum and gather)
+    for rec in tp:
+        assert rec["serve"]["tokens_equal"], (rec["arch"], "the decode's tokens differ")
+    # a (1, 1) mesh: one block of every head, on the mesh (its sum and gather),
+    # in the step and in the decode (in_proj's one block of columns)
     assert mamba["mixer_blocks"] == [[0, mamba["heads"], mamba["heads"], "model"]], mamba
+    assert mamba["decode_blocks"] == [[0, mamba["heads"], mamba["heads"], "model",
+                                       mamba["in_proj_cols"]]], mamba
+    assert mamba["decode_per_rows_calls"] == 0, "the Mamba2 decode took its per_rows fallback"
     assert mamba["ssd_chunks"] >= 4, "the mesh step ran too few SSD chunks to carry a state"
     assert v3["heads_operands_calls"] > 0 and v3["attn_local_heads"] == [v3["heads"]], v3
+    assert v3["decode_local_heads"] == [[v3["heads"], True]], v3
     assert not any(launched.values()), f"mesh_lm launched a kernel of the port: {launched}"
     return line
 

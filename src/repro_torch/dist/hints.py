@@ -13,13 +13,16 @@ over model, residual stream replicated over model.
 GSPMD also reshards by itself wherever a view needs it; DTensor does not,
 so port-only anchors sit where the model handles heads: ``split_heads``
 (the (B, S, H * hd) -> (B, S, H, hd) view of q, k and v),
-``heads_operands`` and ``like`` (MLA's head products and its rope key,
-split by heads over model) and ``per_head`` (attention run on each rank's
-own rows and heads); ``rows`` looks the token embedding up in the table
+``column_operands`` (the operands of every column-parallel product,
+``common.matmul`` lays them out where ``column_parallel`` holds, and of
+MLA's head products, split over model), ``like`` (MLA's rope key, split
+by heads over model) and ``per_head`` (attention run on each rank's own
+rows and heads); ``rows`` looks the token embedding up in the table
 gathered whole; ``per_rows`` runs a block on each rank's own rows with its
 weights gathered whole, ``per_experts`` the MoE on them with each rank's
 own experts, and ``per_heads`` the Mamba2 mixer with each rank's own
-heads.
+heads (its decode with ``in_proj`` and ``out_proj`` kept on their "model"
+split, ``model_block``).
 Inside the context plain tensors that the model builds (positions, RoPE
 tables, masks) count as replicated (``implicit_replication``).
 """
@@ -45,7 +48,7 @@ class activation_sharding:
     (defaults to the mesh's data axes).  ``anchor=False`` leaves ``act``,
     ``heads`` and ``ffn_hidden`` identities, as the reference's hints are
     outside their context, and keeps only the port-only reshards
-    (``split_heads``, ``heads_operands``, ``like``, ``per_head``, ``rows``
+    (``split_heads``, ``column_operands``, ``like``, ``per_head``, ``rows``
     and the ``per_*`` blocks) that DTensor needs where GSPMD reshards by
     itself: the dry-run's step without ``--hints``.
     """
@@ -129,23 +132,58 @@ def split_heads(x: torch.Tensor, n_heads: int, head_dim: int) -> torch.Tensor:
     return x.reshape(B, S, n_heads, head_dim)
 
 
-def heads_operands(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``x`` (..., r) and ``w`` (r, H, e) laid out for the product ``x @
-    w`` split by heads: under the context ``x`` keeps its batch split and is
-    gathered over every other mesh dim, ``w`` is split over model on H
-    (whole heads, where H divides; else gathered whole) and gathered over
-    the rest, so that DTensor's product gives each rank its own heads
-    without a collective.  GSPMD finds this layout by itself; DTensor,
-    given an ``x`` split over r (a column-parallel product before it),
-    sums a partial product of every head instead."""
+def column_operands(x: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x`` (..., r) and ``w`` (r, n, ...) laid out for the column-parallel
+    product ``x @ w`` (the dense FFN's gate and up, GQA's q, k and v, MLA's
+    down products) or the product split by heads (``w`` (r, H, e), MLA's
+    head products): under the context ``x`` keeps its batch split and is
+    gathered over every other mesh dim, ``w`` is split over model on dim 1
+    (its columns or whole heads, where n divides and ``x``'s rows do not
+    split over model; else gathered whole) and gathered over the rest, so
+    that DTensor's product gives each rank its own columns without a
+    collective.  GSPMD finds this layout by itself, with or without
+    anchors; DTensor, given an ``x`` split over r (a column-parallel
+    product before it) sums a partial product of every column, and given
+    an ``x`` that is a partial sum over model (a row-parallel product
+    before it, no anchor between) splits its rows over model and makes
+    every column.  Like ``split_heads`` it acts with the anchors off.  An
+    operand already on its layout is left as it is: the gradients of the
+    products that read it stay partial sums, which DTensor sums once where
+    they meet, not once a product."""
     if not (_ACTIVE and _dtensor(x) and _dtensor(w)):
         return x, w
     from torch.distributed.tensor import Replicate
 
     mesh = w.device_mesh
     rows = tuple(q if q.is_shard(0) else Replicate() for q in x.placements)
-    return _to(x, mesh, rows), _to(w, mesh, placements(
-        mesh, _divisible(P(None, "model", None), tuple(w.shape), mesh)))
+    spec = _divisible(P(None, "model"), tuple(w.shape), mesh)
+    cols = tuple(Replicate() if q.is_shard(0) else c
+                 for q, c in zip(rows, placements(mesh, spec)))
+    return tuple(t if tuple(t.placements) == want else _to(t, mesh, want)
+                 for t, want in ((x, rows), (w, cols)))
+
+
+def column_parallel(w: torch.Tensor) -> bool:
+    """Whether ``w`` is a DTensor under the context whose columns (dim 1)
+    "model" splits: a column-parallel weight of the rules."""
+    if not (_ACTIVE and _dtensor(w)) or "model" not in (w.device_mesh.mesh_dim_names or ()):
+        return False
+    return w.placements[w.device_mesh.mesh_dim_names.index("model")].is_shard(1)
+
+
+def summed(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with its partial sums summed under the context (its splits
+    kept); anything else, and a DTensor that holds no partial sum, as it
+    is.  Where the anchors are off, DTensor carries the residual stream
+    after a row-parallel product as a partial sum through the linear ops
+    of a norm, and every product that reads the norm's output sums it
+    again; GSPMD sums it once, at the norm."""
+    if not (_ACTIVE and _dtensor(x)) or not any(q.is_partial() for q in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return _to(x, x.device_mesh, tuple(Replicate() if q.is_partial() else q
+                                       for q in x.placements))
 
 
 def like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -162,12 +200,21 @@ def like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 
 def merge_heads(y: torch.Tensor) -> torch.Tensor:
-    """(B, S, H, hd) -> (B, S, H * hd).  Under the context a DTensor's
-    result goes through ``redistribute`` to the layout the view gave it, so
-    that in the backward pass its gradient comes back on that layout
-    before the view splits it into heads again: a product against ``wo``
-    may hand the gradient back split over model across a head's boundary
-    (24 heads over 16 ranks), which some torch releases refuse to view."""
+    """(B, S, H, hd) -> (B, S, H * hd).  Under the context a DTensor whose
+    head features (dim 3) split over a mesh dim is gathered over it first:
+    DTensor's rules may split them where the heads do not divide (MLA's
+    absorbed decode), and some torch releases refuse to flatten that
+    split.  The result goes through ``redistribute`` to the layout the view
+    gave it, so that in the backward pass its gradient comes back on that
+    layout before the view splits it into heads again: a product against
+    ``wo`` may hand the gradient back split over model across a head's
+    boundary (24 heads over 16 ranks), which some torch releases refuse to
+    view."""
+    if _ACTIVE and _dtensor(y) and any(q.is_shard(3) for q in y.placements):
+        from torch.distributed.tensor import Replicate
+
+        y = _to(y, y.device_mesh, tuple(Replicate() if q.is_shard(3) else q
+                                        for q in y.placements))
     out = y.reshape(y.shape[0], y.shape[1], -1)
     if _ACTIVE and _dtensor(out):
         out = _to(out, out.device_mesh, out.placements)
@@ -402,30 +449,39 @@ class Heads:
         return all_gather(t.detach().movedim(dim, 0), self.mesh, self.axis).movedim(0, dim)
 
 
-def per_heads(fn, p: dict, x: torch.Tensor, n_heads: int, *args, groups: int = 1, **kwargs):
+def per_heads(fn, p: dict, x: torch.Tensor, n_heads: int, *args, groups: int = 1,
+              own: dict | None = None, **kwargs):
     """``fn(p, x, heads, *args, **kwargs)``, a block of ``n_heads`` heads
     (the Mamba2 mixer), run by every rank on its own batch rows of the
     DTensor ``x`` as plain tensors and on its own block of heads, ``heads``
     (a ``Heads``: the ranks of the "model" axis split the heads evenly, in
     the order of their coordinate), with the params ``p`` gathered whole
-    (``fn`` takes its heads' share of them).  ``fn`` gives its block's share
-    of the result, a partial sum (a row-parallel product), or a tuple of it
-    and tensors that are whole on every rank of the axis (``heads.gather``
-    made them so: a prefill's state); the shares are summed over "model"
-    (an all-reduce, or a reduce-scatter back to ``x``'s split), the rest
-    come back DTensors on the rows' layout.  The heads share inputs by
+    (``fn`` takes its heads' share of them), except those that ``own``
+    names: ``own[name]`` is the dim of ``p[name]`` that the rules split
+    over "model", and where they do, ``fn`` gets the rank's block along it,
+    gathered over the other mesh dims only (``model_block``; the Mamba2
+    decode's ``in_proj`` columns and ``out_proj`` rows).  A DTensor in
+    ``args`` (a decode cache, split over the batch) goes in as its local
+    tensor, so that ``fn``'s in-place writes land in its shard, and the
+    rows follow its layout.  ``fn`` gives its block's share of the result,
+    a partial sum (a row-parallel product), or a tuple of it and tensors
+    that are whole on every rank of the axis (``heads.gather`` made them
+    so: a prefill's state, a decode's cache); the shares are summed over
+    "model" (an all-reduce, or a reduce-scatter back to ``x``'s split), the
+    rest come back DTensors on the rows' layout.  The heads share inputs by
     ``groups`` (Mamba2's B and C): a block must hold whole groups or lie
     within one.
 
     Gradients: every param's, a partial sum over the dims that split the
     rows and over "model" (the other blocks' columns get zeros from this
-    rank); ``x``'s, a partial sum over "model".  Where the heads do not
-    split evenly over "model" (or a block would cut a group), this is
-    ``per_rows`` with every head on every rank; on a mesh without a
-    "model" axis, one block of every head."""
-    from torch.distributed.tensor import DTensor
+    rank), a block's split over "model"; ``x``'s, a partial sum over
+    "model".  Where the heads do not split evenly over "model" (or a block
+    would cut a group), this is ``per_rows`` with every head on every rank
+    and every param whole; on a mesh without a "model" axis, one block of
+    every head."""
+    from torch.distributed.tensor import DTensor, Shard
 
-    from ..train._tree import tree_map
+    from ..train._tree import leaves, tree_map
 
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
@@ -435,17 +491,56 @@ def per_heads(fn, p: dict, x: torch.Tensor, n_heads: int, *args, groups: int = 1
     if n_heads % m or (size % rep and rep % size):
         return per_rows(lambda p_, x_, *a, **k: fn(p_, x_, Heads(0, n_heads, n_heads), *a, **k),
                         p, x, *args, **kwargs)
+    held = [v for v in leaves(list(args)) if _dtensor(v)]
+    if held:  # the rows follow the arguments' layout, as in per_rows
+        x = _to(x, mesh, held[0].placements)
     rows, share, grad, back, block = _blocks(x, () if d is None else (d,))
     heads = Heads(block * size, (block + 1) * size, n_heads, mesh,
                   None if d is None else "model")
-    local = tree_map(lambda v: _whole(v, grad), p)
-    out = fn(local, _to(x, mesh, rows).to_local(grad_placements=share), heads, *args, **kwargs)
+    own = own or {}
+
+    def param(name, v):
+        if name in own and d is not None:
+            return model_block(v, own[name], tuple(
+                Shard(own[name]) if i == d else g for i, g in enumerate(grad)))
+        return _whole(v, grad)
+
+    def local(v):
+        if not _dtensor(v):
+            return v
+        if tuple(v.placements) != rows:
+            raise ValueError(f"per_heads: an argument on {tuple(v.placements)}, the rows on {rows}")
+        return v.to_local()
+
+    out = fn({k: tree_map(lambda t, k=k: param(k, t), v) for k, v in p.items()},
+             _to(x, mesh, rows).to_local(grad_placements=share), heads,
+             *tree_map(local, args), **kwargs)
     y, rest = (out[0], out[1:]) if isinstance(out, tuple) else (out, None)
     y = DTensor.from_local(y, mesh, share).redistribute(mesh, back)
     if rest is None:
         return y
     return (y, *tree_map(lambda t: DTensor.from_local(t, mesh, rows)
                          if isinstance(t, torch.Tensor) else t, rest))
+
+
+def model_block(v, dim: int, grad: tuple):
+    """The DTensor ``v``'s block along ``dim`` that the rank's "model"
+    coordinate names, gathered over the other mesh dims only, as a plain
+    tensor whose gradient goes back on the placements ``grad``: a
+    column-parallel weight's columns, a row-parallel weight's rows.  Where
+    no rule splits ``dim`` over "model", ``v`` gathered whole (``_whole``,
+    the gradient a partial sum where ``grad`` splits ``dim``); anything
+    else as it is."""
+    if not _dtensor(v):
+        return v
+    from torch.distributed.tensor import Partial, Replicate
+
+    mesh = v.device_mesh
+    d = mesh.mesh_dim_names.index("model")
+    if not v.placements[d].is_shard(dim):
+        return _whole(v, tuple(Partial() if q.is_shard(dim) else q for q in grad))
+    want = tuple(q if i == d else Replicate() for i, q in enumerate(v.placements))
+    return _to(v, mesh, want).to_local(grad_placements=grad)
 
 
 def on_mesh(x) -> bool:

@@ -19,8 +19,11 @@ The cross-attention trio (``gqa.forward_cross``, ``cross_kv``,
 v pass through ``dist.hints.heads``, as in the reference: an identity off
 a mesh, a redistribution of a DTensor inside ``activation_sharding``.
 MLA's head products and its broadcast rope key are laid out by heads over
-model there (``hints.heads_operands``, ``hints.like``), so that each rank
-attends over its own heads, as GSPMD partitions the reference's.
+model there (``hints.column_operands``, ``hints.like``), so that each rank
+attends over its own heads, as GSPMD partitions the reference's; so does
+its absorbed decode, on DTensor's rules.  Every column-parallel product
+(q, k and v, MLA's down products) takes its operands' layout in
+``common.matmul``, with or without the anchors.
 Every GQA product promotes as JAX does (``common.matmul``): f32 frames
 through a bf16 whisper encoder stay f32, and so do the cross-attention
 K/V made from them.
@@ -150,8 +153,8 @@ def _heads_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     ``bsr,rhe->bshe``: one ``matmul``, whose product the remat policy
     keeps (an einsum would compute this product without batch dims as a
     ``bmm`` of batch 1, and the policy would recompute it).  On a mesh the
-    product is split by heads over model (``hints.heads_operands``)."""
-    x, w = hints.heads_operands(x, w)
+    product is split by heads over model (``hints.column_operands``)."""
+    x, w = hints.column_operands(x, w)
     return matmul(x, w.flatten(1)).unflatten(-1, w.shape[1:])
 
 
@@ -231,7 +234,11 @@ class mla:
         """Absorbed-latent decode: scores and values against the compressed
         cache, O(S (r_kv + d_rope)) per head.  Scores and the latent context
         accumulate in f32 (the reference's ``preferred_element_type``);
-        cache rows past ``pos`` take ``NEG_INF``."""
+        cache rows past ``pos`` take ``NEG_INF``.  On a mesh the query
+        comes split by heads (``_heads_proj``) and DTensor's rules keep that
+        split through the absorbed products, so each rank attends over its
+        own H/m heads against the latent cache and ``wo`` takes a partial
+        sum, as GSPMD partitions the reference's decode."""
         B = x.shape[0]
         positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
         q_nope, q_rope = mla._q(p, x, cfg, positions)       # (B,1,H,dn/dr)
@@ -239,19 +246,25 @@ class mla:
         ckv_store, kr_store = cache["c_kv"], cache["k_rope"]
         ckv_store[:, pos] = c_kv_new[:, 0].to(ckv_store.dtype)  # the cache may be narrower
         kr_store[:, pos] = k_rope_new[:, 0].to(kr_store.dtype)
-        ckv = ckv_store.to(x.dtype)
-        kr = kr_store.to(x.dtype)
+        y = mla._absorbed(q_nope, q_rope, p["w_uk"], p["w_uv"], ckv_store.to(x.dtype),
+                          kr_store.to(x.dtype), cfg, pos)
+        return matmul(hints.merge_heads(y), p["wo"]), cache
+
+    @staticmethod
+    def _absorbed(q_nope, q_rope, w_uk, w_uv, ckv, kr, cfg, pos: int):
+        """The absorbed attention of the queries (B, 1, H, dn / dr) through
+        ``w_uk`` and ``w_uv`` (r_kv, H, dn / dv) against the latent cache
+        ``ckv`` (B, S, r_kv) and ``kr`` (B, S, d_rope) -> (B, 1, H, dv)."""
         # absorb W_uk into the query: q_lat (B,1,H,rkv)
-        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, p["w_uk"])
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope, w_uk)
         s_lat = torch.einsum("bqhr,bsr->bhqs", _f32(q_lat), _f32(ckv))
         s_rope = torch.einsum("bqhd,bsd->bhqs", _f32(q_rope), _f32(kr))
         dh = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
         s = (s_lat + s_rope) / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32,
-                                                       device=x.device))
+                                                       device=ckv.device))
         S = ckv.shape[1]
-        valid = torch.arange(S, device=x.device)[None, None, None, :] < (pos + 1)
+        valid = torch.arange(S, device=ckv.device)[None, None, None, :] < (pos + 1)
         s = torch.where(valid, s, NEG_INF)
         w = torch.softmax(s, dim=-1)
         ctx_lat = torch.einsum("bhqs,bsr->bqhr", _f32(w.to(ckv.dtype)), _f32(ckv))
-        y = torch.einsum("bqhr,rhd->bqhd", ctx_lat.to(x.dtype), p["w_uv"])
-        return y.reshape(B, 1, -1) @ p["wo"], cache
+        return torch.einsum("bqhr,rhd->bqhd", ctx_lat.to(ckv.dtype), w_uv)

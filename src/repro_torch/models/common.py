@@ -91,7 +91,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     with f32 meet at f32, as a whisper encoder's f32 frames meet its bf16
     weights).  Inside ``saving_products`` it records or replays its
     product as one ``mm`` of ``a``'s rows (what ``@`` computes): the
-    reference's remat policy keeps these products."""
+    reference's remat policy keeps these products.  On a mesh a
+    column-parallel product (``b`` split over "model" on its columns)
+    takes its operands' layout from ``hints.column_operands``, with or
+    without the anchors."""
+    if hints.column_parallel(b):
+        a, b = hints.column_operands(a, b)
     if a.dtype != b.dtype:
         dt = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(dt), b.to(dt)
@@ -113,6 +118,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """On a mesh a partial sum (the residual stream after a row-parallel
+    product, with the anchors off) is summed first (``hints.summed``)."""
+    x = hints.summed(x)
     dt = x.dtype
     x32 = x.to(torch.float32)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)

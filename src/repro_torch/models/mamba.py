@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dist import hints
-from .common import dense_init, matmul, rms_norm
+from .common import dense_init, matmul
 
 __all__ = ["mamba2"]
 
@@ -70,12 +70,6 @@ class mamba2:
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _split(p, x, cfg, d_model):
-        di, H, P, G, N = _dims(cfg, d_model)
-        proj = matmul(x, p["in_proj"])  # (B,S,2di+2GN+H)
-        return torch.split(proj, [di, di, G * N, G * N, H], dim=-1)  # z, xs, B, C, dt
-
-    @staticmethod
     def _conv_train(p, u, K):
         """Causal depthwise conv along time: u (B,S,C)."""
         pad = F.pad(u, (0, 0, K - 1, 0))
@@ -99,24 +93,30 @@ class mamba2:
 
     @staticmethod
     def _block(p, cfg, d_model, heads, g0, g1) -> dict:
-        """The mixer's params for the heads of the block ``heads`` and the
-        groups [g0, g1) of B and C: in_proj's columns and the conv's
-        channels of them, the per-head vectors, norm_w's and out_proj's
-        rows of the heads' d_inner span."""
+        """The entries of ``p`` for the heads of the block ``heads`` and the
+        groups [g0, g1) of B and C: in_proj's columns (of the weight, or of
+        a decode's product) and the conv's channels of them (of its
+        weights, or of a decode's ``window``), the per-head vectors,
+        norm_w's and out_proj's rows of the heads' d_inner span (an
+        out_proj that holds only those rows as it is); no other entry."""
         di, H, P, G, N = _dims(cfg, d_model)
         h0, h1 = heads.lo, heads.hi
         xs, bc = (h0 * P, h1 * P), (g0 * N, g1 * N)
 
-        def cols(t, *spans):
-            return torch.cat([t[..., o + a:o + b] for o, (a, b) in spans], dim=-1)
+        def cols(*spans):
+            return lambda t: torch.cat([t[..., o + a:o + b] for o, (a, b) in spans], dim=-1)
+
+        def own(t):
+            return t[..., h0:h1]
 
         conv = ((0, xs), (di, bc), (di + G * N, bc))
-        return {"in_proj": cols(p["in_proj"], (0, xs), *((di + o, s) for o, s in conv),
+        take = {"in_proj": cols((0, xs), *((di + o, s) for o, s in conv),
                                 (2 * di + 2 * G * N, (h0, h1))),
-                "conv_w": cols(p["conv_w"], *conv), "conv_b": cols(p["conv_b"], *conv),
-                "A_log": p["A_log"][..., h0:h1], "dt_bias": p["dt_bias"][..., h0:h1],
-                "D": p["D"][..., h0:h1], "norm_w": p["norm_w"][..., xs[0]:xs[1]],
-                "out_proj": p["out_proj"][xs[0]:xs[1]]}
+                "conv_w": cols(*conv), "conv_b": cols(*conv), "window": cols(*conv),
+                "A_log": own, "dt_bias": own, "D": own,
+                "norm_w": lambda t: t[..., xs[0]:xs[1]],
+                "out_proj": lambda t: t[xs[0]:xs[1]] if t.shape[0] == di else t}
+        return {k: take[k](v) for k, v in p.items() if k in take}
 
     @staticmethod
     def _heads(p, x, heads, cfg, d_model: int, return_state: bool = False):
@@ -213,31 +213,56 @@ class mamba2:
     def forward_decode(p, x, cfg, cache, d_model: int):
         """x (B, 1, d); the O(1) state recurrence.  Shifts the conv window
         and replaces the state in the given cache, in place, and returns
-        it."""
+        it.  On a mesh every rank runs its own batch rows and its own block
+        of H/m heads (``hints.per_heads``) with ``in_proj`` and
+        ``out_proj`` kept on the rules' "model" split, gathered over the
+        data axes only, as GSPMD partitions the reference's decode."""
+        di, H, P, G, N = _dims(cfg, d_model)
         if hints.on_mesh(x):  # per rank, into its own rows of the cache
-            return hints.per_rows(mamba2.forward_decode, p, x, cfg, cache, d_model)
+            return hints.per_heads(mamba2._decode, p, x, H, cache, cfg, d_model, groups=G,
+                                   own={"in_proj": 1, "out_proj": 0})
+        return mamba2._decode(p, x, hints.Heads(0, H, H), cache, cfg, d_model)
+
+    @staticmethod
+    def _decode(p, x, heads, cache, cfg, d_model: int):
+        """``forward_decode`` for the block of heads ``heads`` (a
+        ``hints.Heads``; every head off a mesh) -> (the block's share of
+        out: a partial sum over the blocks, the cache).  ``in_proj`` is
+        whole or the rank's block of its columns, whose (B, 1, W / m)
+        product every block gathers; the block takes its heads' columns of
+        the product and of the conv window, and its share of the params
+        (``_block``).  The conv window of every channel and the state of
+        every head (``heads.gather``) go into the cache, which holds them
+        whole."""
         B = x.shape[0]
         di, H, P, G, N = _dims(cfg, d_model)
+        lo, hi = heads.lo, heads.hi
+        Hl, rep = hi - lo, H // G
+        r0, r1 = lo // rep, (hi - 1) // rep + 1  # the groups the heads read
+        proj = matmul(x, p["in_proj"])                                  # (B,1,W)
+        if proj.shape[-1] < 2 * di + 2 * G * N + H:  # every block's columns
+            proj = heads.gather(proj, 2)
+        window = torch.cat([cache["conv"], proj[..., di:2 * di + 2 * G * N]], dim=1)  # (B,K,C)
+        q = dict(p, in_proj=proj, window=window)
+        if Hl < H:
+            q = mamba2._block(q, cfg, d_model, heads, r0, r1)
+        dl, gl = Hl * P, (r1 - r0) * N
+        z, _, _, _, dt = torch.split(q["in_proj"], [dl, dl, gl, gl, Hl], dim=-1)
+        conv_out = F.silu(torch.einsum("bkc,kc->bc", q["window"], q["conv_w"])
+                          + q["conv_b"])[:, None, :]
+        xs, Bc, Cc = torch.split(conv_out, [dl, gl, gl], dim=-1)
 
-        z, xs, Bc, Cc, dt = mamba2._split(p, x, cfg, d_model)
-        u = torch.cat([xs, Bc, Cc], dim=-1)                             # (B,1,C)
-        window = torch.cat([cache["conv"], u], dim=1)                   # (B,K,C)
-        conv_out = F.silu(torch.einsum("bkc,kc->bc", window, p["conv_w"])
-                          + p["conv_b"])[:, None, :]
-        xs, Bc, Cc = torch.split(conv_out, [di, G * N, G * N], dim=-1)
-
-        dt = _softplus(dt.to(_F32) + p["dt_bias"])[:, 0]                # (B,H)
-        A = -torch.exp(p["A_log"])
-        dec = torch.exp(dt * A[None, :])                                # (B,H)
-        xh = xs.reshape(B, H, P).to(_F32)
-        rep = H // G
-        Bh = torch.repeat_interleave(Bc.reshape(B, G, N), rep, dim=1).to(_F32)  # (B,H,N)
-        Ch = torch.repeat_interleave(Cc.reshape(B, G, N), rep, dim=1).to(_F32)
+        dt = _softplus(dt.to(_F32) + q["dt_bias"])[:, 0]               # (B,Hl)
+        A = -torch.exp(q["A_log"])
+        dec = torch.exp(dt * A[None, :])                                # (B,Hl)
+        xh = xs.reshape(B, Hl, P).to(_F32)
+        Bh = torch.repeat_interleave(Bc.reshape(B, r1 - r0, N), Hl // (r1 - r0), dim=1).to(_F32)
+        Ch = torch.repeat_interleave(Cc.reshape(B, r1 - r0, N), Hl // (r1 - r0), dim=1).to(_F32)
         xbar = xh * dt[..., None]
-        h = cache["ssm"] * dec[:, :, None, None] + torch.einsum("bhn,bhp->bhnp", Bh, xbar)
-        y = torch.einsum("bhn,bhnp->bhp", Ch, h) + p["D"][None, :, None] * xh
-        y = y.reshape(B, 1, di).to(x.dtype)
-        y = rms_norm(y * F.silu(z), p["norm_w"], cfg.rms_eps)
-        cache["ssm"].copy_(h)
+        h = cache["ssm"][:, lo:hi] * dec[:, :, None, None] + torch.einsum(
+            "bhn,bhp->bhnp", Bh, xbar)
+        y = torch.einsum("bhn,bhnp->bhp", Ch, h) + q["D"][None, :, None] * xh
+        y = _gated_norm(y.reshape(B, 1, dl).to(x.dtype), z, q["norm_w"], cfg.rms_eps, heads, di)
+        cache["ssm"].copy_(heads.gather(h, 1))
         cache["conv"].copy_(window[:, 1:, :])
-        return y @ p["out_proj"], cache
+        return y @ q["out_proj"], cache

@@ -295,3 +295,159 @@ def test_mamba2_mixer_products_carry_only_the_ranks_heads(head_split_shapes):
     assert _products(made, rows, 98) == 4
     scan = [shape for shape, _ in made if len(shape) == 4 and shape[1:3] == [Q, Q]]
     assert scan and {s[3] for s in scan} == {Hl}, scan
+
+
+# The dry-run's default step (the anchors off, as without ``--hints``) on a
+# fake (2, 4) group, meta tensors, every config reduced: the reduced
+# llama3.2-3b and deepseek-v3 train steps (remat on), each local ``mm``
+# rank 0 makes in the model's code with the weight its line names; the
+# reduced mamba2 and deepseek-v3 decode steps (``build_cell``'s, FSDP params,
+# a 64-row cache), the shape of every storage rank 0 makes
+_ANCHORS_OFF = r"""
+import json
+import linecache
+import re
+import sys
+import torch
+import torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch._subclasses.fake_tensor import FakeTensor
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.dist import hints, make_mesh
+from repro_torch.dist.sharding import device_put
+from repro_torch.launch import analysis, dryrun
+
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+dryrun.get_config = lambda arch: get_config(arch).reduced()
+made = []
+dispatch = analysis._Trace.__torch_dispatch__
+
+def recorded(self, func, types, args=(), kwargs=None):
+    out = dispatch(self, func, types, args, kwargs)
+    if out is NotImplemented or not isinstance(out, torch.Tensor) or isinstance(out, FakeTensor):
+        return out
+    weight = None
+    if str(func) == "aten.mm.default":
+        # the weight named in the model's call that made the product (the
+        # call's own span of its line, where one line makes two products)
+        f, call = sys._getframe(), ""
+        while f is not None and ("repro_torch/models" not in f.f_code.co_filename
+                                 or "common.py" in f.f_code.co_filename):
+            f = f.f_back
+        if f is not None:
+            line, end, col, end_col = list(f.f_code.co_positions())[f.f_lasti // 2]
+            call = linecache.getline(f.f_code.co_filename, line)
+            if end == line and col is not None:
+                call = call[col:end_col]
+        names = re.findall(r'p\["(\w+)"\]', call)
+        weight = names[0] if names else None
+    made.append([list(out.shape), str(func), weight])
+    return out
+
+analysis._Trace.__torch_dispatch__ = recorded
+out = {}
+for arch, shape in (("llama3.2-3b", ShapeSpec("x", 64, 8, "train")),
+                    ("deepseek-v3-671b", ShapeSpec("x", 64, 8, "train")),
+                    ("mamba2-370m", ShapeSpec("x", 64, 8, "decode")),
+                    ("deepseek-v3-671b", ShapeSpec("x", 64, 8, "decode"))):
+    fn, args, shardings, _ = dryrun.build_cell(arch, shape, mesh, dtype=torch.float32)
+    args = device_put(args, shardings)
+    made.clear()
+    with hints.activation_sharding(mesh, anchor=False):
+        analysis.memory_trace(fn, *args)
+    out[arch + "|" + shape.step] = list(made)
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def anchors_off_shapes():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    run = subprocess.run([sys.executable, "-c", _ANCHORS_OFF], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-4000:]
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def _by_weight(made) -> dict:
+    """{weight: the set of (rows, columns) products rank 0 made with it}."""
+    out = {}
+    for shape, op, weight in made:
+        if op == "aten.mm.default" and weight is not None:
+            out.setdefault(weight, set()).add(tuple(shape))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "deepseek-v3-671b"])
+def test_column_parallel_products_keep_their_model_split_without_anchors(
+        anchors_off_shapes, arch):
+    """The dry-run's default train step (no ``--hints``): rank 0's dense FFN
+    products over its 4 x 64 rows carry d_ff / 4 = 32 of 128 columns, as
+    the reference's GSPMD makes them ((256, 32) in its partitioned HLO),
+    never the whole 128 on rows split over "model" too; llama's q product
+    carries its 1 head of 4 (16 columns) and k and v their 32 / 4 columns;
+    v3's down products w_dq and w_dkv their 32 / 4 columns and w_kr its 8 /
+    4 (and its shared expert's gate and up, a dense FFN of 32, 8 columns);
+    the FLOPs a rank makes are its share, not every column."""
+    products = _by_weight(anchors_off_shapes[arch + "|train"])
+    rows = 4 * 64
+    ffn = {(rows, 128 // 4)} | ({(rows, 32 // 4)} if arch == "deepseek-v3-671b" else set())
+    assert products["w_gate"] == products["w_up"] == ffn, products
+    if arch == "llama3.2-3b":
+        assert products["wq"] == {(rows, 16)}, products
+        assert products["wk"] == products["wv"] == {(rows, 8)}, products
+    else:
+        assert products["w_dq"] == products["w_dkv"] == {(rows, 8)}, products
+        assert products["w_kr"] == {(rows, 2)}, products
+    assert not any(s[1] == 128 for v in products.values() for s in v), products
+
+
+def test_mamba2_decode_carries_only_the_ranks_heads_and_no_whole_in_proj(
+        anchors_off_shapes):
+    """mamba2-370m reduced (8 heads of 16, in_proj (64, 296), out_proj (128,
+    64)) decoding one token of B = 8 on a fake (2, 4) group in the
+    dry-run's default step: rank 0 gathers in_proj over "data" only, to its
+    (64, 74) block of columns, and out_proj to its (32, 64) rows, never
+    either whole; its in_proj product is (4, 74) and its recurrence's
+    state (4, 2, 16, 16), its 2 heads, gathered back whole (4, 8, 16, 16)
+    for the cache."""
+    made = anchors_off_shapes["mamba2-370m|decode"]
+    shapes = [tuple(s) for s, _, _ in made]
+    assert (64, 74) in shapes and (32, 64) in shapes, sorted(set(shapes))
+    assert (64, 296) not in shapes and (128, 64) not in shapes
+    assert (4, 74) in shapes and (4, 2, 16, 16) in shapes and (4, 8, 16, 16) in shapes
+
+
+def test_mla_decode_carries_only_the_ranks_heads(anchors_off_shapes):
+    """deepseek-v3 reduced (4 MLA heads, r_kv 32) decoding one token of B =
+    8 against a 64-row latent cache on a fake (2, 4) group: every storage
+    of rank 0 with a head axis holds its 1 head, the absorbed query (4, 1,
+    1, 32) and the scores (4, 1, 1, 64), never all 4, and no block of w_uk
+    or w_uv (32, 4, 16) holds every head."""
+    made = anchors_off_shapes["deepseek-v3-671b|decode"]
+    shapes = {tuple(s) for s, _, _ in made}
+    assert (4, 1, 1, 32) in shapes and (4, 1, 1, 64) in shapes, sorted(shapes)
+    assert not {(4, 1, 4, 32), (4, 4, 1, 64), (4, 1, 4, 16), (4, 1, 4, 24),
+                (32, 4, 16), (16, 4, 16)} & shapes
+
+
+def test_moe_default_step_sums_expert_blocks_as_the_reference_does():
+    """deepseek-moe-16b reduced, the default train step (no hints) on a
+    (2, 4) mesh, through ``tools/mesh_collectives.py``: the reference's
+    partitioned HLO exchanges no tokens over "model" (its all-to-alls, if
+    any, stay within "data") and all-reduces over "model"; the port's rank
+    0, its residual whole over "model" at each norm, issues no all-to-all
+    (each "model" group routes the same rows) and sums the expert blocks'
+    shares by all-reduce."""
+    run = subprocess.run([sys.executable, str(ROOT / "tools" / "mesh_collectives.py"),
+                          "--arch", "deepseek-moe-16b"],
+                         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-4000:]
+    ref, port = (json.loads(line) for line in run.stdout.strip().splitlines()[-2:])
+    assert ref["side"] == "reference" and port["side"] == "port"
+    by_axes = ref["count_by_axes"]
+    assert not any(k.startswith("all-to-all over") and "model" in k for k in by_axes), by_axes
+    assert by_axes.get("all-reduce over model", 0) > 0, by_axes
+    assert "all-to-all" not in port["count"] and port["count"]["all-reduce"] > 0, port

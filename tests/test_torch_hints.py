@@ -71,6 +71,24 @@ def test_hints_inside_a_mesh_keep_plain_tensors_and_values(mesh):
         assert getattr(hints, name)(x) is x
 
 
+def test_merge_heads_gathers_split_head_features_before_the_flatten(mesh):
+    """A (B, S, H, hd) DTensor whose head features split over "model"
+    (DTensor's rules give MLA's absorbed decode that layout where the heads
+    do not divide) is gathered over that dim before the flatten, which some
+    torch releases refuse on such a split; its batch split stays, the
+    values and the gradient come through."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+    x = _tensors()["heads"]
+    d = distribute_tensor(x, mesh, (Shard(0), Shard(3))).requires_grad_()
+    with hints.activation_sharding(mesh):
+        y = hints.merge_heads(d)
+    assert isinstance(y, DTensor) and tuple(y.placements) == (Shard(0), Replicate())
+    assert torch.equal(y.full_tensor(), x.reshape(2, 8, 16))
+    y.sum().backward()
+    assert torch.equal(d.grad.full_tensor(), torch.ones_like(x))
+
+
 def test_activation_sharding_context_is_reentrant_and_restores(mesh):
     x = torch.ones((2, 4, 8))
     assert not hints._ACTIVE
